@@ -1,0 +1,508 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on an NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the repository root, one GPU
+
+1. Prints the card and its power limit, builds the Hopper kernels from
+   ``src/repro_torch/csrc/`` with nvcc for sm_90a.
+2. Kernel phase: both kernels, at STAGES=1 ('off') and STAGES=2
+   ('double_buffer'), against their plain torch versions on the card, at
+   every ResNet-8 conv geometry and the head GEMM at a wave of 64, plus
+   one larger GEMM, for A{8,4,2} x W{8,4,2} and all three epilogues.
+   Tolerance: none — outputs must be identical (bf16 bit for bit).
+3. Main path: full-width ResNet-8 from seeded random weights, quantized
+   on the card at W8, W4 and W2 and served by `VisionEngine` (waves of
+   64, 256 images); then one wave with the kernels' double-buffered
+   pipeline. Every kernel must have launched. The same fp weights and
+   absmax are quantized again on the CPU: every array of that artifact
+   must be byte-identical to the card's, and the logits must equal that
+   CPU net's run through the plain `torch` backend.
+4. Times each kernel per ResNet-8 wave (CUDA events) beside its plain
+   version, its bound, and a PyTorch library call where one computes the
+   same function, and prints them as one JSON line.
+
+The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
+so the exit code is non-zero and no such line is printed. Details go to
+``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SEED = 0
+WAVE = 64
+REQUESTS = 256
+WIDTHS = (8, 4, 2)
+BITS = [(a, w) for a in WIDTHS for w in WIDTHS]
+EPILOGUES = ("int", "raw", "dequant")
+BIG_GEMM = (4096, 1152, 64)
+# published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W)
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
+REPLACES = {
+    ("qmatmul", 1): "src/repro/kernels/qmatmul/kernel.py:61",
+    ("qmatmul", 2): "src/repro/kernels/qmatmul/kernel.py:81",
+    ("qconv", 1): "src/repro/kernels/qconv/kernel.py:64",
+    ("qconv", 2): "src/repro/kernels/qconv/kernel.py:108",
+}
+PIPELINE = {1: "off", 2: "double_buffer"}
+
+
+def say(phase: str, **fields):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def time_ms(fn, warmup: int, iters: int) -> float:
+    """Mean device ms per call over ``iters`` back-to-back calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(got, want) -> float:
+    import torch
+    if got.dtype == torch.bfloat16:
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            return float((got.float() - want.float()).abs().max())
+        return 0.0
+    return float((got.to(torch.float64) - want.to(torch.float64))
+                 .abs().max())
+
+
+class Case:
+    """One kernel call at one shape: random packed operands on the card,
+    the kernel at both stage counts and the plain version."""
+
+    def __init__(self, kind, shape, a_bits, w_bits, epilogue, gen, dev):
+        import torch
+        from repro_torch.core import packing
+        from repro_torch.kernels.qconv import kernel as ck
+
+        self.kind, self.shape = kind, shape
+        self.a_bits, self.w_bits, self.epilogue = a_bits, w_bits, epilogue
+
+        def ints(bits, signed, size):
+            lo, hi = packing.int_range(bits, signed)
+            return torch.randint(lo, hi + 1, size, generator=gen,
+                                 dtype=torch.int32).to(torch.int8).to(dev)
+
+        if kind == "qmatmul":
+            # K zero-padded to a CHUNK multiple, as `qdot` pads it
+            m, k, n = shape
+            self.x = packing.pack(packing.pad_to_chunk(
+                ints(a_bits, False, (m, k)), axis=-1), a_bits)
+            cout = n
+            self.w = packing.pack(packing.pad_to_chunk(
+                ints(w_bits, True, (k, n)), axis=0), w_bits, axis=0)
+            self.kw = {}
+        else:
+            b, h, w_, cin, cout, f, s, p = shape
+            cin_pad = packing.padded_size(cin)
+            wt = torch.nn.functional.pad(ints(w_bits, True, (f * f, cin,
+                                                             cout)),
+                                         (0, 0, 0, cin_pad - cin))
+            self.w = packing.pack(wt.reshape(-1, cout), w_bits, axis=0)
+            self.x = ck.pad_and_pack(ints(a_bits, False, (b, h, w_, cin)),
+                                     padding=p, cin_pad=cin_pad,
+                                     a_bits=a_bits)
+            ho, wo = ck.conv_out_hw(h, w_, f, f, s, p)
+            self.kw = dict(fh=f, fw=f, stride=s, ho=ho, wo=wo,
+                           cin_pad=cin_pad, cout=cout)
+        self.vecs = (
+            torch.randint(-127, 128, (cout,), generator=gen,
+                          dtype=torch.int32).to(dev),
+            torch.randint(-2**20, 2**20, (cout,), generator=gen,
+                          dtype=torch.int32).to(dev),
+            torch.randint(0, 2**15, (cout,), generator=gen,
+                          dtype=torch.int32).to(dev))
+        self.kw.update(a_bits=a_bits, a_signed=False, w_bits=w_bits, d=23,
+                       out_bits=a_bits, epilogue=epilogue, scale=0.0123)
+
+    def kernel(self, stages: int):
+        from repro_torch.kernels.qconv import kernel as ck
+        from repro_torch.kernels.qmatmul import kernel as gk
+        fn = (gk.qmatmul_packed_cuda if self.kind == "qmatmul"
+              else ck.qconv_packed_cuda)
+        return fn(self.x, self.w, *self.vecs, pipeline=PIPELINE[stages],
+                  **self.kw)
+
+    def plain(self):
+        from repro_torch.kernels.qconv import kernel as ck
+        from repro_torch.kernels.qmatmul import kernel as gk
+        fn = (gk.qmatmul_packed_torch if self.kind == "qmatmul"
+              else ck.qconv_packed_torch)
+        return fn(self.x, self.w, *self.vecs, **self.kw)
+
+    def bound(self):
+        """(bytes ms, operations ms) at the published peaks, for the work
+        the function needs (as `repro.obs.counters` counts packed bytes):
+        the unpadded operands at real Cin or K, packed to their widths and
+        read once; the epilogue's per-channel vectors only where it reads
+        them ('int': kappa, lambda, m; a scalar dequant scale is none);
+        the output written once; ops = 2 x real MACs."""
+        out_item = {"int": 1, "raw": 4, "dequant": 2}[self.epilogue]
+        a, w = self.a_bits / 8, self.w_bits / 8
+        if self.kind == "qmatmul":
+            m, k, n = self.shape
+            cout, macs, nout = n, m * k * n, m * n
+            nbytes = m * k * a + k * n * w
+        else:
+            b, h, w_, cin, cout, f, s, p = self.shape
+            ho, wo = self.kw["ho"], self.kw["wo"]
+            macs, nout = b * ho * wo * f * f * cin * cout, b * ho * wo * cout
+            nbytes = b * h * w_ * cin * a + f * f * cin * cout * w
+        if self.epilogue == "int":
+            nbytes += 3 * 4 * cout
+        nbytes += nout * out_item
+        return nbytes / PEAK_BYTES * 1e3, 2 * macs / PEAK_INT8_OPS * 1e3
+
+
+def resnet8_shapes(cfg, wave):
+    """(layer path, conv shape) per conv of the net, and the head GEMM
+    (M, real K, N)."""
+    from repro_torch.vision.models import trace_shapes
+    convs, head = [], None
+    for t in trace_shapes(cfg):
+        L, (h, w, c) = t["layer"], t["in"]
+        if L.kind == "conv":
+            convs.append((L.path, (wave, h, w, c, L.cout, L.fh, L.stride,
+                                   L.padding)))
+        elif L.kind == "linear":
+            head = (wave, c, L.cout)
+    return convs, head
+
+
+def kernel_phase(dev, convs, head, report):
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    worst = {(k, s): 0.0 for k in ("qmatmul", "qconv") for s in (1, 2)}
+    shapes = ([("qmatmul", head), ("qmatmul", BIG_GEMM)]
+              + [("qconv", s) for s in dict.fromkeys(s for _, s in convs)])
+    n_cmp = 0
+    for kind, shape in shapes:
+        for a_bits, w_bits in BITS:
+            for epi in EPILOGUES:
+                case = Case(kind, shape, a_bits, w_bits, epi, gen, dev)
+                want = case.plain()
+                for stages in (1, 2):
+                    err = max_abs_err(case.kernel(stages), want)
+                    torch.cuda.synchronize()
+                    worst[(kind, stages)] = max(worst[(kind, stages)], err)
+                    n_cmp += 1
+                    if err != 0.0:
+                        raise AssertionError(
+                            f"{kind} STAGES={stages} A{a_bits}W{w_bits} "
+                            f"{epi} at {shape}: max abs err {err}")
+    say("kernels", compared=n_cmp, shapes=len(shapes), all_exact=True)
+    report["kernel_phase"] = {"comparisons": n_cmp,
+                              "shapes": [list(s) for _, s in shapes]}
+    return worst
+
+
+def first_difference(a, b, path="net"):
+    """Path of the first field where two artifacts differ, tensors byte
+    for byte (dtype, shape and bits), or None when they are identical."""
+    import dataclasses
+    import torch
+    if isinstance(a, torch.Tensor):
+        if not isinstance(b, torch.Tensor) or a.dtype != b.dtype \
+                or a.shape != b.shape:
+            return path
+        same = torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+        return None if same else path
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        if type(a) is not type(b):
+            return path
+        pairs = [(getattr(a, f.name), getattr(b, f.name), f".{f.name}")
+                 for f in dataclasses.fields(a)]
+    elif isinstance(a, (tuple, list)):
+        if not isinstance(b, (tuple, list)) or len(a) != len(b):
+            return path
+        pairs = [(x, y, f"[{i}]") for i, (x, y) in enumerate(zip(a, b))]
+    elif isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return path
+        pairs = [(a[k], b[k], f"[{k!r}]") for k in a]
+    else:
+        return None if a == b else path
+    for x, y, sub in pairs:
+        diff = first_difference(x, y, path + sub)
+        if diff is not None:
+            return diff
+    return None
+
+
+def main_path(dev, cfg, report):
+    """Serve full-width ResNet-8 at W8/W4/W2 through the port; returns the
+    kernels' launch counts over exactly this run."""
+    import numpy as np
+    from repro_torch.convert import to_device
+    from repro_torch.kernels.qconv.kernel import KERNEL as QCONV
+    from repro_torch.kernels.qmatmul.kernel import KERNEL as QMATMUL
+    from repro_torch.launch.vision import uniform_plan
+    from repro_torch.serve.engine import VisionEngine
+    from repro_torch.vision.models import (collect_absmax, forward_int,
+                                           init_fp, quantize_input,
+                                           quantize_net,
+                                           streamed_weight_bytes)
+
+    rng = np.random.default_rng(SEED)
+    fp = init_fp(cfg, seed=SEED, device=dev)
+    calib = [rng.uniform(0, 1, size=(WAVE, *cfg.in_hw, cfg.in_ch)).astype(
+        np.float32) for _ in range(2)]
+    absmax = collect_absmax(cfg, fp, calib)
+    images = rng.uniform(0, 1, size=(REQUESTS, *cfg.in_hw, cfg.in_ch)
+                         ).astype(np.float32)
+    nets = {w_bits: quantize_net(cfg, fp, absmax,
+                                 plan=uniform_plan(cfg, w_bits, cfg.a_bits),
+                                 device=dev) for w_bits in WIDTHS}
+    # the kernels' double-buffered pipeline, through the plan's hint
+    qdb = quantize_net(cfg, fp, absmax,
+                       plan=uniform_plan(cfg, 8, cfg.a_bits,
+                                         pipeline="double_buffer"),
+                       device=dev)
+    # one untimed wave first: torch loads its own CUDA kernels lazily
+    VisionEngine(nets[8], batch_size=WAVE, device=dev).run(images[:WAVE])
+    QMATMUL.reset_launches()
+    QCONV.reset_launches()
+    served = {}
+    for w_bits, qnet in nets.items():
+        engine = VisionEngine(qnet, batch_size=WAVE, device=dev)
+        t0 = time.perf_counter()
+        logits = engine.run(images)          # returns host arrays: synced
+        wall = time.perf_counter() - t0
+        if logits.shape != (REQUESTS, cfg.num_classes) or \
+                logits.dtype != np.int32:
+            raise AssertionError(f"W{w_bits}: logits {logits.shape} "
+                                 f"{logits.dtype}")
+        waves = engine.utilization_report()["latency_us"]
+        req = engine.serving_report()["latency"]
+        served[w_bits] = logits
+        say("serve", w_bits=w_bits, images=REQUESTS, wave=WAVE,
+            images_per_s=round(REQUESTS / wall, 1),
+            wave_p50_ms=round(waves["p50"] / 1e3, 3),
+            wave_p95_ms=round(waves["p95"] / 1e3, 3),
+            request_p50_ms=round(req["p50"] * 1e3, 3),
+            request_p95_ms=round(req["p95"] * 1e3, 3),
+            streamed_weight_bytes=streamed_weight_bytes(qnet))
+        report.setdefault("serve", {})[f"W{w_bits}"] = {
+            "images_per_s": REQUESTS / wall, "wall_s": wall,
+            "wave_latency_us": waves, "request_latency_s": req,
+            "streamed_weight_bytes": streamed_weight_bytes(qnet)}
+    db = VisionEngine(qdb, batch_size=WAVE, device=dev).run(images[:WAVE])
+    launches = {"qmatmul": dict(QMATMUL.launches),
+                "qconv": dict(QCONV.launches)}
+    if not np.array_equal(db, served[8][:WAVE]):
+        raise AssertionError("double_buffer wave differs from 'off'")
+    say("serve", pipeline="double_buffer", images=WAVE, logits_equal=True)
+    # the same fp weights and absmax quantized on the CPU must give the
+    # card's artifact byte for byte; its plain torch run, the same logits
+    fp_cpu = to_device(fp, "cpu")
+    for w_bits, qnet in nets.items():
+        cpu = quantize_net(cfg, fp_cpu, absmax,
+                           plan=uniform_plan(cfg, w_bits, cfg.a_bits),
+                           device="cpu")
+        diff = first_difference(to_device(qnet, "cpu"), cpu)
+        if diff is not None:
+            raise AssertionError(f"W{w_bits}: the artifact quantized on the "
+                                 f"card differs from the CPU's at {diff}")
+        want = np.concatenate([
+            forward_int(cpu, quantize_input(cpu, images[i:i + WAVE]),
+                        backend="torch").numpy()
+            for i in range(0, REQUESTS, WAVE)])
+        if not np.array_equal(served[w_bits], want):
+            bad = int((served[w_bits] != want).any(-1).sum())
+            raise AssertionError(f"W{w_bits}: {bad} images' logits differ "
+                                 "from the CPU plain path")
+        say("check", w_bits=w_bits, artifact_equal_cpu=True,
+            logits_equal_cpu_plain=True,
+            argmax_classes=len(set(want.argmax(-1).tolist())))
+    for name, counts in launches.items():
+        for stages, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"{name} STAGES={stages} never "
+                                     "launched on the main path")
+    say("launches", **{f"{k}_s{s}": n for k, c in launches.items()
+                       for s, n in c.items()})
+    report["launches"] = launches
+    profile_wave(dev, nets[8], images[:WAVE], report)
+    return launches
+
+
+def _device_us(prof, names=()) -> float:
+    """Summed device time (us) of the profiled CUDA kernels whose name
+    holds one of ``names`` (every kernel when ``names`` is empty)."""
+    import torch
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (not names or any(n in e.key for n in names)))
+
+
+def profile_wave(dev, qnet, images, report):
+    """One served wave under torch.profiler: device time of the port's
+    kernels, of every other CUDA kernel, and the device's idle share of
+    the wave's wall time (None where the trace holds no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import VisionEngine
+    engine = VisionEngine(qnet, batch_size=WAVE, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(images)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ours = _device_us(prof, ("qconv_kernel", "qmatmul_kernel"))
+    busy = _device_us(prof) or None
+    row = {"wall_us": wall_us, "port_kernels_us": ours or None,
+           "all_device_us": busy,
+           "device_idle_share": None if busy is None
+           else max(0.0, 1.0 - busy / wall_us)}
+    say("profile", wave=f"W8x{len(images)}", **row)
+    report["profile_wave_W8"] = row
+
+
+def kernel_device_ms(cases, stages: int, reps: int = 10):
+    """Device time per pass over ``cases`` from torch.profiler's kernel
+    records (None when the trace holds no device time): the kernel alone,
+    without the host time of its wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    name = f"{cases[0].kind}_kernel"
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for c in cases:
+                c.kernel(stages)
+        torch.cuda.synchronize()
+    us = _device_us(prof, (name,))
+    return us / reps / 1e3 if us > 0 else None
+
+
+def timing_phase(dev, convs, head, report):
+    """Per-wave times of each kernel at the W8A8 main-path shapes (and
+    W4/W2 into the report), beside the plain version and the bound."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    rows = {}
+    for a_bits, w_bits in ((8, 8), (8, 4), (8, 2)):
+        for kind, layers, epi in (("qmatmul", [("head", head)], "raw"),
+                                  ("qconv", convs, "int")):
+            cases = [Case(kind, shape, a_bits, w_bits, epi, gen, dev)
+                     for _, shape in layers]
+            plain = sum(time_ms(c.plain, 1, 5) for c in cases)
+            bounds = [c.bound() for c in cases]
+            bound_ms = sum(max(b) for b in bounds)
+            bytes_ms = sum(b for b, _ in bounds)
+            ops_ms = sum(o for _, o in bounds)
+            for stages in (1, 2):
+                ms = sum(time_ms(lambda c=c: c.kernel(stages), 3, 20)
+                         for c in cases)
+                rows[(kind, stages, w_bits)] = {
+                    "ms": ms, "device_ms": kernel_device_ms(cases, stages),
+                    "plain_ms": plain, "bound_ms": bound_ms,
+                    "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                 else "operations"),
+                    "calls_per_wave": len(cases)}
+    # torch._int_mm on pre-unpacked int8 computes the raw GEMM; it takes
+    # the larger GEMM (the head's N = 10 is not a multiple of 8)
+    m, k, n = BIG_GEMM
+    big = Case("qmatmul", BIG_GEMM, 8, 8, "raw", gen, dev)
+    xu = torch.randint(-127, 128, (m, k), generator=gen,
+                       dtype=torch.int32).to(torch.int8).to(dev)
+    wu = torch.randint(-127, 128, (k, n), generator=gen,
+                       dtype=torch.int32).to(torch.int8).to(dev)
+    big_times = {"int_mm_ms": time_ms(lambda: torch._int_mm(xu, wu), 3, 20),
+                 "kernel_s1_ms": time_ms(lambda: big.kernel(1), 3, 20),
+                 "kernel_s2_ms": time_ms(lambda: big.kernel(2), 3, 20),
+                 "plain_ms": time_ms(big.plain, 1, 5),
+                 "bound_ms": max(big.bound())}
+    say("time", big_gemm="x".join(map(str, BIG_GEMM)),
+        **{k: round(v, 4) for k, v in big_times.items()})
+    report["timing"] = {f"{k}_s{s}_W{w}": v for (k, s, w), v in rows.items()}
+    report["big_gemm_a8w8_raw"] = big_times
+    for (kind, stages, w_bits), r in rows.items():
+        say("time", kernel=kind, stages=stages, a_bits=8, w_bits=w_bits,
+            ms_per_wave=round(r["ms"], 4), device_ms=r["device_ms"],
+            plain_ms=round(r["plain_ms"], 4),
+            bound_ms=round(r["bound_ms"], 5), calls=r["calls_per_wave"])
+    return rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.qconv.kernel import KERNEL as QCONV
+    from repro_torch.kernels.qmatmul.kernel import KERNEL as QMATMUL
+    from repro_torch.vision.configs import get_vision_config
+
+    # fp reference convs and matmuls in full float32 on the card
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    report = {"nvidia_smi": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda,
+              "device": torch.cuda.get_device_name(0)}
+    build_s = build_all([QMATMUL, QCONV])
+    say("build", seconds=round(build_s, 1), arch="sm_90a",
+        sources="src/repro_torch/csrc/{qmatmul,qconv}.cu")
+    report["build_s"] = build_s
+
+    cfg = get_vision_config("resnet8")
+    convs, head = resnet8_shapes(cfg, WAVE)
+    worst = kernel_phase(dev, convs, head, report)
+    launches = main_path(dev, cfg, report)
+    rows = timing_phase(dev, convs, head, report)
+
+    kernels = []
+    for kind, src in (("qmatmul", "qmatmul.cu"), ("qconv", "qconv.cu")):
+        for stages in (1, 2):
+            r = rows[(kind, stages, 8)]
+            kernels.append({
+                "name": f"{kind}[STAGES={stages}]", "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}",
+                "replaces": REPLACES[(kind, stages)],
+                "launches": launches[kind][stages],
+                "max_abs_err": worst[(kind, stages)],
+                "ms": r["ms"], "device_ms": r["device_ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None})
+    report["kernels"] = kernels
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1,
+                                                    default=str))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

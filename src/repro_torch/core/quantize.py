@@ -1,0 +1,166 @@
+"""Integer-image quantization algebra — paper §III-A, eqs. (1)-(4).
+
+    t = alpha + eps * t_hat                                           (1)
+    phi_hat   = sum_n w_hat[m,n] * x_hat[n]        (int32 accum)      (2)
+    phi'_hat  = kappa_hat * phi_hat + lambda_hat   (int32, wraps)     (3)
+    y_hat     = clip((m * phi'_hat) >> d, 0, 2^N-1)                   (4)
+
+Every integer here matches ``repro.core.quantize`` exactly: the int32 wrap
+of eq. 3, the floor of the hi/lo requant split, and the float32 division
+that places codes on the grid (the reference divides in float32 because
+jnp casts the Python-float eps to the array's dtype; so does `quantize`).
+The BN fold is float64 host math (numpy), as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import packing
+
+M_BITS = 15  # requant multiplier m in [0, 2^15)
+D_MIN, D_MAX = 16, 31
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Affine quantization grid for one tensor (eq. 1)."""
+
+    bits: int
+    signed: bool
+    alpha: float
+    beta: float
+
+    @property
+    def eps(self) -> float:
+        if self.signed:
+            return self.beta / self.int_max
+        return (self.beta - self.alpha) / self.int_max
+
+    @property
+    def int_min(self) -> int:
+        if self.signed:
+            return -self.int_max  # symmetric grid
+        return packing.int_range(self.bits, self.signed)[0]
+
+    @property
+    def int_max(self) -> int:
+        return packing.int_range(self.bits, self.signed)[1]
+
+    @staticmethod
+    def activation(bits: int, beta: float) -> "QuantSpec":
+        return QuantSpec(bits=bits, signed=False, alpha=0.0, beta=beta)
+
+    @staticmethod
+    def weight(bits: int, absmax: float) -> "QuantSpec":
+        return QuantSpec(bits=bits, signed=True, alpha=-absmax, beta=absmax)
+
+
+def quantize(t: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Real tensor -> integer image (int8 container), eq. (1) inverted.
+
+    The divisor is a float32 tensor on ``t``'s device: a Python-scalar
+    divisor would let CUDA multiply by its reciprocal, which moves codes
+    that land on .5 boundaries.
+    """
+    zero = 0.0 if spec.signed else spec.alpha
+    eps = torch.tensor(spec.eps, dtype=torch.float32, device=t.device)
+    t_hat = torch.round((t.to(torch.float32) - zero) / eps)
+    t_hat = torch.clamp(t_hat, spec.int_min, spec.int_max)
+    return t_hat.to(torch.int8)
+
+
+def dequantize(t_hat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    zero = 0.0 if spec.signed else spec.alpha
+    return zero + spec.eps * t_hat.to(torch.float32)
+
+
+def wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced mod 2^32 into the int32 range (two's
+    complement), still as int64 — how int32 arithmetic wraps."""
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def requantize_shift(phi: torch.Tensor, m, d: int) -> torch.Tensor:
+    """Exact ``(m * phi) >> d`` (floor) with the reference's int32 hi/lo
+    split, for d in [16, 31]; every product wraps as int32 would.
+
+    With hi = phi >> 16 and lo = phi & 0xFFFF,
+    m*phi = (m*hi + ((m*lo) >> 16)) * 2^16 + ((m*lo) & 0xFFFF), so for
+    s = d - 16 the floor of m*phi / 2^d is ``a >> s``.
+    """
+    phi = phi.to(torch.int64)
+    m = torch.as_tensor(m, device=phi.device).to(torch.int64)
+    hi = phi >> 16
+    lo = phi & 0xFFFF
+    mlo = wrap_int32(m * lo)
+    a = wrap_int32(wrap_int32(m * hi) + (mlo >> 16))
+    return (a >> (d - 16)).to(torch.int32)
+
+
+def requantize_shift_i64(phi, m, d):
+    """numpy int64 oracle for :func:`requantize_shift`."""
+    phi = np.asarray(phi, dtype=np.int64)
+    m = np.asarray(m, dtype=np.int64)
+    return ((m * phi) >> d).astype(np.int64)
+
+
+def qnt_act(phi_prime: torch.Tensor, m, d: int,
+            out_bits: int) -> torch.Tensor:
+    """Eq. (4): requantize + clip to the unsigned N-bit grid."""
+    y = requantize_shift(phi_prime, m, d)
+    hi = packing.int_range(out_bits, False)[1]
+    return torch.clamp(y, 0, hi).to(torch.int8)
+
+
+def pick_requant_md(ratio: float, d_min: int = D_MIN) -> tuple:
+    """Largest-precision ``(m, d)`` with ``m = round(ratio * 2^d) < 2^15``."""
+    ratio = float(ratio)
+    if ratio <= 0:
+        raise ValueError("invalid quanta")
+    d = min(D_MAX, int(np.floor(np.log2((1 << M_BITS) - 1) - np.log2(ratio))))
+    if d < d_min:
+        raise ValueError(
+            f"requant ratio {ratio} too large for int32 requant "
+            f"(d={d} < {d_min}); re-calibrate output quantum")
+    return int(np.round(ratio * (1 << d))), d
+
+
+def fold_bn_requant(eps_w: float, eps_x: float, eps_y: float,
+                    bn_scale: torch.Tensor, bn_bias: torch.Tensor,
+                    bits_out: int, kappa_bits: int = 8):
+    """Integer BN + QNT/ACT parameters from real-valued BN (float64 host
+    math). Returns (kappa i32[n], lambda i32[n], m i32[n], d) with the
+    three vectors on ``bn_scale``'s device."""
+    device = bn_scale.device
+    bn_scale = bn_scale.detach().cpu().numpy().astype(np.float64)
+    bn_bias = bn_bias.detach().cpu().numpy().astype(np.float64)
+    eps_phi = float(eps_w) * float(eps_x)
+    kmax = max(np.abs(bn_scale).max(), 1e-12)
+    eps_kappa = kmax / ((1 << (kappa_bits - 1)) - 1)
+    kappa_hat = np.round(bn_scale / eps_kappa).astype(np.int32)
+    eps_phi_p = eps_phi * eps_kappa
+    lambda_hat = np.round(bn_bias / eps_phi_p).astype(np.int32)
+    m_scalar, d = pick_requant_md(eps_phi_p / float(eps_y))
+    m = np.broadcast_to(np.int32(m_scalar), bn_scale.shape).copy()
+    return (torch.from_numpy(kappa_hat).to(device),
+            torch.from_numpy(lambda_hat).to(device),
+            torch.from_numpy(m).to(device), d)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedLinearParams:
+    """Everything the integer GEMM needs — the deployable artifact."""
+
+    w_packed: torch.Tensor  # (K_pad/pf, N) int8 containers, chunk-planar
+    w_bits: int
+    a_bits: int
+    a_signed: bool
+    kappa: torch.Tensor     # (N,) int32
+    lam: torch.Tensor       # (N,) int32
+    m: torch.Tensor         # (N,) int32
+    d: int
+    out_bits: int
+    k_logical: int          # pre-padding K

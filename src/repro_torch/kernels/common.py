@@ -1,0 +1,91 @@
+"""Shared pieces of the two integer kernels and their plain versions.
+
+Both kernels run the paper's per-tile pipeline:
+
+    unpack(W, X) -> int8        (nibble/crumb operands, Table II)
+    int8 x int8 -> int32        (sum-of-dot-product, eq. 2)
+    kappa*acc + lambda          (integer batch-norm, eq. 3, int32 wrap)
+    (m * .) >> d, clip          (QNT/ACT, eq. 4)  [epilogue='int']
+
+`matmul_planes` and `apply_epilogue` are the plain torch versions of the
+kernels' contraction and epilogue. The contraction is int32 `torch.mm` on
+the CPU; CUDA has no integer `mm`, so there it runs in float64, which is
+exact because every partial sum stays far below 2^53.
+
+The CUDA kernels compile one tile (64 x 64 outputs, one CHUNK of K per
+stage, ``csrc/common.cuh``), so there is no block to select: the
+reference's VMEM block selectors have no counterpart, and the tile's
+shared memory is checked against the sm_90 limit when it compiles.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.core.quantize import requantize_shift, wrap_int32
+
+EPILOGUES = ("int", "dequant", "raw")
+EPILOGUE_DTYPES = {"int": torch.int8, "dequant": torch.bfloat16,
+                   "raw": torch.int32}
+
+# Software-pipeline modes — the Mac&Load knob. 'off' copies each K tile
+# (qdot) or receptive-field tap (qconv) and then contracts it; with
+# 'double_buffer' the copy of tile k+1 is in flight while tile k is
+# contracted. The CUDA kernels take them as STAGES = 1 and STAGES = 2.
+PIPELINE_MODES = ("off", "double_buffer")
+PIPELINE_STAGES = {"off": 1, "double_buffer": 2}
+
+
+def check_pipeline(mode: str) -> str:
+    if mode not in PIPELINE_MODES:
+        raise ValueError(
+            f"unknown pipeline mode {mode!r}; expected one of "
+            f"{PIPELINE_MODES}")
+    return mode
+
+
+def round_up(x: int, mult: int) -> int:
+    return x + (-x) % mult
+
+
+# --------------------------------------------------------- plain versions ---
+
+def int_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact."""
+    if x.is_cuda:
+        acc = torch.mm(x.to(torch.float64), w.to(torch.float64))
+        return wrap_int32(acc.to(torch.int64)).to(torch.int32)
+    return torch.mm(x.to(torch.int32), w.to(torch.int32))
+
+
+def matmul_planes(x_block: torch.Tensor, w_block: torch.Tensor,
+                  a_bits: int, a_signed: bool, w_bits: int) -> torch.Tensor:
+    """Packed sub-byte dot product -> int32: x_block (M, K/pf_a) packed
+    along K, w_block (K/pf_w, N) packed along K, both chunk-planar."""
+    x = packing.unpack(x_block, a_bits, a_signed, axis=-1)
+    w = packing.unpack(w_block, w_bits, True, axis=0)
+    return int_matmul(x, w)
+
+
+def apply_epilogue(acc: torch.Tensor, kappa: torch.Tensor, lam: torch.Tensor,
+                   m_mul: torch.Tensor, *, d: int, out_bits: int,
+                   epilogue: str, scale) -> torch.Tensor:
+    """Epilogue on an int32 accumulator; per-channel vectors broadcast
+    along the last (output-channel) axis.
+
+    'int':     eq. 3 with int32 wrap, then eq. 4 requant + clip -> int8.
+    'dequant': float32 rescale (scalar or (N,) scale) -> bfloat16 (RNE).
+    'raw':     the int32 accumulators.
+    """
+    if epilogue == "int":
+        phi = wrap_int32(acc.to(torch.int64) * kappa.to(torch.int64)
+                         + lam.to(torch.int64))
+        y = requantize_shift(phi, m_mul, d)
+        hi = packing.int_range(out_bits, False)[1]
+        return torch.clamp(y, 0, hi).to(torch.int8)
+    if epilogue == "dequant":
+        s = torch.as_tensor(scale, dtype=torch.float32, device=acc.device)
+        return (acc.to(torch.float32) * s).to(torch.bfloat16)
+    if epilogue == "raw":
+        return acc.to(torch.int32)
+    raise ValueError(f"unknown epilogue {epilogue!r}; expected {EPILOGUES}")

@@ -1,0 +1,130 @@
+"""Packed sub-byte integer GEMM: the CUDA kernel and its plain version.
+
+`qmatmul_packed` dispatches on the tensors' device: CUDA tensors launch
+the Hopper kernel (``csrc/qmatmul.cu``, STAGES=1 for pipeline 'off',
+STAGES=2 for 'double_buffer'); CPU tensors run `qmatmul_packed_torch`,
+the same unpack -> contract -> epilogue in torch. There is no fallback
+from one to the other: a CUDA call that cannot launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.common import (EPILOGUE_DTYPES, EPILOGUES,
+                                        PIPELINE_STAGES, apply_epilogue,
+                                        check_pipeline, matmul_planes)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel(
+    "qmatmul", "qmatmul.cu", "qmatmul_launch",
+    [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P] + [_I] * 10 + [_P])
+
+
+def qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
+                         a_signed: bool, w_bits: int, d: int, out_bits: int,
+                         epilogue: str = "int", scale=1.0) -> torch.Tensor:
+    """Plain version: x (M, K/pf_a) @ w (K/pf_w, N), both packed along K,
+    then the epilogue. Runs on whatever device the tensors are on."""
+    acc = matmul_planes(x, w_packed, a_bits, a_signed, w_bits)
+    return apply_epilogue(acc, kappa, lam, m_mul, d=d, out_bits=out_bits,
+                          epilogue=epilogue, scale=scale)
+
+
+def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{t.device}; CPU tensors take the plain version")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name}: expected a {ndim}-D {dtype} tensor, got "
+                         f"{t.dim()}-D {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start 16-byte aligned for cp.async")
+
+
+def epilogue_launch_args(kappa, lam, m_mul, *, n: int, d: int,
+                         out_bits: int, epilogue: str, scale, device):
+    """Checked epilogue operands of a kernel launch: (kappa, lam, m,
+    per-channel scale tensor or None, scalar scale, d, hi, code)."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; expected "
+                         f"{EPILOGUES}")
+    for t, name in ((kappa, "kappa"), (lam, "lam"), (m_mul, "m")):
+        _check(t, name, torch.int32, device, 1)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} channels, "
+                             f"expected {n}")
+    if epilogue == "int" and not 16 <= d <= 31:
+        raise ValueError(f"requant shift d={d} outside [16, 31]")
+    scale_vec, scale_f = None, 1.0
+    if not isinstance(scale, (int, float)):
+        scale = torch.as_tensor(scale)
+    if isinstance(scale, torch.Tensor) and scale.dim() == 1:
+        scale_vec = scale.to(device=device, dtype=torch.float32).contiguous()
+        if scale_vec.shape[0] != n:
+            raise ValueError(f"scale has {scale_vec.shape[0]} channels, "
+                             f"expected {n}")
+    else:
+        scale_f = float(scale)
+    hi = packing.int_range(out_bits, False)[1]
+    return (kappa, lam, m_mul, scale_vec, scale_f, d, hi,
+            EPILOGUES.index(epilogue))
+
+
+def qmatmul_packed_cuda(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
+                        a_signed: bool, w_bits: int, d: int, out_bits: int,
+                        epilogue: str = "int", scale=1.0,
+                        pipeline: str = "off") -> torch.Tensor:
+    """Launch the Hopper kernel on CUDA tensors (raises on anything it
+    does not take)."""
+    stages = PIPELINE_STAGES[check_pipeline(pipeline)]
+    dev = x.device
+    _check(x, "x", torch.int8, dev, 2)
+    _check(w_packed, "w_packed", torch.int8, dev, 2)
+    pf_a, pf_w = packing.pack_factor(a_bits), packing.pack_factor(w_bits)
+    m, k = x.shape[0], x.shape[1] * pf_a
+    n = w_packed.shape[1]
+    if w_packed.shape[0] * pf_w != k or k % packing.CHUNK:
+        raise ValueError(
+            f"x {tuple(x.shape)} (A{a_bits}) and w {tuple(w_packed.shape)} "
+            f"(W{w_bits}) disagree on K, or K={k} is not a CHUNK multiple")
+    kappa, lam, m_mul, svec, sf, d, hi, code = epilogue_launch_args(
+        kappa, lam, m_mul, n=n, d=d, out_bits=out_bits, epilogue=epilogue,
+        scale=scale, device=dev)
+    out = torch.empty((m, n), dtype=EPILOGUE_DTYPES[epilogue], device=dev)
+    if m == 0 or n == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        KERNEL.launch(
+            stages, x.data_ptr(), w_packed.data_ptr(), kappa.data_ptr(),
+            lam.data_ptr(), m_mul.data_ptr(),
+            None if svec is None else svec.data_ptr(), sf, out.data_ptr(),
+            m, n, k, a_bits, w_bits, int(a_signed), d, hi, code, stages,
+            stream)
+    return out
+
+
+def qmatmul_packed(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
+                   a_signed: bool, w_bits: int, d: int, out_bits: int,
+                   epilogue: str = "int", scale=1.0,
+                   pipeline: str = "off") -> torch.Tensor:
+    """Packed GEMM: x (M, K/pf_a) @ w (K/pf_w, N) with the fused epilogue.
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    check_pipeline(pipeline)
+    if x.is_cuda:
+        return qmatmul_packed_cuda(
+            x, w_packed, kappa, lam, m_mul, a_bits=a_bits, a_signed=a_signed,
+            w_bits=w_bits, d=d, out_bits=out_bits, epilogue=epilogue,
+            scale=scale, pipeline=pipeline)
+    return qmatmul_packed_torch(
+        x, w_packed, kappa, lam, m_mul, a_bits=a_bits, a_signed=a_signed,
+        w_bits=w_bits, d=d, out_bits=out_bits, epilogue=epilogue,
+        scale=scale)

@@ -1,0 +1,207 @@
+"""Quantized vision layers — the PULP-NN layer set over `kernels.api`.
+
+Every compute layer keeps activations as integer images (uint{8,4,2}
+values in int8 tensors) between layers, with int32 accumulation inside
+and the eq. 3/4 requant epilogue at its output:
+
+  QConv2D        one `api.qconv` call (fused implicit-GEMM kernel)
+  QLinear        `api.qdot` (classifier head; 'raw' int32 logits)
+  QMaxPool2D     grid-preserving integer max — no requantization
+  QAvgPool2D     int32 window sum + eq. 4 requant (`requantize_shift`)
+  QResidualAdd   two-scale integer add: y = clip((m1*a + m2*b) >> d)
+
+The fp applies (`conv2d_fp`, ...) are the calibration-time forward, in
+NHWC like the reference. Depthwise and segmented convs are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import packing
+from repro_torch.core.calibration import calibrate_weight
+from repro_torch.core.quantize import (QuantSpec, QuantizedLinearParams,
+                                       pick_requant_md, quantize,
+                                       requantize_shift, wrap_int32)
+from repro_torch.kernels import api
+from repro_torch.kernels.qconv.ops import QuantizedConvParams, quantize_conv
+
+# ------------------------------------------------------- fp reference ---
+
+
+def conv2d_raw(x: torch.Tensor, w: torch.Tensor, *, stride: int,
+               padding: int) -> torch.Tensor:
+    """Raw fp conv: x (N,H,W,Cin) f32, w (fh,fw,Cin,Cout) -> NHWC."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv2d_fp(p: dict, x: torch.Tensor, *, stride: int, padding: int,
+              relu: bool = True) -> torch.Tensor:
+    """fp conv + BN + ReLU; p: {"w": (fh,fw,cin,cout), "bn_scale",
+    "bn_bias"}."""
+    y = conv2d_raw(x, p["w"], stride=stride, padding=padding)
+    y = y * p["bn_scale"] + p["bn_bias"]
+    return torch.clamp_min(y, 0.0) if relu else y
+
+
+def linear_fp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """fp classifier head (no BN/activation); p["w"]: (d_in, classes)."""
+    return x @ p["w"]
+
+
+def maxpool_fp(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def avgpool_global_fp(x: torch.Tensor) -> torch.Tensor:
+    return torch.mean(x, dim=(1, 2))
+
+
+# ----------------------------------------------------- requant folds ---
+
+def fold_avgpool_requant(count: int, eps_x: float, eps_y: float):
+    """(m, d) for integer average pooling over ``count`` elements."""
+    return pick_requant_md(float(eps_x) / (float(eps_y) * count))
+
+
+def fold_add_requant(eps_a: float, eps_b: float, eps_y: float):
+    """(m1, m2, d) for the two-scale residual add; operands are < 2^8, so
+    m*x fits int32 without the hi/lo split and d may go below 16."""
+    r1 = float(eps_a) / float(eps_y)
+    r2 = float(eps_b) / float(eps_y)
+    _, d = pick_requant_md(max(r1, r2), d_min=0)
+    return (int(np.round(r1 * (1 << d))), int(np.round(r2 * (1 << d))), d)
+
+
+# -------------------------------------------------- quantized layers ---
+
+def _windows(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N, Ho, Wo, C, window, window) VALID windows."""
+    return x.unfold(1, window, stride).unfold(2, window, stride)
+
+
+@dataclasses.dataclass(frozen=True)
+class QConv2D:
+    """One quantized conv layer: `api.qconv` + fused eq. 3/4 epilogue.
+    ``backend``/``pipeline`` come from the plan; call-time values win."""
+
+    conv: QuantizedConvParams
+    backend: Optional[str] = None
+    pipeline: Optional[str] = None
+
+    def apply(self, x_hat, *, backend: Optional[str] = None,
+              pipeline: Optional[str] = None):
+        return api.qconv(self.conv, x_hat, backend=backend or self.backend,
+                         pipeline=pipeline or self.pipeline)
+
+
+@dataclasses.dataclass(frozen=True)
+class QLinear:
+    """Quantized fully-connected head via `api.qdot`; 'raw' keeps int32
+    logits (dequantize with the net's ``eps_logits``)."""
+
+    gemm: QuantizedLinearParams
+    epilogue: str = "raw"
+    backend: Optional[str] = None
+    pipeline: Optional[str] = None
+
+    def apply(self, x_hat, *, backend: Optional[str] = None,
+              pipeline: Optional[str] = None):
+        return api.qdot(self.gemm, x_hat, epilogue=self.epilogue,
+                        backend=backend or self.backend,
+                        pipeline=pipeline or self.pipeline)
+
+
+@dataclasses.dataclass(frozen=True)
+class QMaxPool2D:
+    """Integer max pooling: order-preserving on the uint grid, so the
+    output keeps the input's grid (no requantization)."""
+
+    window: int
+    stride: int
+
+    def apply(self, x_hat):
+        return _windows(x_hat, self.window, self.stride).amax(dim=(-2, -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class QAvgPool2D:
+    """Integer average pooling: int32 window sum + eq. 4 requant (floor).
+    ``window == 0`` means global pooling, returning (N, C)."""
+
+    window: int
+    stride: int
+    m: int
+    d: int
+    out_bits: int
+
+    def apply(self, x_hat):
+        x64 = x_hat.to(torch.int64)
+        if self.window == 0:
+            s = x64.sum(dim=(1, 2))
+        else:
+            s = _windows(x64, self.window, self.stride).sum(dim=(-2, -1))
+        y = requantize_shift(wrap_int32(s), self.m, self.d)
+        hi = packing.int_range(self.out_bits, False)[1]
+        return torch.clamp(y, 0, hi).to(torch.int8)
+
+
+@dataclasses.dataclass(frozen=True)
+class QResidualAdd:
+    """Two-scale integer residual add: y = clip((m1*a + m2*b) >> d)."""
+
+    m1: int
+    m2: int
+    d: int
+    out_bits: int
+
+    def apply(self, a_hat, b_hat):
+        acc = (a_hat.to(torch.int32) * self.m1
+               + b_hat.to(torch.int32) * self.m2) >> self.d
+        hi = packing.int_range(self.out_bits, False)[1]
+        return torch.clamp(acc, 0, hi).to(torch.int8)
+
+
+# --------------------------------------------------- layer builders ---
+
+def quantize_conv_layer(p: dict, spec_x: QuantSpec, spec_y: QuantSpec,
+                        w_bits: int, *, stride: int, padding: int,
+                        backend: Optional[str] = None,
+                        pipeline: Optional[str] = None) -> QConv2D:
+    """fp conv node {"w","bn_scale","bn_bias"} -> deployable QConv2D."""
+    spec_w = calibrate_weight(p["w"], w_bits)
+    conv = quantize_conv(p["w"], spec_w, p["bn_scale"], p["bn_bias"],
+                         spec_x, spec_y, stride, padding)
+    return QConv2D(conv=conv, backend=backend, pipeline=pipeline)
+
+
+def quantize_linear_head(p: dict, spec_x: QuantSpec, w_bits: int, *,
+                         backend: Optional[str] = None,
+                         pipeline: Optional[str] = None):
+    """fp head {"w": (d_in, classes)} -> (QLinear with raw int32 logits,
+    eps_logits). kappa/lam/m are identity placeholders the 'raw' epilogue
+    never reads."""
+    w = p["w"]
+    spec_w = calibrate_weight(w, w_bits)
+    w_hat = quantize(w, spec_w)
+    k_logical, n = w_hat.shape
+    w_packed = packing.pack(packing.pad_to_chunk(w_hat, axis=0), w_bits,
+                            axis=0)
+    dev = w.device
+    gemm = QuantizedLinearParams(
+        w_packed=w_packed, w_bits=w_bits, a_bits=spec_x.bits,
+        a_signed=spec_x.signed,
+        kappa=torch.ones((n,), dtype=torch.int32, device=dev),
+        lam=torch.zeros((n,), dtype=torch.int32, device=dev),
+        m=torch.ones((n,), dtype=torch.int32, device=dev), d=16, out_bits=8,
+        k_logical=k_logical)
+    eps_logits = float(spec_w.eps) * float(spec_x.eps)
+    return (QLinear(gemm=gemm, epilogue="raw", backend=backend,
+                    pipeline=pipeline), eps_logits)

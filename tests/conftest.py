@@ -40,6 +40,9 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test, deselected unless --runslow")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's Hopper kernels); "
+        "skips where torch sees none")
 
 
 def pytest_collection_modifyitems(config, items):

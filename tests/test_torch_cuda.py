@@ -1,0 +1,106 @@
+"""The Hopper kernels on the card, held exactly against their plain
+versions run on the same device. Marked ``cuda``; each test skips where
+torch sees no GPU (decided inside the fixture, never at import). Run on
+a GPU machine with ``PYTHONPATH=src python -m pytest -m cuda tests/``.
+"""
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import packing
+from repro_torch.kernels.qconv import kernel as conv_k
+from repro_torch.kernels.qmatmul import kernel as gemm_k
+
+pytestmark = pytest.mark.cuda
+
+BITS = list(itertools.product((8, 4, 2), (8, 4, 2)))
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _ints(rng, bits, signed, shape, dev):
+    lo, hi = packing.int_range(bits, signed)
+    return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(
+        np.int8)).to(dev)
+
+
+def _epilogue_vectors(rng, n, dev):
+    return (torch.from_numpy(rng.integers(-127, 128, n).astype(np.int32)),
+            torch.from_numpy(rng.integers(-2**20, 2**20, n).astype(
+                np.int32)),
+            torch.from_numpy(rng.integers(0, 2**15, n).astype(np.int32)))
+
+
+def _same(a, b):
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qmatmul_kernel_matches_plain(dev, a_bits, w_bits, pipeline):
+    rng = np.random.default_rng(a_bits * 10 + w_bits)
+    for m, k, n in ((64, 128, 10), (130, 384, 70)):
+        x = packing.pack(_ints(rng, a_bits, False, (m, k), dev), a_bits)
+        w = packing.pack(_ints(rng, w_bits, True, (k, n), dev), w_bits,
+                         axis=0)
+        vecs = [v.to(dev) for v in _epilogue_vectors(rng, n, dev)]
+        for epi in ("int", "raw", "dequant"):
+            kw = dict(a_bits=a_bits, a_signed=False, w_bits=w_bits, d=23,
+                      out_bits=a_bits, epilogue=epi, scale=0.013)
+            got = gemm_k.qmatmul_packed_cuda(x, w, *vecs, pipeline=pipeline,
+                                             **kw)
+            assert _same(got, gemm_k.qmatmul_packed_torch(x, w, *vecs, **kw))
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qconv_kernel_matches_plain(dev, a_bits, w_bits, pipeline):
+    rng = np.random.default_rng(a_bits * 10 + w_bits)
+    for n, h, w_, cin, cout, f, s, p in ((2, 11, 9, 5, 20, 3, 1, 1),
+                                         (2, 8, 8, 130, 70, 3, 2, 1)):
+        cin_pad = packing.padded_size(cin)
+        x = _ints(rng, a_bits, False, (n, h, w_, cin), dev)
+        wt = torch.nn.functional.pad(
+            _ints(rng, w_bits, True, (f * f, cin, cout), dev),
+            (0, 0, 0, cin_pad - cin))
+        wpf = packing.pack(wt.reshape(-1, cout), w_bits, axis=0)
+        vecs = [v.to(dev) for v in _epilogue_vectors(rng, cout, dev)]
+        ho, wo = conv_k.conv_out_hw(h, w_, f, f, s, p)
+        xp = conv_k.pad_and_pack(x, padding=p, cin_pad=cin_pad,
+                                 a_bits=a_bits)
+        for epi in ("int", "raw", "dequant"):
+            kw = dict(fh=f, fw=f, stride=s, ho=ho, wo=wo, cin_pad=cin_pad,
+                      cout=cout, a_bits=a_bits, a_signed=False,
+                      w_bits=w_bits, d=23, out_bits=a_bits, epilogue=epi,
+                      scale=0.013)
+            got = conv_k.qconv_packed_cuda(xp, wpf, *vecs,
+                                           pipeline=pipeline, **kw)
+            assert _same(got, conv_k.qconv_packed_torch(xp, wpf, *vecs,
+                                                        **kw))
+
+
+def test_resnet8_on_the_card_matches_cpu(dev):
+    from repro_torch.convert import to_device
+    from repro_torch.vision import models
+    from repro_torch.vision.configs import get_vision_config
+
+    cfg = get_vision_config("resnet8", smoke=True)
+    fp = models.init_fp(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    absmax = models.collect_absmax(cfg, fp, [rng.uniform(
+        0, 1, (4, *cfg.in_hw, 3)).astype(np.float32)])
+    qnet = models.quantize_net(cfg, fp, absmax, device=dev)
+    imgs = rng.uniform(0, 1, (5, *cfg.in_hw, 3))
+    got = models.forward_int(qnet, models.quantize_input(qnet, imgs))
+    cpu = to_device(qnet, "cpu")
+    want = models.forward_int(cpu, models.quantize_input(cpu, imgs))
+    assert torch.equal(got.cpu(), want)

@@ -1,0 +1,96 @@
+"""The port stands alone: no jax, no repro, no quiet CPU fallback."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.qconv.kernel import KERNEL as QCONV
+from repro_torch.kernels.qmatmul.kernel import KERNEL as QMATMUL
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch, repro_torch.launch.vision, "
+            "repro_torch.convert, repro_torch.serve.engine; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'repro')))")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch import convert
+    from repro_torch.launch import vision as launch
+    from repro_torch.serve.engine import VisionEngine
+    from repro_torch.vision import models
+    from repro_torch.vision.configs import get_vision_config
+
+    cfg = get_vision_config("resnet8", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.init_fp(cfg, 0)
+    fp = models.init_fp(cfg, 0, device="cpu")
+    absmax = {k: 1.0 for k in ["__input__"] + [L.path for L in cfg.layers]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.quantize_net(cfg, fp, absmax)
+    qnet = models.quantize_net(cfg, fp, absmax, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VisionEngine(qnet, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.main(["--net", "resnet8", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.fp_params_from_numpy({"w": np.zeros(3, np.float32)})
+
+
+def test_engine_refuses_a_net_on_another_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    from repro_torch.serve.engine import VisionEngine
+    from repro_torch.vision import models
+    from repro_torch.vision.configs import get_vision_config
+
+    cfg = get_vision_config("resnet8", smoke=True)
+    absmax = {k: 1.0 for k in ["__input__"] + [L.path for L in cfg.layers]}
+    qnet = models.quantize_net(cfg, models.init_fp(cfg, 0, device="cpu"),
+                               absmax, device="cpu")
+    with pytest.raises(ValueError, match="lives on cpu"):
+        VisionEngine(qnet, 4, device="cuda")
+
+
+def test_kernels_build_lazily_from_the_repo_sources(monkeypatch, tmp_path):
+    root = pathlib.Path(build.__file__).resolve().parents[3]
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    for k, src in ((QMATMUL, "qmatmul.cu"), (QCONV, "qconv.cu")):
+        assert k.source == build.CSRC / src and k.source.exists()
+        lib = k.library_path()
+        assert lib.parent == root / "build" / "repro_torch_kernels"
+        assert lib.name.startswith(f"lib{k.name}-")
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    assert QMATMUL.library_path().parent == tmp_path
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -1,0 +1,148 @@
+"""The port's `qdot` (the `torch` backend, on CPU) against the reference.
+
+Held against `repro.kernels.api.qdot` with the `xla` and `eager_ref`
+backends and the Pallas kernels under the interpreter in both pipeline
+modes (`pallas_interpret`, 'off' and 'double_buffer'). Integer outputs
+must be identical; `dequant` must match bf16 bit for bit. `eager_ref`
+takes a scalar scale only, so per-channel scales go against `xla`.
+"""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import api as r_api
+from repro_torch.core import packing as p_pack
+from repro_torch.core.quantize import QuantizedLinearParams as PParams
+from repro_torch.kernels import api as p_api
+from repro_torch.kernels.qmatmul.kernel import (qmatmul_packed,
+                                                qmatmul_packed_cuda)
+
+from torch_bridge import assert_same
+
+r_q = importlib.import_module("repro.core.quantize")
+
+# ragged everywhere: M spans several 64-row tiles, K two CHUNKs after
+# padding (200 -> 256), N two 64-wide tiles plus a ragged edge
+M, K, N = 70, 200, 140
+SCALE = 0.0123
+
+
+def _params(seed, a_bits, w_bits, n=N, k=K):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    bn_s = (rng.normal(size=(n,)) * 0.2 + 0.6).astype(np.float32)
+    bn_b = (rng.normal(size=(n,)) * 0.1).astype(np.float32)
+    spec_w = r_q.QuantSpec.weight(w_bits, float(np.abs(w).max()))
+    spec_x = r_q.QuantSpec.activation(a_bits, 1.0)
+    spec_y = r_q.QuantSpec.activation(a_bits, 0.25)
+    ref = r_q.quantize_linear(jnp.asarray(w), spec_w, bn_s, bn_b, spec_x,
+                              spec_y)
+    port = PParams(
+        w_packed=torch.from_numpy(np.array(ref.w_packed)),
+        w_bits=ref.w_bits, a_bits=ref.a_bits, a_signed=ref.a_signed,
+        kappa=torch.from_numpy(np.array(ref.kappa)),
+        lam=torch.from_numpy(np.array(ref.lam)),
+        m=torch.from_numpy(np.array(ref.m)), d=ref.d,
+        out_bits=ref.out_bits, k_logical=ref.k_logical)
+    hi = p_pack.int_range(a_bits, False)[1]
+    x = rng.integers(0, hi + 1, size=(M, k)).astype(np.int8)
+    return ref, port, x
+
+
+BITS = [(a, w) for a in (8, 4, 2) for w in (8, 4, 2)]
+
+
+@pytest.mark.parametrize("epilogue", ["int", "raw", "dequant"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qdot_matches_xla_and_eager(a_bits, w_bits, epilogue):
+    ref, port, x = _params(a_bits * 10 + w_bits, a_bits, w_bits)
+    out = p_api.qdot(port, torch.from_numpy(x), epilogue=epilogue,
+                     scale=SCALE)
+    assert out.dtype == {"int": torch.int8, "raw": torch.int32,
+                         "dequant": torch.bfloat16}[epilogue]
+    for backend in ("xla", "eager_ref"):
+        want = r_api.qdot(ref, jnp.asarray(x), epilogue=epilogue,
+                          scale=SCALE, backend=backend)
+        assert_same(out, want, backend)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("epilogue", ["int", "raw", "dequant"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qdot_matches_pallas_interpret(a_bits, w_bits, epilogue, pipeline):
+    ref, port, x = _params(a_bits * 10 + w_bits, a_bits, w_bits)
+    out = p_api.qdot(port, torch.from_numpy(x), epilogue=epilogue,
+                     scale=SCALE, pipeline=pipeline)
+    # a (32, 128, 128) block gives the reference kernel 3x2x2 grid tiles
+    want = r_api.qdot(ref, jnp.asarray(x), epilogue=epilogue, scale=SCALE,
+                      backend="pallas_interpret", pipeline=pipeline,
+                      block=(32, 128, 128))
+    assert_same(out, want, pipeline)
+
+
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qdot_per_channel_dequant_scale_matches_xla(a_bits, w_bits):
+    ref, port, x = _params(a_bits + w_bits, a_bits, w_bits)
+    scale = np.random.default_rng(3).uniform(1e-3, 1e-1, N).astype(
+        np.float32)
+    out = p_api.qdot(port, torch.from_numpy(x), epilogue="dequant",
+                     scale=torch.from_numpy(scale))
+    want = r_api.qdot(ref, jnp.asarray(x), epilogue="dequant",
+                      scale=jnp.asarray(scale), backend="xla")
+    assert_same(out, want, "per-channel dequant")
+
+
+def test_qdot_leading_dims_and_signed_activations():
+    ref, port, _ = _params(7, 4, 4, n=10, k=64)
+    rng = np.random.default_rng(8)
+    x = rng.integers(-7, 8, size=(2, 3, 64)).astype(np.int8)
+    ref = r_q.QuantizedLinearParams(**{**ref.__dict__, "a_signed": True})
+    port = PParams(**{**port.__dict__, "a_signed": True})
+    for epilogue in ("int", "raw"):
+        out = p_api.qdot(port, torch.from_numpy(x), epilogue=epilogue)
+        assert out.shape == (2, 3, 10)
+        assert_same(out, r_api.qdot(ref, jnp.asarray(x), epilogue=epilogue,
+                                    backend="xla"), epilogue)
+
+
+def test_backend_resolution_is_tied_to_the_device(monkeypatch):
+    _, port, x = _params(1, 8, 8, n=10, k=64)
+    xt = torch.from_numpy(x[:, :64])
+    assert p_api.resolve("qdot", xt).name == "torch"
+    assert p_api.backends("qdot") == ("cuda", "torch")
+    with pytest.raises(ValueError, match="does not take cpu tensors"):
+        p_api.qdot(port, xt, backend="cuda")
+    with pytest.raises(ValueError, match="port's backends"):
+        p_api.qdot(port, xt, backend="xla")
+    monkeypatch.setenv(p_api.ENV_VAR, "cuda")
+    with pytest.raises(ValueError, match="does not take cpu tensors"):
+        p_api.qdot(port, xt)
+    # an explicit choice shadows the environment
+    p_api.qdot(port, xt, backend="torch")
+    monkeypatch.delenv(p_api.ENV_VAR)
+    monkeypatch.setenv(p_api.ENV_PIPELINE, "triple")
+    with pytest.raises(ValueError, match="unknown pipeline"):
+        p_api.qdot(port, xt)
+    assert p_api.resolve_pipeline("off") == "off"
+    assert p_api.resolve_pipeline(None, {"pipeline": "double_buffer"}) == \
+        "double_buffer"
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_and_tile_fits():
+    _, port, x = _params(2, 4, 2, n=10, k=64)
+    xp = p_pack.pack(p_pack.pad_to_chunk(torch.from_numpy(x)), 4)
+    args = (xp, port.w_packed, port.kappa, port.lam, port.m)
+    kw = dict(a_bits=4, a_signed=False, w_bits=2, d=port.d, out_bits=4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        qmatmul_packed_cuda(*args, **kw)
+    # the dispatching wrapper runs the plain version for CPU tensors, the
+    # same for both pipelines (one tile fits any pipeline on the CPU)
+    off = qmatmul_packed(*args, **kw)
+    assert off.shape == (M, 10)
+    assert_same(qmatmul_packed(*args, pipeline="double_buffer", **kw), off)
+    with pytest.raises(ValueError, match="pipeline"):
+        qmatmul_packed(*args, pipeline="triple", **kw)
