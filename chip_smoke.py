@@ -3,23 +3,39 @@
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
-1. Prints the card and its power limit, builds the Hopper kernels from
-   ``src/repro_torch/csrc/`` with nvcc for sm_90a.
-2. Kernel phase: both kernels, at STAGES=1 ('off') and STAGES=2
-   ('double_buffer'), against their plain torch versions on the card, at
-   every ResNet-8 conv geometry and the head GEMM at a wave of 64, plus
-   one larger GEMM, for A{8,4,2} x W{8,4,2} and all three epilogues.
-   Tolerance: none — outputs must be identical (bf16 bit for bit).
-3. Main path: full-width ResNet-8 from seeded random weights, quantized
+1. Prints the card and its power limit, builds the three Hopper kernels
+   from ``src/repro_torch/csrc/`` with nvcc for sm_90a, one nvcc per
+   source, all started together.
+2. Kernel phase: every kernel, at STAGES=1 ('off') and STAGES=2
+   ('double_buffer'), against its plain torch version on the card.
+   qmatmul and qconv: every ResNet-8 conv geometry and the head GEMM at a
+   wave of 64, plus one larger GEMM, for A{8,4,2} x W{8,4,2} and all three
+   epilogues. qmatmul_segmented: segment mixes 8|4, 8|2, 4|2, 8|4|2 at a
+   ragged shape (N = 320 with a 64-wide tail panel, K = 200), the
+   reference's fig8 shape 256x2048x256 (half W8, half W2) and qat-cnn's
+   c3 as a GEMM over a wave of 64 (12544x288x256, half W8, half W4), for
+   A{8,4,2} and all three epilogues. Tolerance: none — outputs must be
+   identical (bf16 bit for bit).
+3. Main path, ResNet-8: full width from seeded random weights, quantized
    on the card at W8, W4 and W2 and served by `VisionEngine` (waves of
    64, 256 images); then one wave with the kernels' double-buffered
-   pipeline. Every kernel must have launched. The same fp weights and
-   absmax are quantized again on the CPU: every array of that artifact
-   must be byte-identical to the card's, and the logits must equal that
-   CPU net's run through the plain `torch` backend.
-4. Times each kernel per ResNet-8 wave (CUDA events) beside its plain
-   version, its bound, and a PyTorch library call where one computes the
-   same function, and prints them as one JSON line.
+   pipeline. qmatmul and qconv must have launched at both STAGES. The
+   same fp weights and absmax are quantized again on the CPU: every array
+   of that artifact must be byte-identical to the card's, and the logits
+   must equal that CPU net's run through the plain versions.
+4. Main path, qat-cnn (fine-grain mixed precision): full width, quantized
+   on the card under (a) a fixed channel-group plan (c3 half W8, half W4)
+   and (b) the plan `calibrate_vision` + `plan_mixed_precision(
+   granularity='channel_group')` give on the card; both served (waves of
+   64, 256 images), plan (a) once more with the double-buffered pipeline,
+   and `kernels.api.qdot` called on a `SegmentedLinearParams` of plan
+   (a)'s c3 runs at both pipelines. Every kernel of the path must have
+   launched. The CPU re-quantizes both plans (byte-identical artifacts,
+   identical logits); the qdot call's raw accumulators must equal c3's
+   per-run qconv accumulators.
+5. Times each kernel (CUDA events and profiler device time) beside its
+   plain version, its bound, and a PyTorch library call where one
+   computes the same function, and prints them as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
@@ -49,8 +65,20 @@ REPLACES = {
     ("qmatmul", 2): "src/repro/kernels/qmatmul/kernel.py:81",
     ("qconv", 1): "src/repro/kernels/qconv/kernel.py:64",
     ("qconv", 2): "src/repro/kernels/qconv/kernel.py:108",
+    # one Pallas body for both pipeline modes
+    ("qmatmul_segmented", 1): "src/repro/kernels/qmatmul/kernel.py:234",
+    ("qmatmul_segmented", 2): "src/repro/kernels/qmatmul/kernel.py:234",
 }
 PIPELINE = {1: "off", 2: "double_buffer"}
+# qat-cnn's c3 under plan (a): channels [0, 128) at W8, [128, 256) at W4
+PLAN_A = ((0, 128, 8), (128, 256, 4))
+# kernel 3's shapes (M, K, N) and segment runs: the ragged case per mix,
+# the reference's fig8 row, one larger GEMM for timing; `c3_gemm` gives
+# c3 as a GEMM at a wave (the main path's qdot call)
+SEG_MIXES = ((8, 4), (8, 2), (4, 2), (8, 4, 2))
+SEG_RAGGED = (100, 200, 320)
+SEG_FIG8 = ((256, 2048, 256), ((0, 128, 8), (128, 256, 2)))
+SEG_BIG = ((4096, 2048, 1024), ((0, 384, 8), (384, 768, 4), (768, 1024, 2)))
 
 
 def say(phase: str, **fields):
@@ -172,6 +200,128 @@ class Case:
         return nbytes / PEAK_BYTES * 1e3, 2 * macs / PEAK_INT8_OPS * 1e3
 
 
+def mix_runs(widths, n):
+    """One run per width: interior boundaries every CHUNK, the last run
+    takes the rest (ragged when N is not a CHUNK multiple)."""
+    runs, pos = [], 0
+    for i, b in enumerate(widths):
+        end = n if i == len(widths) - 1 else pos + 128
+        runs.append((pos, end, b))
+        pos = end
+    return tuple(runs)
+
+
+class SegCase:
+    """One mixed-operand GEMM at one shape: random segmented weights
+    packed panel-major and padded to whole panels (as `qdot` pads them),
+    the kernel at both stage counts and the plain version."""
+
+    kind = "qmatmul_segmented"
+
+    def __init__(self, shape, runs, a_bits, epilogue, gen, dev,
+                 vec_scale=False):
+        import torch
+        from repro_torch.core import packing
+
+        self.shape, self.runs = shape, tuple(runs)
+        self.a_bits, self.epilogue = a_bits, epilogue
+        m, k, n = shape
+
+        def ints(bits, signed, size):
+            lo, hi = packing.int_range(bits, signed)
+            return torch.randint(lo, hi + 1, size, generator=gen,
+                                 dtype=torch.int32).to(torch.int8).to(dev)
+
+        segmap = packing.SegmentMap(self.runs)
+        w = torch.cat([ints(b, True, (k, e - s)) for s, e, b in self.runs],
+                      dim=1)
+        self.w, self.segmap = packing.pad_segmented(
+            packing.pack_segmented(w, segmap), segmap, k)
+        self.x = packing.pack(packing.pad_to_chunk(
+            ints(a_bits, False, (m, k)), axis=-1), a_bits)
+        n_pad = self.segmap.n
+        self.vecs = (
+            torch.randint(-127, 128, (n_pad,), generator=gen,
+                          dtype=torch.int32).to(dev),
+            torch.randint(-2**20, 2**20, (n_pad,), generator=gen,
+                          dtype=torch.int32).to(dev),
+            torch.randint(0, 2**15, (n_pad,), generator=gen,
+                          dtype=torch.int32).to(dev))
+        scale = (torch.rand(n_pad, generator=gen).to(dev) * 0.1 + 1e-3
+                 if vec_scale else 0.0123)
+        self.kw = dict(k_logical=k, a_bits=a_bits, a_signed=False, d=23,
+                       out_bits=a_bits, epilogue=epilogue, scale=scale)
+
+    def kernel(self, stages: int):
+        from repro_torch.kernels.qmatmul import kernel as gk
+        return gk.qmatmul_segmented_cuda(self.x, self.w, self.segmap,
+                                         *self.vecs,
+                                         pipeline=PIPELINE[stages],
+                                         **self.kw)
+
+    def plain(self):
+        from repro_torch.kernels.qmatmul import kernel as gk
+        return gk.qmatmul_segmented_torch(self.x, self.w, self.segmap,
+                                          *self.vecs, **self.kw)
+
+    def bound(self):
+        """(bytes ms, operations ms) for the work the function needs:
+        activations at real K packed to a_bits, each run's weights at
+        real K and N packed to its width, the epilogue vectors where
+        'int' reads them, the output once; ops = 2 x real MACs."""
+        m, k, n = self.shape
+        nbytes = m * k * self.a_bits / 8 + sum(
+            k * (e - s) * b / 8 for s, e, b in self.runs)
+        if self.epilogue == "int":
+            nbytes += 3 * 4 * n
+        nbytes += m * n * {"int": 1, "raw": 4, "dequant": 2}[self.epilogue]
+        return nbytes / PEAK_BYTES * 1e3, 2 * m * k * n / PEAK_INT8_OPS * 1e3
+
+
+def c3_gemm(wave: int):
+    """((M, K, N), runs) of qat-cnn's c3 under plan (a) as an im2col GEMM
+    over a wave of images: M = wave x Ho x Wo, K = 3 x 3 x Cin."""
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import trace_shapes
+    t = [t for t in trace_shapes(get_vision_config("qat-cnn"))
+         if t["layer"].path == "c3"][0]
+    (h, w, c), (ho, wo, cout) = t["in"], t["out"]
+    L = t["layer"]
+    return (wave * ho * wo, L.fh * L.fw * c, cout), PLAN_A
+
+
+def segmented_kernel_phase(dev, report):
+    """Kernel 3 against its plain version at both STAGES, exactly."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    shapes = ([(SEG_RAGGED, mix_runs(w, SEG_RAGGED[2])) for w in SEG_MIXES]
+              + [SEG_FIG8, c3_gemm(WAVE)])
+    worst = {1: 0.0, 2: 0.0}
+    n_cmp = 0
+    for shape, runs in shapes:
+        for a_bits in WIDTHS:
+            for epi in EPILOGUES:
+                case = SegCase(shape, runs, a_bits, epi, gen, dev,
+                               vec_scale=(epi == "dequant"
+                                          and shape == SEG_RAGGED))
+                want = case.plain()
+                for stages in (1, 2):
+                    err = max_abs_err(case.kernel(stages), want)
+                    torch.cuda.synchronize()
+                    worst[stages] = max(worst[stages], err)
+                    n_cmp += 1
+                    if err != 0.0:
+                        raise AssertionError(
+                            f"qmatmul_segmented STAGES={stages} A{a_bits} "
+                            f"{runs} {epi} at {shape}: max abs err {err}")
+    say("kernels", kernel="qmatmul_segmented", compared=n_cmp,
+        shapes=len(shapes), all_exact=True)
+    report["segmented_kernel_phase"] = {
+        "comparisons": n_cmp,
+        "cases": [[list(s), [list(r) for r in runs]] for s, runs in shapes]}
+    return worst
+
+
 def resnet8_shapes(cfg, wave):
     """(layer path, conv shape) per conv of the net, and the head GEMM
     (M, real K, N)."""
@@ -248,19 +398,45 @@ def first_difference(a, b, path="net"):
     return None
 
 
+def kernels_by_name():
+    from repro_torch.kernels.qconv.kernel import KERNEL as QCONV
+    from repro_torch.kernels.qmatmul.kernel import KERNEL as QMATMUL
+    from repro_torch.kernels.qmatmul.kernel import SEGMENTED_KERNEL
+    return {"qmatmul": QMATMUL, "qconv": QCONV,
+            "qmatmul_segmented": SEGMENTED_KERNEL}
+
+
+def reset_launches():
+    for k in kernels_by_name().values():
+        k.reset_launches()
+
+
+def read_launches():
+    return {name: dict(k.launches) for name, k in kernels_by_name().items()}
+
+
+def require_launches(path, launches, names):
+    """Fail unless every stage count of each named kernel launched in the
+    window of ``path``; print the window's counts."""
+    for name in names:
+        for stages, n in launches[name].items():
+            if n == 0:
+                raise AssertionError(f"{name} STAGES={stages} never "
+                                     f"launched on the {path} main path")
+    say("launches", path=path, **{f"{k}_s{s}": n
+                                  for k, c in launches.items()
+                                  for s, n in c.items()})
+
+
 def main_path(dev, cfg, report):
     """Serve full-width ResNet-8 at W8/W4/W2 through the port; returns the
     kernels' launch counts over exactly this run."""
     import numpy as np
     from repro_torch.convert import to_device
-    from repro_torch.kernels.qconv.kernel import KERNEL as QCONV
-    from repro_torch.kernels.qmatmul.kernel import KERNEL as QMATMUL
     from repro_torch.launch.vision import uniform_plan
     from repro_torch.serve.engine import VisionEngine
-    from repro_torch.vision.models import (collect_absmax, forward_int,
-                                           init_fp, quantize_input,
-                                           quantize_net,
-                                           streamed_weight_bytes)
+    from repro_torch.vision.models import (collect_absmax, init_fp,
+                                           quantize_net)
 
     rng = np.random.default_rng(SEED)
     fp = init_fp(cfg, seed=SEED, device=dev)
@@ -269,9 +445,10 @@ def main_path(dev, cfg, report):
     absmax = collect_absmax(cfg, fp, calib)
     images = rng.uniform(0, 1, size=(REQUESTS, *cfg.in_hw, cfg.in_ch)
                          ).astype(np.float32)
-    nets = {w_bits: quantize_net(cfg, fp, absmax,
-                                 plan=uniform_plan(cfg, w_bits, cfg.a_bits),
-                                 device=dev) for w_bits in WIDTHS}
+    plans = {w_bits: uniform_plan(cfg, w_bits, cfg.a_bits)
+             for w_bits in WIDTHS}
+    nets = {w_bits: quantize_net(cfg, fp, absmax, plan=plan, device=dev)
+            for w_bits, plan in plans.items()}
     # the kernels' double-buffered pipeline, through the plan's hint
     qdb = quantize_net(cfg, fp, absmax,
                        plan=uniform_plan(cfg, 8, cfg.a_bits,
@@ -279,35 +456,11 @@ def main_path(dev, cfg, report):
                        device=dev)
     # one untimed wave first: torch loads its own CUDA kernels lazily
     VisionEngine(nets[8], batch_size=WAVE, device=dev).run(images[:WAVE])
-    QMATMUL.reset_launches()
-    QCONV.reset_launches()
-    served = {}
-    for w_bits, qnet in nets.items():
-        engine = VisionEngine(qnet, batch_size=WAVE, device=dev)
-        t0 = time.perf_counter()
-        logits = engine.run(images)          # returns host arrays: synced
-        wall = time.perf_counter() - t0
-        if logits.shape != (REQUESTS, cfg.num_classes) or \
-                logits.dtype != np.int32:
-            raise AssertionError(f"W{w_bits}: logits {logits.shape} "
-                                 f"{logits.dtype}")
-        waves = engine.utilization_report()["latency_us"]
-        req = engine.serving_report()["latency"]
-        served[w_bits] = logits
-        say("serve", w_bits=w_bits, images=REQUESTS, wave=WAVE,
-            images_per_s=round(REQUESTS / wall, 1),
-            wave_p50_ms=round(waves["p50"] / 1e3, 3),
-            wave_p95_ms=round(waves["p95"] / 1e3, 3),
-            request_p50_ms=round(req["p50"] * 1e3, 3),
-            request_p95_ms=round(req["p95"] * 1e3, 3),
-            streamed_weight_bytes=streamed_weight_bytes(qnet))
-        report.setdefault("serve", {})[f"W{w_bits}"] = {
-            "images_per_s": REQUESTS / wall, "wall_s": wall,
-            "wave_latency_us": waves, "request_latency_s": req,
-            "streamed_weight_bytes": streamed_weight_bytes(qnet)}
+    reset_launches()
+    served = {w_bits: serve_net(f"resnet8 W{w_bits}", qnet, images, report)
+              for w_bits, qnet in nets.items()}
     db = VisionEngine(qdb, batch_size=WAVE, device=dev).run(images[:WAVE])
-    launches = {"qmatmul": dict(QMATMUL.launches),
-                "qconv": dict(QCONV.launches)}
+    launches = read_launches()
     if not np.array_equal(db, served[8][:WAVE]):
         raise AssertionError("double_buffer wave differs from 'off'")
     say("serve", pipeline="double_buffer", images=WAVE, logits_equal=True)
@@ -315,33 +468,184 @@ def main_path(dev, cfg, report):
     # card's artifact byte for byte; its plain torch run, the same logits
     fp_cpu = to_device(fp, "cpu")
     for w_bits, qnet in nets.items():
-        cpu = quantize_net(cfg, fp_cpu, absmax,
-                           plan=uniform_plan(cfg, w_bits, cfg.a_bits),
-                           device="cpu")
-        diff = first_difference(to_device(qnet, "cpu"), cpu)
-        if diff is not None:
-            raise AssertionError(f"W{w_bits}: the artifact quantized on the "
-                                 f"card differs from the CPU's at {diff}")
-        want = np.concatenate([
-            forward_int(cpu, quantize_input(cpu, images[i:i + WAVE]),
-                        backend="torch").numpy()
-            for i in range(0, REQUESTS, WAVE)])
-        if not np.array_equal(served[w_bits], want):
-            bad = int((served[w_bits] != want).any(-1).sum())
-            raise AssertionError(f"W{w_bits}: {bad} images' logits differ "
-                                 "from the CPU plain path")
-        say("check", w_bits=w_bits, artifact_equal_cpu=True,
-            logits_equal_cpu_plain=True,
-            argmax_classes=len(set(want.argmax(-1).tolist())))
-    for name, counts in launches.items():
-        for stages, n in counts.items():
-            if n == 0:
-                raise AssertionError(f"{name} STAGES={stages} never "
-                                     "launched on the main path")
-    say("launches", **{f"{k}_s{s}": n for k, c in launches.items()
-                       for s, n in c.items()})
-    report["launches"] = launches
-    profile_wave(dev, nets[8], images[:WAVE], report)
+        check_against_cpu(f"resnet8 W{w_bits}", qnet, cfg, fp_cpu, absmax,
+                          plans[w_bits], images, served[w_bits])
+    require_launches("resnet8", launches, ("qmatmul", "qconv"))
+    report.setdefault("launches", {})["resnet8"] = launches
+    profile_wave(dev, nets[8], images[:WAVE], report, "resnet8 W8")
+    return launches
+
+
+def serve_net(name, qnet, images, report):
+    """Serve ``images`` in waves of WAVE; print and record the [serve]
+    line; return the host logits."""
+    import numpy as np
+    from repro_torch.serve.engine import VisionEngine
+    from repro_torch.vision.models import streamed_weight_bytes
+    engine = VisionEngine(qnet, batch_size=WAVE, device=qnet.device)
+    t0 = time.perf_counter()
+    logits = engine.run(images)              # returns host arrays: synced
+    wall = time.perf_counter() - t0
+    if logits.shape != (len(images), qnet.cfg.num_classes) or \
+            logits.dtype != np.int32:
+        raise AssertionError(f"{name}: logits {logits.shape} {logits.dtype}")
+    waves = engine.utilization_report()["latency_us"]
+    req = engine.serving_report()["latency"]
+    say("serve", net=name, images=len(images), wave=WAVE,
+        images_per_s=round(len(images) / wall, 1),
+        wave_p50_ms=round(waves["p50"] / 1e3, 3),
+        wave_p95_ms=round(waves["p95"] / 1e3, 3),
+        request_p50_ms=round(req["p50"] * 1e3, 3),
+        request_p95_ms=round(req["p95"] * 1e3, 3),
+        streamed_weight_bytes=streamed_weight_bytes(qnet))
+    report.setdefault("serve", {})[name] = {
+        "images_per_s": len(images) / wall, "wall_s": wall,
+        "wave_latency_us": waves, "request_latency_s": req,
+        "streamed_weight_bytes": streamed_weight_bytes(qnet)}
+    return logits
+
+
+def check_against_cpu(name, qnet, cfg, fp_cpu, absmax, plan, images,
+                      served):
+    """Quantize the same fp weights, absmax and plan on the CPU: the
+    artifact must be byte-identical to the card's, and its plain run must
+    give the served logits."""
+    import numpy as np
+    from repro_torch.convert import to_device
+    from repro_torch.vision.models import (forward_int, quantize_input,
+                                           quantize_net)
+    cpu = quantize_net(cfg, fp_cpu, absmax, plan=plan, device="cpu")
+    diff = first_difference(to_device(qnet, "cpu"), cpu)
+    if diff is not None:
+        raise AssertionError(f"{name}: the artifact quantized on the card "
+                             f"differs from the CPU's at {diff}")
+    want = np.concatenate([
+        forward_int(cpu, quantize_input(cpu, images[i:i + WAVE])).numpy()
+        for i in range(0, len(images), WAVE)])
+    if not np.array_equal(served, want):
+        bad = int((served != want).any(-1).sum())
+        raise AssertionError(f"{name}: {bad} images' logits differ from "
+                             "the CPU plain path")
+    say("check", net=name, artifact_equal_cpu=True,
+        logits_equal_cpu_plain=True,
+        argmax_classes=len(set(want.argmax(-1).tolist())))
+
+
+def c3_segmented_params(qnet, layer="c3"):
+    """`SegmentedLinearParams` of a `QSegmentedConv2D`'s runs, built by
+    `quantize_linear_segmented` from each run's integer weights and
+    epilogue vectors (one shift d: the first run's)."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.core.quantize import quantize_linear_segmented
+    seg = dict((L.path, q) for L, q in qnet.qlayers)[layer]
+    gemms = [p.conv.gemm for p in seg.parts]
+    k = gemms[0].k_logical
+    w_hat = torch.cat([packing.unpack(g.w_packed, g.w_bits, True,
+                                      axis=0)[:k] for g in gemms], dim=1)
+    return seg, quantize_linear_segmented(
+        w_hat, packing.SegmentMap(seg.runs),
+        torch.cat([g.kappa for g in gemms]), torch.cat([g.lam for g in gemms]),
+        torch.cat([g.m for g in gemms]), a_bits=gemms[0].a_bits,
+        a_signed=gemms[0].a_signed, d=gemms[0].d,
+        out_bits=gemms[0].out_bits, assert_range=True)
+
+
+def qat_cnn_path(dev, report):
+    """Serve full-width qat-cnn under plans (a) and (b) and call `qdot`
+    on segmented params; returns the kernels' launch counts over exactly
+    this run."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import to_device
+    from repro_torch.deploy.calibrate import calibrate_vision
+    from repro_torch.deploy.planner import auto_budget, plan_mixed_precision
+    from repro_torch.deploy.policy import PlanRule, PrecisionPlan
+    from repro_torch.kernels import api
+    from repro_torch.kernels.qconv.ops import im2col_hwc
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import (forward_int, init_fp,
+                                           quantize_input, quantize_net)
+
+    cfg = get_vision_config("qat-cnn")
+    rng = np.random.default_rng(SEED)
+    fp = init_fp(cfg, seed=SEED, device=dev)
+    calib = [rng.uniform(0, 1, size=(WAVE, *cfg.in_hw, cfg.in_ch)).astype(
+        np.float32) for _ in range(2)]
+    images = rng.uniform(0, 1, size=(REQUESTS, *cfg.in_hw, cfg.in_ch)
+                         ).astype(np.float32)
+    stats, absmax = calibrate_vision(cfg, fp, calib)
+    budget = auto_budget(stats)
+    plans = {
+        "a": PrecisionPlan(rules=(PlanRule(pattern="c3", w_bits=8,
+                                           segments=PLAN_A),)),
+        "b": plan_mixed_precision(stats, budget,
+                                  granularity="channel_group",
+                                  meta={"arch": cfg.name}),
+    }
+    for r in plans["b"].rules:
+        say("plan_b", layer=r.pattern, w_bits=r.w_bits,
+            segments=json.dumps(r.segments),
+            sens=json.dumps({b: round(stats[r.pattern].sens(b), 6)
+                             for b in WIDTHS}))
+    say("plan_b", budget=round(budget, 6),
+        granularity=plans["b"].meta.get("granularity", "layer"),
+        packed_weight_bytes=plans["b"].meta["packed_weight_bytes"],
+        uniform_w8_bytes=plans["b"].meta["uniform_w8_bytes"])
+    report["qat_cnn_plan_b"] = json.loads(plans["b"].to_json())
+    plan_db = PrecisionPlan(rules=(
+        PlanRule(pattern="c3", w_bits=8, segments=PLAN_A,
+                 pipeline="double_buffer"),
+        PlanRule(pattern="*", w_bits=8, pipeline="double_buffer")))
+    nets = {k: quantize_net(cfg, fp, absmax, plan=p, device=dev)
+            for k, p in plans.items()}
+    qdb = quantize_net(cfg, fp, absmax, plan=plan_db, device=dev)
+    # c3's input images for the qdot call, and one untimed wave
+    edges = {}
+    forward_int(nets["a"], quantize_input(nets["a"], images[:WAVE]),
+                collect=lambda k, v: edges.setdefault(k, v))
+    seg, params = c3_segmented_params(nets["a"])
+    x_c3 = edges["p2"]
+    x_cols = im2col_hwc(x_c3, 3, 3, 1, 1)[0].reshape(-1, params.k_logical)
+
+    reset_launches()
+    served = {k: serve_net(f"qat-cnn plan ({k})", q, images, report)
+              for k, q in nets.items()}
+    db = serve_net("qat-cnn plan (a) double_buffer", qdb, images[:WAVE],
+                   report)
+    raw = {pl: api.qdot(params, x_cols, epilogue="raw", pipeline=pl)
+           for pl in ("off", "double_buffer")}
+    out_int = api.qdot(params, x_cols, epilogue="int")
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    if not np.array_equal(db, served["a"][:WAVE]):
+        raise AssertionError("qat-cnn: double_buffer wave differs from off")
+    fp_cpu = to_device(fp, "cpu")
+    for k, q in nets.items():
+        check_against_cpu(f"qat-cnn plan ({k})", q, cfg, fp_cpu, absmax,
+                          plans[k], images, served[k])
+    # the mixed GEMM's raw accumulators are c3's per-run conv accumulators
+    want_raw = torch.cat([api.qconv(p.conv, x_c3, epilogue="raw")
+                          for p in seg.parts], dim=-1)
+    want_raw = want_raw.reshape(raw["off"].shape)
+    for pl, got in raw.items():
+        if not torch.equal(got, want_raw):
+            raise AssertionError(f"qdot on SegmentedLinearParams ({pl}) "
+                                 "differs from c3's per-run qconv")
+    want_int = api.qdot(to_device(params, "cpu"), x_cols.cpu(),
+                        epilogue="int")
+    if not torch.equal(out_int.cpu(), want_int):
+        raise AssertionError("qdot on SegmentedLinearParams ('int') "
+                             "differs from the CPU plain path")
+    say("check", qdot_segmented=list(x_cols.shape) + [params.n],
+        runs=json.dumps(seg.runs), raw_equal_qconv_runs=True,
+        int_equal_cpu_plain=True)
+    require_launches("qat-cnn", launches,
+                     ("qmatmul", "qconv", "qmatmul_segmented"))
+    report.setdefault("launches", {})["qat-cnn"] = launches
+    for k, q in nets.items():
+        profile_wave(dev, q, images[:WAVE], report, f"qat-cnn plan ({k})")
     return launches
 
 
@@ -354,7 +658,7 @@ def _device_us(prof, names=()) -> float:
                and (not names or any(n in e.key for n in names)))
 
 
-def profile_wave(dev, qnet, images, report):
+def profile_wave(dev, qnet, images, report, label):
     """One served wave under torch.profiler: device time of the port's
     kernels, of every other CUDA kernel, and the device's idle share of
     the wave's wall time (None where the trace holds no device time)."""
@@ -368,14 +672,15 @@ def profile_wave(dev, qnet, images, report):
         engine.run(images)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    ours = _device_us(prof, ("qconv_kernel", "qmatmul_kernel"))
+    ours = _device_us(prof, ("qconv_kernel", "qmatmul_kernel",
+                             "qmatmul_segmented_kernel"))
     busy = _device_us(prof) or None
     row = {"wall_us": wall_us, "port_kernels_us": ours or None,
            "all_device_us": busy,
            "device_idle_share": None if busy is None
            else max(0.0, 1.0 - busy / wall_us)}
-    say("profile", wave=f"W8x{len(images)}", **row)
-    report["profile_wave_W8"] = row
+    say("profile", net=label, images=len(images), **row)
+    report.setdefault("profile_wave", {})[label] = row
 
 
 def kernel_device_ms(cases, stages: int, reps: int = 10):
@@ -444,6 +749,42 @@ def timing_phase(dev, convs, head, report):
     return rows
 
 
+def segmented_timing_phase(dev, report):
+    """Kernel 3 at A8, 'int' epilogue: c3's GEMM (the main path's qdot
+    call), the reference's fig8 shape and a larger GEMM, beside the plain
+    version, `torch._int_mm` on pre-unpacked int8 operands (the raw
+    product only) and the bound."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    rows = {}
+    for label, (shape, runs) in (("c3", c3_gemm(WAVE)), ("fig8", SEG_FIG8),
+                                 ("big", SEG_BIG)):
+        case = SegCase(shape, runs, 8, "int", gen, dev)
+        m, k, n = shape
+        xu = torch.randint(-127, 128, (m, k), generator=gen,
+                           dtype=torch.int32).to(torch.int8).to(dev)
+        wu = torch.randint(-8, 8, (k, n), generator=gen,
+                           dtype=torch.int32).to(torch.int8).to(dev)
+        bytes_ms, ops_ms = case.bound()
+        row = {"shape": list(shape), "runs": [list(r) for r in runs],
+               "plain_ms": time_ms(case.plain, 1, 5),
+               "library_ms": time_ms(lambda: torch._int_mm(xu, wu), 3, 20),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        for stages in (1, 2):
+            row[f"ms_s{stages}"] = time_ms(lambda: case.kernel(stages), 3, 20)
+            row[f"device_ms_s{stages}"] = kernel_device_ms([case], stages)
+        rows[label] = row
+        say("time", kernel="qmatmul_segmented", shape="x".join(map(str,
+                                                                  shape)),
+            runs=json.dumps(runs), **{k: (round(v, 5)
+                                          if isinstance(v, float) else v)
+                                      for k, v in row.items()
+                                      if k not in ("shape", "runs")})
+    report["timing_segmented"] = rows
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -451,8 +792,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.build import build_all
-    from repro_torch.kernels.qconv.kernel import KERNEL as QCONV
-    from repro_torch.kernels.qmatmul.kernel import KERNEL as QMATMUL
     from repro_torch.vision.configs import get_vision_config
 
     # fp reference convs and matmuls in full float32 on the card
@@ -467,31 +806,48 @@ def main() -> int:
     report = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0)}
-    build_s = build_all([QMATMUL, QCONV])
+    kernels_all = kernels_by_name()
+    build_s = build_all(list(kernels_all.values()))
     say("build", seconds=round(build_s, 1), arch="sm_90a",
-        sources="src/repro_torch/csrc/{qmatmul,qconv}.cu")
+        sources="src/repro_torch/csrc/{qmatmul,qconv,qmatmul_segmented}.cu")
     report["build_s"] = build_s
 
     cfg = get_vision_config("resnet8")
     convs, head = resnet8_shapes(cfg, WAVE)
     worst = kernel_phase(dev, convs, head, report)
-    launches = main_path(dev, cfg, report)
+    worst.update({("qmatmul_segmented", s): e for s, e in
+                  segmented_kernel_phase(dev, report).items()})
+    by_path = {"resnet8": main_path(dev, cfg, report),
+               "qat-cnn": qat_cnn_path(dev, report)}
     rows = timing_phase(dev, convs, head, report)
+    seg_rows = segmented_timing_phase(dev, report)
 
     kernels = []
-    for kind, src in (("qmatmul", "qmatmul.cu"), ("qconv", "qconv.cu")):
+    for kind in kernels_all:
         for stages in (1, 2):
-            r = rows[(kind, stages, 8)]
+            if kind == "qmatmul_segmented":
+                r = seg_rows["c3"]
+                timed = {"shape": r["shape"], "ms": r[f"ms_s{stages}"],
+                         "device_ms": r[f"device_ms_s{stages}"],
+                         "library_ms": r["library_ms"]}
+            else:
+                r = rows[(kind, stages, 8)]
+                timed = {"shape": "resnet8 wave of 64, W8A8",
+                         "ms": r["ms"], "device_ms": r["device_ms"],
+                         "library_ms": None}
             kernels.append({
                 "name": f"{kind}[STAGES={stages}]", "route": "cuda",
-                "source": f"src/repro_torch/csrc/{src}",
+                "source": f"src/repro_torch/csrc/{kind}.cu",
                 "replaces": REPLACES[(kind, stages)],
-                "launches": launches[kind][stages],
+                "launches": sum(c[kind][stages] for c in by_path.values()),
+                "launches_by_path": {p: c[kind][stages]
+                                     for p, c in by_path.items()},
                 "max_abs_err": worst[(kind, stages)],
-                "ms": r["ms"], "device_ms": r["device_ms"],
-                "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None})
+                "ms": timed["ms"], "device_ms": timed["device_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": timed["library_ms"],
+                "shape": timed["shape"]})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -9,8 +9,12 @@ reference package:
 * `qnet_from_numpy(spec, device)` — a `QuantizedVisionNet` description ->
   the port's net. A dataclass instance is described as a dict with a
   ``"__type__"`` key naming the class (``"QConv2D"``,
-  ``"QuantizedConvParams"``, ``"QuantSpec"``, ...) and one key per field;
-  lists stand for tuples; arrays become tensors on ``device``.
+  ``"QSegmentedConv2D"``, ``"QuantizedConvParams"``, ``"SegmentMap"``,
+  ...) and one key per field; lists stand for tuples; arrays become
+  tensors on ``device``. A ``backend`` field that a port class does not
+  have must name the device's backend or be None, and is then dropped.
+* `segmented_params_from_numpy(spec, device)` — a `SegmentedLinearParams`
+  description -> the port's mixed-width GEMM artifact.
 """
 from __future__ import annotations
 
@@ -19,9 +23,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.quantize import QuantizedLinearParams, QuantSpec
+from repro_torch.core.packing import SegmentMap
+from repro_torch.core.quantize import (QuantizedLinearParams, QuantSpec,
+                                       SegmentedLinearParams)
 from repro_torch.deploy.policy import PlanRule, PrecisionPlan
 from repro_torch.device import resolve_device
+from repro_torch.kernels.api import check_backend
 from repro_torch.kernels.qconv.ops import QuantizedConvParams
 from repro_torch.vision import layers as vl
 from repro_torch.vision.models import (LayerDef, QuantizedVisionNet,
@@ -29,8 +36,9 @@ from repro_torch.vision.models import (LayerDef, QuantizedVisionNet,
 
 _TYPES = {cls.__name__: cls for cls in (
     QuantizedVisionNet, VisionConfig, LayerDef, QuantSpec, PrecisionPlan,
-    PlanRule, QuantizedConvParams, QuantizedLinearParams, vl.QConv2D,
-    vl.QLinear, vl.QMaxPool2D, vl.QAvgPool2D, vl.QResidualAdd)}
+    PlanRule, QuantizedConvParams, QuantizedLinearParams, SegmentMap,
+    SegmentedLinearParams, vl.QConv2D, vl.QSegmentedConv2D, vl.QLinear,
+    vl.QMaxPool2D, vl.QAvgPool2D, vl.QResidualAdd)}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -63,6 +71,9 @@ def _build(obj, dev):
                   if k != "__type__"}
         if cls is PrecisionPlan:    # meta is a plain payload dict
             kwargs["meta"] = obj.get("meta", {})
+        if "backend" in kwargs and "backend" not in {
+                f.name for f in dataclasses.fields(cls)}:
+            check_backend(kwargs.pop("backend"), dev)
         return cls(**kwargs)
     return obj
 
@@ -74,6 +85,16 @@ def qnet_from_numpy(spec: dict, device="cuda") -> QuantizedVisionNet:
     if not isinstance(net, QuantizedVisionNet):
         raise ValueError("description is not a QuantizedVisionNet")
     return net
+
+
+def segmented_params_from_numpy(spec: dict,
+                                device="cuda") -> SegmentedLinearParams:
+    """Neutral description of a `SegmentedLinearParams` -> the port's
+    artifact on ``device`` (the flat buffer copied as it is)."""
+    params = _build(spec, resolve_device(device))
+    if not isinstance(params, SegmentedLinearParams):
+        raise ValueError("description is not a SegmentedLinearParams")
+    return params
 
 
 def to_device(obj, device):

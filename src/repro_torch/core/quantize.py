@@ -164,3 +164,61 @@ class QuantizedLinearParams:
     d: int
     out_bits: int
     k_logical: int          # pre-padding K
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentedLinearParams:
+    """Mixed-width deployable artifact: per-output-channel-run containers.
+
+    ``w_flat`` is a `packing.pack_segmented` buffer whose runs over the
+    output-feature axis are named by ``segmap``; the epilogue vectors span
+    the full N. `segment_params` views one run as a uniform
+    `QuantizedLinearParams`: running each run through the uniform GEMM and
+    concatenating along N is what the mixed-operand kernel must equal.
+    """
+
+    w_flat: torch.Tensor    # (total_bytes,) int8, panel-major segmented
+    segmap: packing.SegmentMap
+    a_bits: int
+    a_signed: bool
+    kappa: torch.Tensor     # (N,) int32
+    lam: torch.Tensor       # (N,) int32
+    m: torch.Tensor         # (N,) int32
+    d: int
+    out_bits: int
+    k_logical: int          # pre-padding K
+
+    @property
+    def n(self) -> int:
+        return self.segmap.n
+
+    def segment_params(self, index: int) -> QuantizedLinearParams:
+        s, e, b = self.segmap.runs[index]
+        return QuantizedLinearParams(
+            w_packed=packing.segment_packed(self.w_flat, self.segmap,
+                                            index, self.k_logical),
+            w_bits=b, a_bits=self.a_bits, a_signed=self.a_signed,
+            kappa=self.kappa[s:e], lam=self.lam[s:e], m=self.m[s:e],
+            d=self.d, out_bits=self.out_bits, k_logical=self.k_logical)
+
+
+def quantize_linear_segmented(w_hat: torch.Tensor, segmap, kappa, lam, m,
+                              *, a_bits: int, a_signed: bool, d: int,
+                              out_bits: int, assert_range: bool = False
+                              ) -> SegmentedLinearParams:
+    """Pack already-quantized int8 weight values (K, N) at per-run widths.
+
+    Values must already sit on each run's grid (``assert_range=True``
+    checks it per run). The epilogue vectors go to ``w_hat``'s device.
+    """
+    dev = w_hat.device
+
+    def vec(v):
+        return torch.as_tensor(v).to(device=dev, dtype=torch.int32)
+
+    return SegmentedLinearParams(
+        w_flat=packing.pack_segmented(w_hat, segmap,
+                                      assert_range=assert_range),
+        segmap=segmap, a_bits=a_bits, a_signed=a_signed, kappa=vec(kappa),
+        lam=vec(lam), m=vec(m), d=d, out_bits=out_bits,
+        k_logical=int(w_hat.shape[-2]))

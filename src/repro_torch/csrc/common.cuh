@@ -1,4 +1,5 @@
-// Shared device code of the two integer kernels (qmatmul.cu, qconv.cu).
+// Shared device code of the integer kernels (qmatmul.cu, qconv.cu,
+// qmatmul_segmented.cu).
 //
 // One block computes a TILE_M x TILE_N tile of int32 accumulators. K
 // advances one CHUNK (128 logical elements) per step: the packed x and w
@@ -130,15 +131,24 @@ __device__ __forceinline__ void store_out(void* out, long long idx, int acc,
   }
 }
 
+// The weight columns one block contracts: packed row j of K tile kt
+// starts at base + (kt * WR + j) * ld, and the first `ncols` of the
+// block's TILE_N columns are real (the rest load as zeros). A row-major
+// (K/pf_w, N) panel is {w + n0, N, N - n0}; a panel-major segmented
+// buffer's CHUNK-wide panel is {panel + half * TILE_N, CHUNK, TILE_N}.
+struct WTile {
+  const int8_t* base;
+  long long ld;
+  int ncols;
+};
+
 // Issue the copies of K tile `kt` into ring slot `slot`. `xsrc.row(r, kt)`
 // gives the global address of row r's packed CHUNK (nullptr: zero row).
 // w rows of tile kt start at packed row kt * WR (tap-major K for the
 // conv: tap t, channel chunk c is tile t * cin_pad / CHUNK + c).
 template <int STAGES, int A_BITS, int W_BITS, class XSrc>
-__device__ __forceinline__ void load_tile(const XSrc& xsrc,
-                                          const int8_t* __restrict__ w,
-                                          int N, int n0, int kt, int slot,
-                                          int8_t* smem) {
+__device__ __forceinline__ void load_tile(const XSrc& xsrc, const WTile& w,
+                                          int kt, int slot, int8_t* smem) {
   using L = Layout<STAGES, A_BITS, W_BITS>;
   constexpr int XV = L::XB / 16;
   int8_t* xslot = smem + slot * L::X_SLOT;
@@ -149,30 +159,26 @@ __device__ __forceinline__ void load_tile(const XSrc& xsrc,
     cp_async16(xslot + r * L::XB + c * 16,
                src != nullptr ? src + c * 16 : xsrc.base, src ? 16 : 0);
   }
-  const int8_t* wtile = w + static_cast<long long>(kt) * L::WR * N + n0;
-  const int ncols = N - n0;
-  if (N % 16 == 0) {
+  const int8_t* wtile = w.base + static_cast<long long>(kt) * L::WR * w.ld;
+  if (w.ld % 16 == 0) {
     for (int v = threadIdx.x; v < L::WR * (TILE_N / 16); v += THREADS) {
       const int j = v / (TILE_N / 16), col = (v % (TILE_N / 16)) * 16;
-      const int valid = min(max(ncols - col, 0), 16);
+      const int valid = min(max(w.ncols - col, 0), 16);
       cp_async16(wslot + j * TILE_N + col,
-                 valid ? wtile + static_cast<long long>(j) * N + col : w,
-                 valid);
+                 valid ? wtile + j * w.ld + col : w.base, valid);
     }
-  } else if (N % 4 == 0) {
+  } else if (w.ld % 4 == 0) {
     for (int v = threadIdx.x; v < L::WR * (TILE_N / 4); v += THREADS) {
       const int j = v / (TILE_N / 4), col = (v % (TILE_N / 4)) * 4;
-      const int valid = min(max(ncols - col, 0), 4);
+      const int valid = min(max(w.ncols - col, 0), 4);
       cp_async4(wslot + j * TILE_N + col,
-                valid ? wtile + static_cast<long long>(j) * N + col : w,
-                valid);
+                valid ? wtile + j * w.ld + col : w.base, valid);
     }
   } else {
     // rows of a ragged N are not 4-byte aligned: plain loads
     for (int v = threadIdx.x; v < L::WR * TILE_N; v += THREADS) {
       const int j = v / TILE_N, col = v % TILE_N;
-      wslot[j * TILE_N + col] =
-          col < ncols ? wtile[static_cast<long long>(j) * N + col] : 0;
+      wslot[j * TILE_N + col] = col < w.ncols ? wtile[j * w.ld + col] : 0;
     }
   }
 }
@@ -232,12 +238,11 @@ __device__ __forceinline__ void contract_tile(const int8_t* smem,
 
 // The whole K loop of one block: nk CHUNK tiles through the STAGES ring.
 template <int STAGES, int A_BITS, int W_BITS, class XSrc>
-__device__ __forceinline__ void mainloop(const XSrc& xsrc,
-                                         const int8_t* __restrict__ w, int N,
-                                         int n0, int nk, bool a_signed,
-                                         int8_t* smem, int acc[4][4]) {
+__device__ __forceinline__ void mainloop(const XSrc& xsrc, const WTile& w,
+                                         int nk, bool a_signed, int8_t* smem,
+                                         int acc[4][4]) {
   if (STAGES == 2) {
-    load_tile<STAGES, A_BITS, W_BITS>(xsrc, w, N, n0, 0, 0, smem);
+    load_tile<STAGES, A_BITS, W_BITS>(xsrc, w, 0, 0, smem);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -245,12 +250,11 @@ __device__ __forceinline__ void mainloop(const XSrc& xsrc,
     if (STAGES == 2) {
       slot = kt & 1;
       if (kt + 1 < nk)  // tile kt+1's copy rides behind tile kt's math
-        load_tile<STAGES, A_BITS, W_BITS>(xsrc, w, N, n0, kt + 1, slot ^ 1,
-                                          smem);
+        load_tile<STAGES, A_BITS, W_BITS>(xsrc, w, kt + 1, slot ^ 1, smem);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
-      load_tile<STAGES, A_BITS, W_BITS>(xsrc, w, N, n0, kt, 0, smem);
+      load_tile<STAGES, A_BITS, W_BITS>(xsrc, w, kt, 0, smem);
       cp_async_commit();
       cp_async_wait<0>();
     }
@@ -259,6 +263,37 @@ __device__ __forceinline__ void mainloop(const XSrc& xsrc,
     __syncthreads();
     contract_tile<STAGES, A_BITS, W_BITS>(smem, acc);
     __syncthreads();
+  }
+}
+
+// Rows of a row-major packed activation matrix (M, K/pf_a), for a block
+// whose first output row is m0: row r of K tile kt, or nullptr past M.
+struct GemmRows {
+  const int8_t* base;
+  long long ld;  // packed bytes per row (K / pf_a)
+  int M, m0, xb;
+  __device__ const int8_t* row(int r, int kt) const {
+    const int m = m0 + r;
+    return m < M ? base + m * ld + static_cast<long long>(kt) * xb : nullptr;
+  }
+};
+
+// Epilogue and store of a block's 64 x 64 accumulators into the row-major
+// (M, N) output; thread (tx, ty) holds rows ty + 16 i, columns tx + 16 j.
+__device__ __forceinline__ void store_gemm_tile(void* out, const int acc[4][4],
+                                                int M, int N, int m0, int n0,
+                                                const EpilogueArgs& epi) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N)
+        store_out(out, static_cast<long long>(m) * N + n, acc[i][j], n, epi);
+    }
   }
 }
 

@@ -61,8 +61,10 @@ __global__ void __launch_bounds__(rq::THREADS)
                       wo, howo,   fw, stride,
                       cchunks, L::XB, b, q0};
   int acc[4][4] = {};
-  rq::mainloop<STAGES, A_BITS, W_BITS>(rows, w, cout, n0, fh * fw * cchunks,
-                                       a_signed != 0, smem, acc);
+  rq::mainloop<STAGES, A_BITS, W_BITS>(rows, rq::WTile{w + n0, cout,
+                                                  cout - n0},
+                                       fh * fw * cchunks, a_signed != 0,
+                                       smem, acc);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

@@ -22,16 +22,6 @@
 
 namespace {
 
-struct GemmRows {
-  const int8_t* base;
-  long long ld;  // packed bytes per row (K / pf_a)
-  int M, m0, xb;
-  __device__ const int8_t* row(int r, int kt) const {
-    const int m = m0 + r;
-    return m < M ? base + m * ld + static_cast<long long>(kt) * xb : nullptr;
-  }
-};
-
 template <int A_BITS, int W_BITS, int STAGES>
 __global__ void __launch_bounds__(rq::THREADS)
     qmatmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
@@ -41,23 +31,12 @@ __global__ void __launch_bounds__(rq::THREADS)
   using L = rq::Layout<STAGES, A_BITS, W_BITS>;
   const int m0 = blockIdx.x * rq::TILE_M;
   const int n0 = blockIdx.y * rq::TILE_N;
-  const GemmRows rows{x, K / (8 / A_BITS), M, m0, L::XB};
+  const rq::GemmRows rows{x, K / (8 / A_BITS), M, m0, L::XB};
   int acc[4][4] = {};
-  rq::mainloop<STAGES, A_BITS, W_BITS>(rows, w, N, n0, K / rq::CHUNK,
-                                       a_signed != 0, smem, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N)
-        rq::store_out(out, static_cast<long long>(m) * N + n, acc[i][j], n,
-                      epi);
-    }
-  }
+  rq::mainloop<STAGES, A_BITS, W_BITS>(rows, rq::WTile{w + n0, N, N - n0},
+                                       K / rq::CHUNK, a_signed != 0, smem,
+                                       acc);
+  rq::store_gemm_tile(out, acc, M, N, m0, n0, epi);
 }
 
 template <int A_BITS, int W_BITS, int STAGES>

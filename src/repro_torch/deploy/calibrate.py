@@ -1,0 +1,208 @@
+"""Vision calibration: per-layer activation ranges and bit-width
+sensitivities for the deploy planner.
+
+`calibrate_vision` replays the fp net once per calibration batch with two
+observers: the `vision.layers.conv_tap` observer sees every conv's and the
+head's input, and prices each candidate weight width b by the squared
+output error of a simulated W{b}A{a_bits} op against the fp op on the
+layer's real geometry (weights on the per-tensor symmetric grid the
+vision packers deploy, activations symmetric on the a_bits grid); an edge
+tap records every layer boundary's absmax, which `quantize_net` turns into
+the chained activation grids. The resulting `CalibStats` feed
+`deploy.planner.plan_mixed_precision`.
+
+The float sums are float32 torch reductions; they agree with the
+reference's XLA reductions to rounding, not bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import packing
+from repro_torch.core.calibration import calibrate_weight
+from repro_torch.core.quantize import dequantize, quantize
+from repro_torch.obs import trace as obs
+
+CANDIDATE_BITS = (8, 4, 2)
+
+
+@dataclasses.dataclass
+class CalibStats:
+    """Accumulated calibration record for one compute path."""
+
+    path: str
+    layers: int                 # stacked depth instances (1 for vision)
+    d_in: int
+    d_out: int
+    a_absmax: float = 0.0
+    sq_err: Dict[int, float] = dataclasses.field(default_factory=dict)
+    sq_ref: float = 0.0
+    taps: int = 0
+    # per-output-channel squared error, (d_out,) float64 per candidate
+    # width: the channel-group planner's signal; sums to sq_err[b]
+    col_sq_err: Dict[int, np.ndarray] = dataclasses.field(
+        default_factory=dict)
+
+    def sens(self, bits: int) -> float:
+        """Relative output MSE at w_bits=bits (the planner's cost unit)."""
+        return self.sq_err.get(bits, 0.0) / (self.sq_ref + 1e-12)
+
+    def col_sens(self, bits: int) -> Optional[np.ndarray]:
+        """(d_out,) per-channel relative MSE at w_bits=bits, normalized
+        as `sens`; None when no channel detail was recorded."""
+        cols = self.col_sq_err.get(bits)
+        if cols is None:
+            return None
+        return np.asarray(cols, np.float64) / (self.sq_ref + 1e-12)
+
+    def _add_col_err(self, bits: int, err: torch.Tensor):
+        """Accumulate one tap's per-channel squared error (err: (..., N))."""
+        cols = (err.to(torch.float32) ** 2).sum(
+            dim=tuple(range(err.dim() - 1)))
+        cols = cols.cpu().numpy().astype(np.float64)
+        prev = self.col_sq_err.get(bits)
+        self.col_sq_err[bits] = cols if prev is None else prev + cols
+
+
+def _sim_quant_weights(w: torch.Tensor, b: int) -> torch.Tensor:
+    """Quantize-dequantize ``w`` on the per-tensor symmetric grid the
+    vision packers deploy (`calibrate_weight` -> `quantize`)."""
+    spec = calibrate_weight(w, b)
+    return dequantize(quantize(w, spec), spec)
+
+
+def _sim_quant_acts(x: torch.Tensor, a_bits: int,
+                    absmax: float) -> torch.Tensor:
+    """Activations on the symmetric a_bits grid, dequantized. The divisor
+    is a float32 tensor, as in `quantize`."""
+    a_max = packing.int_range(a_bits, True)[1]
+    a_scale = max(absmax, 1e-8) / a_max
+    div = torch.tensor(a_scale, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x / div), -a_max, a_max) * a_scale
+
+
+def _sim_int_conv(x, w, b: int, a_bits: int, absmax: float, *,
+                  stride: int, padding: int) -> torch.Tensor:
+    """Simulated W{b}A{a_bits} conv for the sensitivity proxy: the
+    quantize-dequantize image of the deployed integer conv."""
+    from repro_torch.vision.layers import conv2d_raw
+
+    return conv2d_raw(_sim_quant_acts(x, a_bits, absmax),
+                      _sim_quant_weights(w, b), stride=stride,
+                      padding=padding)
+
+
+class _ConvCollector:
+    """`conv_tap` observer for the vision fp replay: per-layer input
+    absmax and simulated-W{b} output-error sensitivity, priced against
+    the fp op on the layer's geometry."""
+
+    def __init__(self, stats: Dict[str, CalibStats], geom: Dict[str, dict],
+                 id2path: Dict[int, str], bits: Sequence[int], a_bits: int,
+                 max_images: int):
+        self.stats = stats
+        self.geom = geom
+        self.id2path = id2path
+        self.bits = tuple(bits)
+        self.a_bits = a_bits
+        self.max_images = max_images
+
+    def __call__(self, p, x):
+        from repro_torch.vision.layers import conv2d_raw
+
+        w = p.get("w")
+        path = self.id2path.get(id(w)) if w is not None else None
+        if path is None or path not in self.stats:
+            return
+        st = self.stats[path]
+        g = self.geom[path]
+        xf = x.to(torch.float32)
+        absmax = float(torch.max(torch.abs(xf)))
+        st.a_absmax = max(st.a_absmax, absmax)
+        if xf.dim() == 4 and xf.shape[0] > self.max_images:
+            xf = xf[:self.max_images]
+        wf = w.to(torch.float32)
+        if g["kind"] == "linear":
+            y_ref = xf @ wf
+        else:
+            y_ref = conv2d_raw(xf, wf, stride=g["stride"],
+                               padding=g["padding"])
+        st.sq_ref += float(torch.sum(y_ref * y_ref))
+        for b in self.bits:
+            if g["kind"] == "linear":
+                y_q = (_sim_quant_acts(xf, self.a_bits, absmax)
+                       @ _sim_quant_weights(wf, b))
+            else:
+                y_q = _sim_int_conv(xf, wf, b, self.a_bits, absmax,
+                                    stride=g["stride"],
+                                    padding=g["padding"])
+            err = y_q - y_ref
+            st.sq_err[b] = st.sq_err.get(b, 0.0) + float(torch.sum(err * err))
+            st._add_col_err(b, err)
+        st.taps += 1
+
+
+def _vision_stats_geom(cfg, fp_params):
+    """Per compute path: an empty `CalibStats` with the deployable
+    artifact's (d_in, d_out), the layer geometry, and the id(w) -> path
+    map the conv tap needs."""
+    from repro_torch.vision.models import (COMPUTE_KINDS, get_path,
+                                           trace_shapes)
+
+    stats: Dict[str, CalibStats] = {}
+    geom: Dict[str, dict] = {}
+    id2path: Dict[int, str] = {}
+    for t in trace_shapes(cfg):
+        L, (_, _, c) = t["layer"], t["in"]
+        if L.kind not in COMPUTE_KINDS:
+            continue
+        d_in = L.fh * L.fw * c if L.kind == "conv" else c
+        stats[L.path] = CalibStats(L.path, 1, d_in, L.cout)
+        geom[L.path] = {"kind": L.kind, "stride": L.stride,
+                        "padding": L.padding}
+        id2path[id(get_path(fp_params, L.path)["w"])] = L.path
+    return stats, geom, id2path
+
+
+def calibrate_vision(cfg, fp_params, image_batches: Sequence[np.ndarray], *,
+                     bits: Sequence[int] = CANDIDATE_BITS, a_bits: int = 8,
+                     max_images: int = 64, sensitivity: str = "mse"):
+    """Calibrate a vision net on (B, H, W, C) float image batches, on the
+    fp params' device: returns (per-layer `CalibStats`, per-edge absmax).
+
+    ``sensitivity="mse"`` is the output-error proxy above. The reference's
+    ``"task_loss"`` (cross-entropy loss on labeled batches per quantized
+    layer or channel group) comes with the QAT slice.
+    """
+    if sensitivity == "task_loss":
+        raise NotImplementedError(
+            "calibrate_vision(sensitivity='task_loss') comes with the QAT "
+            "slice (ROADMAP Queue 1, item 12); use sensitivity='mse'")
+    if sensitivity != "mse":
+        raise ValueError(f"unknown sensitivity {sensitivity!r}; expected "
+                         "'mse' or 'task_loss'")
+    from repro_torch.vision.layers import conv_tap
+    from repro_torch.vision.models import forward_fp, get_path
+
+    stats, geom, id2path = _vision_stats_geom(cfg, fp_params)
+    dev = get_path(fp_params, next(iter(stats)))["w"].device
+    absmax: Dict[str, float] = {}
+
+    def edge_tap(path, tensor):
+        absmax[path] = max(absmax.get(path, 0.0),
+                           float(torch.max(torch.abs(tensor))))
+
+    collector = _ConvCollector(stats, geom, id2path, bits, a_bits,
+                               max_images)
+    with conv_tap(collector):
+        for i, imgs in enumerate(image_batches):
+            imgs = np.asarray(imgs, np.float32)
+            with obs.span("calibrate.batch", cat="deploy", batch=i,
+                          images=int(imgs.shape[0])):
+                forward_fp(cfg, fp_params, torch.from_numpy(imgs).to(dev),
+                           edge_tap=edge_tap)
+    return stats, absmax

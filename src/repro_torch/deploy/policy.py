@@ -17,7 +17,7 @@ import json
 import pathlib
 from typing import Optional, Tuple
 
-from repro_torch.core.packing import pack_factor
+from repro_torch.core.packing import SegmentMap
 from repro_torch.kernels.api import BACKENDS
 from repro_torch.kernels.common import check_pipeline
 from repro_torch.nn.layers import QuantConfig
@@ -47,9 +47,7 @@ class PlanRule:
         if self.pipeline is not None:
             check_pipeline(self.pipeline)
         if self.segments is not None:
-            runs = tuple(tuple(int(v) for v in r) for r in self.segments)
-            for _, _, b in runs:
-                pack_factor(b)          # raises on widths other than 8/4/2
+            runs = SegmentMap(tuple(tuple(r) for r in self.segments)).runs
             widest = max(b for _, _, b in runs)
             if self.w_bits != widest:
                 raise ValueError(

@@ -1,6 +1,7 @@
-"""Shared pieces of the two integer kernels and their plain versions.
+"""Shared pieces of the integer kernels and their plain versions.
 
-Both kernels run the paper's per-tile pipeline:
+Every kernel (packed GEMM, mixed-operand GEMM, fused conv) runs the
+paper's per-tile pipeline:
 
     unpack(W, X) -> int8        (nibble/crumb operands, Table II)
     int8 x int8 -> int32        (sum-of-dot-product, eq. 2)

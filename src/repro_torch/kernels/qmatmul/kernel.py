@@ -1,14 +1,19 @@
-"""Packed sub-byte integer GEMM: the CUDA kernel and its plain version.
+"""Packed sub-byte integer GEMMs: the CUDA kernels and their plain
+versions.
 
-`qmatmul_packed` dispatches on the tensors' device: CUDA tensors launch
-the Hopper kernel (``csrc/qmatmul.cu``, STAGES=1 for pipeline 'off',
-STAGES=2 for 'double_buffer'); CPU tensors run `qmatmul_packed_torch`,
-the same unpack -> contract -> epilogue in torch. There is no fallback
-from one to the other: a CUDA call that cannot launch raises.
+`qmatmul_packed` (uniform weight width) and `qmatmul_segmented` (a
+panel-major `SegmentMap` buffer, one width per output-channel run)
+dispatch on the tensors' device: CUDA tensors launch the Hopper kernels
+(``csrc/qmatmul.cu``, ``csrc/qmatmul_segmented.cu``; STAGES=1 for
+pipeline 'off', STAGES=2 for 'double_buffer'); CPU tensors run the plain
+versions `qmatmul_packed_torch` / `qmatmul_segmented_torch`, the same
+unpack -> contract -> epilogue in torch. There is no fallback from one to
+the other: a CUDA call that cannot launch raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,12 +21,17 @@ from repro_torch.core import packing
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.common import (EPILOGUE_DTYPES, EPILOGUES,
                                         PIPELINE_STAGES, apply_epilogue,
-                                        check_pipeline, matmul_planes)
+                                        check_pipeline, int_matmul,
+                                        matmul_planes)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "qmatmul", "qmatmul.cu", "qmatmul_launch",
     [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P] + [_I] * 10 + [_P])
+SEGMENTED_KERNEL = CudaKernel(
+    "qmatmul_segmented", "qmatmul_segmented.cu", "qmatmul_segmented_launch",
+    [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, ctypes.c_float, _P]
+    + [_I] * 9 + [_P])
 
 
 def qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
@@ -128,3 +138,111 @@ def qmatmul_packed(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
         x, w_packed, kappa, lam, m_mul, a_bits=a_bits, a_signed=a_signed,
         w_bits=w_bits, d=d, out_bits=out_bits, epilogue=epilogue,
         scale=scale)
+
+
+# ------------------------------------------------ segmented (mixed) GEMM ---
+
+def _check_segmented(x, w_flat, segmap, k_logical: int, a_bits: int):
+    """(M, K_pad, N) of a mixed-operand call, after checking the shapes
+    the kernel and its plain version both assume."""
+    pf_a = packing.pack_factor(a_bits)
+    m, k_pad = x.shape[0], x.shape[1] * pf_a
+    if k_pad != packing.padded_size(k_logical):
+        raise ValueError(f"x {tuple(x.shape)} (A{a_bits}) holds K={k_pad}; "
+                         f"expected padded_size({k_logical})")
+    n = segmap.n
+    if n % packing.CHUNK:
+        raise ValueError(f"N={n} is not a CHUNK multiple; pad the container "
+                         "first (packing.pad_segmented)")
+    if w_flat.dim() != 1 or w_flat.shape[0] != segmap.packed_bytes(
+            k_logical):
+        raise ValueError(
+            f"w_flat {tuple(w_flat.shape)} is not a flat buffer of "
+            f"{segmap.packed_bytes(k_logical)} bytes for {segmap.runs}")
+    return m, k_pad, n
+
+
+def qmatmul_segmented_torch(x, w_flat, segmap, kappa, lam, m_mul, *,
+                            k_logical: int, a_bits: int, a_signed: bool,
+                            d: int, out_bits: int, epilogue: str = "int",
+                            scale=1.0) -> torch.Tensor:
+    """Plain version: x (M, K_pad/pf_a) against the flat panel-major
+    buffer, read panel by panel through `SegmentMap.tile_table`'s
+    (width code, byte offset) descriptors as the kernel reads it, then
+    the epilogue. N must be a CHUNK multiple (`pad_segmented`)."""
+    m, k_pad, n = _check_segmented(x, w_flat, segmap, k_logical, a_bits)
+    codes, offs = segmap.tile_table(k_logical)
+    widths = segmap.widths()
+    xu = packing.unpack(x, a_bits, a_signed, axis=-1)
+    acc = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    for j, (code, off) in enumerate(zip(codes.tolist(), offs.tolist())):
+        bits = widths[code]
+        rows = k_pad // packing.pack_factor(bits)
+        panel = w_flat[off:off + rows * packing.CHUNK].reshape(
+            rows, packing.CHUNK)
+        acc[:, j * packing.CHUNK:(j + 1) * packing.CHUNK] = int_matmul(
+            xu, packing.unpack(panel, bits, True, axis=0))
+    return apply_epilogue(acc, kappa, lam, m_mul, d=d, out_bits=out_bits,
+                          epilogue=epilogue, scale=scale)
+
+
+@functools.lru_cache(maxsize=64)
+def segment_descriptors(segmap, k_logical: int, device: torch.device):
+    """The kernel's per-panel (codes, offsets) int32 tensors on
+    ``device``, built once per (segmap, K, device)."""
+    total = segmap.packed_bytes(k_logical)
+    if total >= 2 ** 31:
+        raise ValueError(f"segmented buffer of {total} bytes: the kernel's "
+                         "int32 byte offsets need < 2^31")
+    codes, offs = segmap.tile_table(k_logical)
+    return (torch.from_numpy(codes).to(device),
+            torch.from_numpy(offs).to(device))
+
+
+def qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul, *,
+                           k_logical: int, a_bits: int, a_signed: bool,
+                           d: int, out_bits: int, epilogue: str = "int",
+                           scale=1.0, pipeline: str = "off") -> torch.Tensor:
+    """Launch the mixed-operand Hopper kernel on CUDA tensors (raises on
+    anything it does not take)."""
+    stages = PIPELINE_STAGES[check_pipeline(pipeline)]
+    dev = x.device
+    _check(x, "x", torch.int8, dev, 2)
+    _check(w_flat, "w_flat", torch.int8, dev, 1)
+    m, k_pad, n = _check_segmented(x, w_flat, segmap, k_logical, a_bits)
+    kappa, lam, m_mul, svec, sf, d, hi, code = epilogue_launch_args(
+        kappa, lam, m_mul, n=n, d=d, out_bits=out_bits, epilogue=epilogue,
+        scale=scale, device=dev)
+    codes, offs = segment_descriptors(segmap, k_logical, dev)
+    widths = segmap.widths()
+    widths = widths + (widths[0],) * (3 - len(widths))
+    out = torch.empty((m, n), dtype=EPILOGUE_DTYPES[epilogue], device=dev)
+    if m == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        SEGMENTED_KERNEL.launch(
+            stages, x.data_ptr(), w_flat.data_ptr(), codes.data_ptr(),
+            offs.data_ptr(), *widths, kappa.data_ptr(), lam.data_ptr(),
+            m_mul.data_ptr(), None if svec is None else svec.data_ptr(), sf,
+            out.data_ptr(), m, n, k_pad, a_bits, int(a_signed), d, hi, code,
+            stages, stream)
+    return out
+
+
+def qmatmul_segmented(x, w_flat, segmap, kappa, lam, m_mul, *,
+                      k_logical: int, a_bits: int, a_signed: bool, d: int,
+                      out_bits: int, epilogue: str = "int", scale=1.0,
+                      pipeline: str = "off") -> torch.Tensor:
+    """Mixed-operand packed GEMM: x (M, K_pad/pf_a) against a flat
+    panel-major segmented buffer whose N is a CHUNK multiple, with the
+    fused epilogue. CUDA tensors launch the kernel; CPU tensors run the
+    plain version."""
+    check_pipeline(pipeline)
+    kw = dict(k_logical=k_logical, a_bits=a_bits, a_signed=a_signed, d=d,
+              out_bits=out_bits, epilogue=epilogue, scale=scale)
+    if x.is_cuda:
+        return qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul,
+                                      pipeline=pipeline, **kw)
+    return qmatmul_segmented_torch(x, w_flat, segmap, kappa, lam, m_mul,
+                                   **kw)

@@ -42,7 +42,7 @@ def qmatmul_ref(x_packed, w_packed, kappa, lam, m_mul, *,
         if epilogue == "raw":
             return acc
         if epilogue == "dequant":
-            return acc.astype(np.float32) * np.float32(scale)
+            return acc.astype(np.float32) * np.asarray(scale, np.float32)
         kappa = np.asarray(kappa, dtype=np.int32).reshape(1, -1)
         lam = np.asarray(lam, dtype=np.int32).reshape(1, -1)
         m = np.asarray(m_mul, dtype=np.int64).reshape(1, -1)
@@ -50,3 +50,35 @@ def qmatmul_ref(x_packed, w_packed, kappa, lam, m_mul, *,
         y = (m * phi_p.astype(np.int64)) >> d
         hi = packing.int_range(out_bits, False)[1]
         return np.clip(y, 0, hi).astype(np.int8)
+
+
+def segment_view_np(w_flat, segmap, index: int, k: int) -> np.ndarray:
+    """numpy view of run ``index`` of a panel-major segmented buffer as
+    its uniform (K_pad/pf, run_len) container."""
+    w_flat = np.asarray(w_flat, dtype=np.int8)
+    s, e, b = segmap.runs[index]
+    rows = packing.padded_size(k) // (8 // b)
+    pos = segmap.seg_offsets(k)[index]
+    panels = []
+    for p0 in range(s, e, packing.CHUNK):
+        pw = min(packing.CHUNK, e - p0)
+        panels.append(w_flat[pos:pos + rows * pw].reshape(rows, pw))
+        pos += rows * pw
+    return np.concatenate(panels, axis=1)
+
+
+def qmatmul_segmented_ref(x_packed, w_flat, segmap, kappa, lam, m_mul, *,
+                          k_logical: int, a_bits: int, a_signed: bool,
+                          d: int, out_bits: int, epilogue: str = "int",
+                          scale: float = 1.0) -> np.ndarray:
+    """Composition oracle: each run through the uniform `qmatmul_ref`
+    with its own width and epilogue slice, concatenated along N."""
+    outs = []
+    for i, (s, e, b) in enumerate(segmap.runs):
+        sc = scale if np.ndim(scale) == 0 else np.asarray(scale)[s:e]
+        outs.append(qmatmul_ref(
+            x_packed, segment_view_np(w_flat, segmap, i, k_logical),
+            np.asarray(kappa)[s:e], np.asarray(lam)[s:e],
+            np.asarray(m_mul)[s:e], a_bits=a_bits, a_signed=a_signed,
+            w_bits=b, d=d, out_bits=out_bits, epilogue=epilogue, scale=sc))
+    return np.concatenate(outs, axis=-1)

@@ -1,21 +1,21 @@
 """Vision deployment launcher: calibrate -> plan -> pack -> serve a CNN.
 
-    PYTHONPATH=src python -m repro_torch.launch.vision --net resnet8 \
-        --bits 4 --requests 256 --batch 64
+    PYTHONPATH=src python -m repro_torch.launch.vision --net qat-cnn \
+        --bits 8,4,2 --budget auto --out vplan.json --requests 256 \
+        --batch 64
 
-builds the net from seeded fp params, calibrates activation ranges on
-seeded random images, quantizes it at one weight width (a single ``--bits``
-value is the uniform plan; two or more need the deploy planner, which is
-not ported yet), and serves a batch of images through `VisionEngine` on
-``--device`` (default ``cuda``). ``--from-plan`` loads a plan JSON
-(including one saved by the reference) instead.
+builds the net from seeded fp params and calibrates it on seeded random
+images. One ``--bits`` width is the uniform plan at that width; two or
+more run the calibrator and the per-layer planner (`plan_mixed_precision`
+at ``--budget``, ``auto`` by default) and save the plan to ``--out``.
+``--from-plan`` loads a plan JSON instead (one saved by the reference
+loads too; a channel-group plan with segments comes in this way). The
+net is packed and served through `VisionEngine` on ``--device`` (default
+``cuda``).
 """
 from __future__ import annotations
 
 import argparse
-
-# Calibration pass of the reference launcher's defaults.
-CALIB_BATCHES, CALIB_BATCH = 2, 4
 
 
 def uniform_plan(cfg, w_bits: int, a_bits: int, backend=None,
@@ -42,11 +42,19 @@ def main(argv=None):
     ap.add_argument("--a-bits", type=int, default=8,
                     help="activation bits at every layer boundary")
     ap.add_argument("--bits", default="8",
-                    help="weight bits; one width builds the uniform plan")
+                    help="candidate w_bits, widest first; one width builds "
+                         "the uniform plan")
+    ap.add_argument("--budget", default="auto",
+                    help="planner sensitivity budget (a float or 'auto')")
     ap.add_argument("--backend", default=None,
-                    help="op backend (cuda | torch; default: by device)")
+                    help="backend the plan's rules name (cuda | torch); "
+                         "must match --device")
     ap.add_argument("--from-plan", default=None,
-                    help="existing plan JSON: skip planning")
+                    help="existing plan JSON: skip calibrate/search")
+    ap.add_argument("--out", default="vision_plan.json",
+                    help="where a searched plan is saved")
+    ap.add_argument("--calib-batches", type=int, default=2)
+    ap.add_argument("--calib-batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--device", default="cuda")
@@ -55,8 +63,11 @@ def main(argv=None):
 
     import numpy as np
 
-    from repro_torch.deploy.policy import load_plan
+    from repro_torch.deploy.calibrate import calibrate_vision
+    from repro_torch.deploy.planner import auto_budget, plan_mixed_precision
+    from repro_torch.deploy.policy import load_plan, save_plan
     from repro_torch.device import resolve_device
+    from repro_torch.kernels.api import check_backend
     from repro_torch.serve.engine import VisionEngine
     from repro_torch.vision.configs import get_vision_config
     from repro_torch.vision.models import (collect_absmax, init_fp,
@@ -64,32 +75,47 @@ def main(argv=None):
                                            vision_artifact_bytes)
 
     device = resolve_device(args.device)
+    check_backend(args.backend, device)
     cfg = get_vision_config(args.net, smoke=args.smoke, a_bits=args.a_bits)
+    candidates = tuple(int(b) for b in args.bits.split(","))
     rng = np.random.default_rng(args.seed)
     fp_params = init_fp(cfg, seed=args.seed, device=device)
     batches = [rng.uniform(0, 1, size=(
-        CALIB_BATCH, *cfg.in_hw, cfg.in_ch)).astype(np.float32)
-        for _ in range(CALIB_BATCHES)]
-    absmax = collect_absmax(cfg, fp_params, batches)
+        args.calib_batch, *cfg.in_hw, cfg.in_ch)).astype(np.float32)
+        for _ in range(args.calib_batches)]
     if args.from_plan:
         plan = load_plan(args.from_plan)
+        absmax = collect_absmax(cfg, fp_params, batches)
         print(f"loaded plan {args.from_plan} ({len(plan.rules)} rules, "
               f"w_bits {plan.distinct_w_bits()})")
+    elif len(candidates) == 1:
+        absmax = collect_absmax(cfg, fp_params, batches)
+        plan = uniform_plan(cfg, candidates[0], args.a_bits, args.backend)
     else:
-        widths = tuple(int(b) for b in args.bits.split(","))
-        if len(widths) != 1:
-            raise NotImplementedError(
-                f"--bits {args.bits}: choosing among several widths needs "
-                "the deploy planner and calibrator, which are not ported "
-                "yet (ROADMAP Queue 1, item 7); pass one width")
-        plan = uniform_plan(cfg, widths[0], args.a_bits, args.backend)
-    qnet = quantize_net(cfg, fp_params, absmax, plan=plan,
-                        backend=args.backend, device=device)
+        print(f"calibrating {cfg.name}: {len(batches)} batches of "
+              f"{args.calib_batch} images {cfg.in_hw}, "
+              f"candidates W{candidates}")
+        stats, absmax = calibrate_vision(cfg, fp_params, batches,
+                                         bits=candidates, a_bits=args.a_bits)
+        budget = (auto_budget(stats, candidates)
+                  if args.budget == "auto" else float(args.budget))
+        plan = plan_mixed_precision(
+            stats, budget, candidates=candidates, a_bits=args.a_bits,
+            backend=args.backend,
+            meta={"arch": cfg.name, "smoke": args.smoke})
+        for r in plan.rules:
+            st = stats[r.pattern]
+            sens = ", ".join(f"{b}:{st.sens(b):.2e}" for b in candidates)
+            print(f"  {r.pattern:<16} W{r.w_bits}A{r.a_bits}  "
+                  f"absmax={st.a_absmax:.3f}  sens={{{sens}}}")
+        save_plan(plan, args.out)
+        print(f"plan ({len(plan.rules)} rules, w_bits "
+              f"{plan.distinct_w_bits()}) -> {args.out}")
+    qnet = quantize_net(cfg, fp_params, absmax, plan=plan, device=device)
     print(f"packed artifact: {vision_artifact_bytes(qnet):,} bytes, "
           f"per-layer bits {qnet.layer_bits()}")
 
-    engine = VisionEngine(qnet, batch_size=args.batch, backend=args.backend,
-                          device=device)
+    engine = VisionEngine(qnet, batch_size=args.batch, device=device)
     images = rng.uniform(0, 1, size=(
         args.requests, *cfg.in_hw, cfg.in_ch)).astype(np.float32)
     logits = engine.run(images)

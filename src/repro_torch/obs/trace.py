@@ -59,6 +59,10 @@ class Span:
         self._t0 = _now_us()
         return self
 
+    def set(self, **attrs) -> None:
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
+
     def __exit__(self, exc_type, exc, tb) -> bool:
         dur = _now_us() - self._t0
         if exc_type is not None:
@@ -77,6 +81,9 @@ class _NullSpan:
 
     def __enter__(self):
         return self
+
+    def set(self, **attrs) -> None:
+        pass
 
     def __exit__(self, *exc):
         return False

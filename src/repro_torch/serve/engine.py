@@ -7,7 +7,7 @@ runs with empty slots that never reach the results.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 
@@ -22,8 +22,7 @@ class VisionEngine:
     """Serve a `QuantizedVisionNet` in waves of ``batch_size`` images on
     ``device`` (default ``"cuda"``); the net must already live there."""
 
-    def __init__(self, qnet, batch_size: int, *,
-                 backend: Optional[str] = None, device="cuda"):
+    def __init__(self, qnet, batch_size: int, *, device="cuda"):
         dev = resolve_device(device)
         if qnet.device.type != dev.type:
             raise ValueError(
@@ -31,8 +30,7 @@ class VisionEngine:
                 f"serve on {dev}; quantize_net(..., device=) places it")
         self.qnet = qnet
         self.batch = batch_size
-        self.backend = backend
-        self._adapter = VisionAdapter(qnet, backend=backend)
+        self._adapter = VisionAdapter(qnet)
         self._sched = Scheduler(self._adapter, batch_size, policy="wave")
 
     @property

@@ -83,11 +83,10 @@ class VisionAdapter(WorkloadAdapter):
     name = "vision"
     max_len = 1
 
-    def __init__(self, qnet, *, backend: Optional[str] = None):
+    def __init__(self, qnet):
         from repro_torch.vision.models import forward_int
 
         self.qnet = qnet
-        self.backend = backend
         self.device = qnet.device
         self._forward = forward_int
         self._spec = ((*qnet.cfg.in_hw, qnet.cfg.in_ch), np.int8)
@@ -97,7 +96,7 @@ class VisionAdapter(WorkloadAdapter):
 
     def step(self, state, feed, positions):
         x = torch.from_numpy(feed).to(self.device)
-        logits = self._forward(self.qnet, x, backend=self.backend)
+        logits = self._forward(self.qnet, x)
         return logits.cpu().numpy(), state
 
     def begin(self, payload, *, rid: int, greedy: bool = True,

@@ -1,16 +1,17 @@
 """Named vision network configs (full + smoke variants)."""
 from __future__ import annotations
 
+from repro_torch.vision.configs.qat_cnn import qat_cnn
 from repro_torch.vision.configs.resnet8 import resnet8
 
 VISION_CONFIGS = {
+    "qat-cnn": qat_cnn,
     "resnet8": resnet8,
 }
 
 # Configs of the reference that need layers this port does not have yet.
 NOT_PORTED = {
     "mobilenet-tiny": "needs QDepthwiseConv2D; see ROADMAP Queue 1, item 4",
-    "qat-cnn": "comes with the QAT slice; see ROADMAP Queue 1, item 12",
 }
 
 

@@ -4,19 +4,23 @@ Every compute layer keeps activations as integer images (uint{8,4,2}
 values in int8 tensors) between layers, with int32 accumulation inside
 and the eq. 3/4 requant epilogue at its output:
 
-  QConv2D        one `api.qconv` call (fused implicit-GEMM kernel)
-  QLinear        `api.qdot` (classifier head; 'raw' int32 logits)
-  QMaxPool2D     grid-preserving integer max — no requantization
-  QAvgPool2D     int32 window sum + eq. 4 requant (`requantize_shift`)
-  QResidualAdd   two-scale integer add: y = clip((m1*a + m2*b) >> d)
+  QConv2D            one `api.qconv` call (fused implicit-GEMM kernel)
+  QSegmentedConv2D   one uniform `QConv2D` per output-channel run of a
+                     fine-grain plan, outputs concatenated along Cout
+  QLinear            `api.qdot` (classifier head; 'raw' int32 logits)
+  QMaxPool2D         grid-preserving integer max — no requantization
+  QAvgPool2D         int32 window sum + eq. 4 requant (`requantize_shift`)
+  QResidualAdd       two-scale integer add: y = clip((m1*a + m2*b) >> d)
 
 The fp applies (`conv2d_fp`, ...) are the calibration-time forward, in
-NHWC like the reference. Depthwise and segmented convs are not ported.
+NHWC like the reference; `conv_tap` lets the deploy calibrator observe
+each conv's and the head's input. Depthwise convs are not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +33,23 @@ from repro_torch.core.quantize import (QuantSpec, QuantizedLinearParams,
                                        requantize_shift, wrap_int32)
 from repro_torch.kernels import api
 from repro_torch.kernels.qconv.ops import QuantizedConvParams, quantize_conv
+
+# Calibration tap: when set, the fp conv and linear applies call it with
+# (params dict, x) before the op (host-side calibration passes only).
+_CONV_TAP: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def conv_tap(fn: Callable):
+    """Install ``fn(params_dict, x)`` as the vision-layer observer."""
+    global _CONV_TAP
+    prev = _CONV_TAP
+    _CONV_TAP = fn
+    try:
+        yield
+    finally:
+        _CONV_TAP = prev
+
 
 # ------------------------------------------------------- fp reference ---
 
@@ -44,14 +65,19 @@ def conv2d_raw(x: torch.Tensor, w: torch.Tensor, *, stride: int,
 def conv2d_fp(p: dict, x: torch.Tensor, *, stride: int, padding: int,
               relu: bool = True) -> torch.Tensor:
     """fp conv + BN + ReLU; p: {"w": (fh,fw,cin,cout), "bn_scale",
-    "bn_bias"}."""
+    "bn_bias"}. Calls the `conv_tap` observer."""
+    if _CONV_TAP is not None:
+        _CONV_TAP(p, x)
     y = conv2d_raw(x, p["w"], stride=stride, padding=padding)
     y = y * p["bn_scale"] + p["bn_bias"]
     return torch.clamp_min(y, 0.0) if relu else y
 
 
 def linear_fp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """fp classifier head (no BN/activation); p["w"]: (d_in, classes)."""
+    """fp classifier head (no BN/activation); p["w"]: (d_in, classes).
+    Calls the `conv_tap` observer."""
+    if _CONV_TAP is not None:
+        _CONV_TAP(p, x)
     return x @ p["w"]
 
 
@@ -90,16 +116,32 @@ def _windows(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class QConv2D:
     """One quantized conv layer: `api.qconv` + fused eq. 3/4 epilogue.
-    ``backend``/``pipeline`` come from the plan; call-time values win."""
+    ``pipeline`` comes from the plan; a call-time value wins."""
 
     conv: QuantizedConvParams
-    backend: Optional[str] = None
     pipeline: Optional[str] = None
 
-    def apply(self, x_hat, *, backend: Optional[str] = None,
-              pipeline: Optional[str] = None):
-        return api.qconv(self.conv, x_hat, backend=backend or self.backend,
+    def apply(self, x_hat, *, pipeline: Optional[str] = None):
+        return api.qconv(self.conv, x_hat,
                          pipeline=pipeline or self.pipeline)
+
+
+@dataclasses.dataclass(frozen=True)
+class QSegmentedConv2D:
+    """Fine-grain mixed-precision conv: one uniform `QConv2D` per
+    output-channel run, outputs concatenated along Cout.
+
+    Each ``(n_start, n_end, w_bits)`` run is quantized as a uniform layer
+    over its column slice (its own per-tensor weight grid and its own
+    eq. 3/4 fold), which is what `SegmentedLinearParams.segment_params`
+    defines a segmented container to mean."""
+
+    runs: Tuple[Tuple[int, int, int], ...]
+    parts: Tuple[QConv2D, ...]
+
+    def apply(self, x_hat, *, pipeline: Optional[str] = None):
+        return torch.cat([p.apply(x_hat, pipeline=pipeline)
+                          for p in self.parts], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,13 +151,10 @@ class QLinear:
 
     gemm: QuantizedLinearParams
     epilogue: str = "raw"
-    backend: Optional[str] = None
     pipeline: Optional[str] = None
 
-    def apply(self, x_hat, *, backend: Optional[str] = None,
-              pipeline: Optional[str] = None):
+    def apply(self, x_hat, *, pipeline: Optional[str] = None):
         return api.qdot(self.gemm, x_hat, epilogue=self.epilogue,
-                        backend=backend or self.backend,
                         pipeline=pipeline or self.pipeline)
 
 
@@ -173,17 +212,38 @@ class QResidualAdd:
 
 def quantize_conv_layer(p: dict, spec_x: QuantSpec, spec_y: QuantSpec,
                         w_bits: int, *, stride: int, padding: int,
-                        backend: Optional[str] = None,
                         pipeline: Optional[str] = None) -> QConv2D:
     """fp conv node {"w","bn_scale","bn_bias"} -> deployable QConv2D."""
     spec_w = calibrate_weight(p["w"], w_bits)
     conv = quantize_conv(p["w"], spec_w, p["bn_scale"], p["bn_bias"],
                          spec_x, spec_y, stride, padding)
-    return QConv2D(conv=conv, backend=backend, pipeline=pipeline)
+    return QConv2D(conv=conv, pipeline=pipeline)
+
+
+def quantize_conv_layer_segmented(p: dict, spec_x: QuantSpec,
+                                  spec_y: QuantSpec, runs, *, stride: int,
+                                  padding: int,
+                                  pipeline: Optional[str] = None
+                                  ) -> QSegmentedConv2D:
+    """fp conv node + plan segments -> per-run quantized conv. ``runs``
+    are the CHUNK-aligned ``(n_start, n_end, w_bits)`` runs covering
+    [0, cout) (`PlanRule.segments`); each run re-slices the BN fold."""
+    runs = tuple(tuple(int(v) for v in r) for r in runs)
+    cout = int(p["w"].shape[-1])
+    if runs[0][0] != 0 or runs[-1][1] != cout or any(
+            runs[i][1] != runs[i + 1][0] for i in range(len(runs) - 1)):
+        raise ValueError(f"segments {runs} do not tile [0, {cout})")
+    parts = []
+    for s, e, b in runs:
+        sub = {"w": p["w"][..., s:e], "bn_scale": p["bn_scale"][s:e],
+               "bn_bias": p["bn_bias"][s:e]}
+        parts.append(quantize_conv_layer(sub, spec_x, spec_y, b,
+                                         stride=stride, padding=padding,
+                                         pipeline=pipeline))
+    return QSegmentedConv2D(runs=runs, parts=tuple(parts))
 
 
 def quantize_linear_head(p: dict, spec_x: QuantSpec, w_bits: int, *,
-                         backend: Optional[str] = None,
                          pipeline: Optional[str] = None):
     """fp head {"w": (d_in, classes)} -> (QLinear with raw int32 logits,
     eps_logits). kappa/lam/m are identity placeholders the 'raw' epilogue
@@ -203,5 +263,5 @@ def quantize_linear_head(p: dict, spec_x: QuantSpec, w_bits: int, *,
         m=torch.ones((n,), dtype=torch.int32, device=dev), d=16, out_bits=8,
         k_logical=k_logical)
     eps_logits = float(spec_w.eps) * float(spec_x.eps)
-    return (QLinear(gemm=gemm, epilogue="raw", backend=backend,
-                    pipeline=pipeline), eps_logits)
+    return (QLinear(gemm=gemm, epilogue="raw", pipeline=pipeline),
+            eps_logits)

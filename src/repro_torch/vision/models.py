@@ -19,9 +19,11 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.quantize import QuantSpec, quantize
+from repro_torch.core.quantize import (QuantizedLinearParams, QuantSpec,
+                                       quantize)
 from repro_torch.deploy.policy import PrecisionPlan, resolve_qcfg
 from repro_torch.device import resolve_device
+from repro_torch.kernels.api import check_backend
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.vision import layers as vl
 
@@ -226,21 +228,25 @@ class QuantizedVisionNet:
     @property
     def device(self) -> torch.device:
         for L, q in self.qlayers:
-            if L.kind == "conv":
-                return q.conv.w_packed_fused.device
-            if L.kind == "linear":
-                return q.gemm.w_packed.device
+            if L.kind in COMPUTE_KINDS:
+                return _gemms(q)[0].w_packed.device
         raise ValueError("net has no conv or linear layer")
 
     def layer_bits(self) -> Dict[str, int]:
-        """path -> w_bits for the plan-addressable layers."""
-        out = {}
-        for L, q in self.qlayers:
-            if L.kind == "conv":
-                out[L.path] = q.conv.gemm.w_bits
-            elif L.kind == "linear":
-                out[L.path] = q.gemm.w_bits
-        return out
+        """path -> w_bits for the plan-addressable layers; a segmented
+        conv reports its widest run (the `PlanRule.w_bits` convention)."""
+        return {L.path: max(g.w_bits for g in _gemms(q))
+                for L, q in self.qlayers if L.kind in COMPUTE_KINDS}
+
+
+def _gemms(q) -> Tuple[QuantizedLinearParams, ...]:
+    """The GEMM artifacts of one conv or linear layer (one per run of a
+    segmented conv)."""
+    if isinstance(q, vl.QSegmentedConv2D):
+        return tuple(p.conv.gemm for p in q.parts)
+    if isinstance(q, vl.QConv2D):
+        return (q.conv.gemm,)
+    return (q.gemm,)
 
 
 def _to_device(tree, dev):
@@ -253,11 +259,12 @@ def _to_device(tree, dev):
 
 def quantize_net(cfg: VisionConfig, fp_params: dict, absmax: dict, *,
                  plan: Optional[PrecisionPlan] = None,
-                 default_w_bits: int = 8, backend: Optional[str] = None,
+                 default_w_bits: int = 8,
                  device="cuda") -> QuantizedVisionNet:
     """(fp params, per-edge absmax, plan) -> integer-only deployable net
-    on ``device``. Per-layer w_bits, backend and pipeline come from the
-    plan's rules; ``backend`` is the net-wide fallback route."""
+    on ``device``. Per-layer w_bits, segments and pipeline come from the
+    plan's rules; a backend a rule names must be the one ``device`` runs
+    (`api.check_backend`)."""
     dev = resolve_device(device)
     fp_params = _to_device(fp_params, dev)
     base = QuantConfig(mode="int", w_bits=default_w_bits, a_bits=cfg.a_bits)
@@ -278,18 +285,20 @@ def quantize_net(cfg: VisionConfig, fp_params: dict, absmax: dict, *,
         L = tr["layer"]
         spec_x = edge_specs[L.input_from] if L.input_from else spec
         qcfg = resolve_qcfg(plan, L.path, base)
-        lyr_backend = (qcfg.backend if L.kind in COMPUTE_KINDS
-                       and qcfg.backend is not None else backend)
-        if L.kind in COMPUTE_KINDS and qcfg.segments is not None:
-            raise NotImplementedError(
-                f"{L.path}: segmented (fine-grain mixed precision) plans "
-                "are not ported yet; see ROADMAP Queue 1, item 6")
+        if L.kind in COMPUTE_KINDS:
+            check_backend(qcfg.backend, dev)
         if L.kind == "conv":
             spec_y = out_spec(L.path)
-            q = vl.quantize_conv_layer(
-                get_path(fp_params, L.path), spec_x, spec_y, qcfg.w_bits,
-                stride=L.stride, padding=L.padding, backend=lyr_backend,
-                pipeline=qcfg.pipeline)
+            if qcfg.segments is not None:
+                q = vl.quantize_conv_layer_segmented(
+                    get_path(fp_params, L.path), spec_x, spec_y,
+                    qcfg.segments, stride=L.stride, padding=L.padding,
+                    pipeline=qcfg.pipeline)
+            else:
+                q = vl.quantize_conv_layer(
+                    get_path(fp_params, L.path), spec_x, spec_y,
+                    qcfg.w_bits, stride=L.stride, padding=L.padding,
+                    pipeline=qcfg.pipeline)
         elif L.kind == "maxpool":
             spec_y = spec_x                      # grid-preserving
             q = vl.QMaxPool2D(window=L.window, stride=L.stride)
@@ -306,9 +315,14 @@ def quantize_net(cfg: VisionConfig, fp_params: dict, absmax: dict, *,
                                             spec_y.eps)
             q = vl.QResidualAdd(m1=m1, m2=m2, d=d, out_bits=cfg.a_bits)
         else:  # linear
+            if qcfg.segments is not None:
+                raise NotImplementedError(
+                    f"{L.path}: segmented plans are not supported on the "
+                    "classifier head (d_out = num_classes < CHUNK, so "
+                    "the planner never splits it)")
             q, eps_logits = vl.quantize_linear_head(
                 get_path(fp_params, L.path), spec_x, qcfg.w_bits,
-                backend=lyr_backend, pipeline=qcfg.pipeline)
+                pipeline=qcfg.pipeline)
             spec_y = spec_x                      # raw logits: no new grid
         qlayers.append((L, q))
         if L.save_as:
@@ -328,18 +342,18 @@ def quantize_input(qnet: QuantizedVisionNet, x) -> torch.Tensor:
 
 
 def forward_int(qnet: QuantizedVisionNet, x_hat: torch.Tensor, *,
-                backend: Optional[str] = None,
                 pipeline: Optional[str] = None,
                 collect: Optional[Callable] = None) -> torch.Tensor:
-    """Integer-only forward: uint{a_bits} images in, int32 logits out.
-    ``backend``/``pipeline`` force one route net-wide; ``collect(path,
-    y_hat)`` observes every integer edge."""
+    """Integer-only forward: uint{a_bits} images in, int32 logits out, on
+    the images' device (kernels on CUDA, plain versions on the CPU).
+    ``pipeline`` forces one pipeline net-wide; ``collect(path, y_hat)``
+    observes every integer edge."""
     stream = x_hat
     edges: Dict[str, torch.Tensor] = {}
     for L, q in qnet.qlayers:
         xin = edges[L.input_from] if L.input_from else stream
         if L.kind in COMPUTE_KINDS:
-            y = q.apply(xin, backend=backend, pipeline=pipeline)
+            y = q.apply(xin, pipeline=pipeline)
         elif L.kind == "add":
             y = q.apply(xin, edges[L.skip_from])
         else:
@@ -359,17 +373,11 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def streamed_weight_bytes(qnet: QuantizedVisionNet) -> int:
     """Bytes of the weight-side arrays of the GEMM route: per compute
-    layer, the packed weights plus the epilogue vectors."""
-    total = 0
-    for L, q in qnet.qlayers:
-        if L.kind == "conv":
-            g = q.conv.gemm
-        elif L.kind == "linear":
-            g = q.gemm
-        else:
-            continue
-        total += sum(_nbytes(a) for a in (g.w_packed, g.kappa, g.lam, g.m))
-    return total
+    layer (per run of a segmented conv), the packed weights plus the
+    epilogue vectors."""
+    return sum(_nbytes(a) for L, q in qnet.qlayers
+               if L.kind in COMPUTE_KINDS for g in _gemms(q)
+               for a in (g.w_packed, g.kappa, g.lam, g.m))
 
 
 def vision_artifact_bytes(qnet: QuantizedVisionNet) -> int:

@@ -1,7 +1,8 @@
-"""The Hopper kernels on the card, held exactly against their plain
-versions run on the same device. Marked ``cuda``; each test skips where
-torch sees no GPU (decided inside the fixture, never at import). Run on
-a GPU machine with ``PYTHONPATH=src python -m pytest -m cuda tests/``.
+"""The Hopper kernels on the card (qmatmul, qconv, qmatmul_segmented),
+held exactly against their plain versions run on the same device.
+Marked ``cuda``; each test skips where torch sees no GPU (decided inside
+the fixture, never at import). Run on a GPU machine with
+``PYTHONPATH=src python -m pytest -m cuda tests/``.
 """
 import itertools
 
@@ -102,5 +103,87 @@ def test_resnet8_on_the_card_matches_cpu(dev):
     imgs = rng.uniform(0, 1, (5, *cfg.in_hw, 3))
     got = models.forward_int(qnet, models.quantize_input(qnet, imgs))
     cpu = to_device(qnet, "cpu")
+    want = models.forward_int(cpu, models.quantize_input(cpu, imgs))
+    assert torch.equal(got.cpu(), want)
+
+
+MIXES = ((8, 4), (8, 2), (4, 2), (8, 4, 2))
+
+
+def _mix_runs(widths, n):
+    runs, pos = [], 0
+    for i, b in enumerate(widths):
+        end = n if i == len(widths) - 1 else pos + packing.CHUNK
+        runs.append((pos, end, b))
+        pos = end
+    return packing.SegmentMap(tuple(runs))
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits", [8, 4, 2])
+def test_qmatmul_segmented_kernel_matches_plain(dev, a_bits, pipeline):
+    from repro_torch.core.quantize import quantize_linear_segmented
+    from repro_torch.kernels import api
+
+    rng = np.random.default_rng(a_bits)
+    for widths in MIXES:
+        # K not a CHUNK multiple, M past one tile, N with a ragged tail
+        m, k, n = 100, 200, 320
+        segmap = _mix_runs(widths, n)
+        w = torch.cat([_ints(rng, b, True, (k, e - s), dev)
+                       for s, e, b in segmap.runs], dim=1)
+        vecs = [v.to(dev) for v in _epilogue_vectors(rng, n, dev)]
+        params = quantize_linear_segmented(w, segmap, *vecs, a_bits=a_bits,
+                                           a_signed=False, d=23,
+                                           out_bits=a_bits,
+                                           assert_range=True)
+        xp = packing.pack(packing.pad_to_chunk(
+            _ints(rng, a_bits, False, (m, k), dev)), a_bits)
+        w_flat, padded = packing.pad_segmented(params.w_flat, segmap, k)
+        pvecs = [torch.nn.functional.pad(v, (0, padded.n - n))
+                 for v in vecs]
+        scale = torch.from_numpy(rng.uniform(1e-3, 1e-1, padded.n).astype(
+            np.float32)).to(dev)
+        for epi, sc in (("int", 1.0), ("raw", 1.0), ("dequant", 0.013),
+                        ("dequant", scale)):
+            kw = dict(k_logical=k, a_bits=a_bits, a_signed=False, d=23,
+                      out_bits=a_bits, epilogue=epi, scale=sc)
+            before = gemm_k.SEGMENTED_KERNEL.launches[
+                1 if pipeline == "off" else 2]
+            got = gemm_k.qmatmul_segmented_cuda(xp, w_flat, padded, *pvecs,
+                                                pipeline=pipeline, **kw)
+            assert gemm_k.SEGMENTED_KERNEL.launches[
+                1 if pipeline == "off" else 2] == before + 1
+            assert _same(got, gemm_k.qmatmul_segmented_torch(
+                xp, w_flat, padded, *pvecs, **kw)), (widths, epi)
+        # the public entry point pads, launches and slices back to N
+        got = api.qdot_packed(params, xp, pipeline=pipeline)
+        assert got.shape == (m, n)
+        assert torch.equal(got, api.qdot_packed(
+            convert_to_cpu(params), xp.cpu()).to(dev))
+
+
+def convert_to_cpu(obj):
+    from repro_torch.convert import to_device
+    return to_device(obj, "cpu")
+
+
+def test_qat_cnn_plan_a_on_the_card_matches_cpu(dev):
+    from repro_torch.deploy.policy import PlanRule, PrecisionPlan
+    from repro_torch.vision import models
+    from repro_torch.vision.configs import get_vision_config
+
+    cfg = get_vision_config("qat-cnn")
+    plan = PrecisionPlan(rules=(PlanRule(
+        pattern="c3", w_bits=8, segments=((0, 128, 8), (128, 256, 4))),))
+    fp = models.init_fp(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    absmax = models.collect_absmax(cfg, fp, [rng.uniform(
+        0, 1, (8, 16, 16, 1)).astype(np.float32)])
+    qnet = models.quantize_net(cfg, fp, absmax, plan=plan, device=dev)
+    imgs = rng.uniform(0, 1, (5, 16, 16, 1))
+    got = models.forward_int(qnet, models.quantize_input(qnet, imgs))
+    cpu = models.quantize_net(cfg, convert_to_cpu(fp), absmax, plan=plan,
+                              device="cpu")
     want = models.forward_int(cpu, models.quantize_input(cpu, imgs))
     assert torch.equal(got.cpu(), want)

@@ -11,6 +11,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.qconv.kernel import KERNEL as QCONV
 from repro_torch.kernels.qmatmul.kernel import KERNEL as QMATMUL
+from repro_torch.kernels.qmatmul.kernel import \
+    SEGMENTED_KERNEL as QMATMUL_SEGMENTED
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -35,7 +37,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.vision, "
-            "repro_torch.convert, repro_torch.serve.engine; "
+            "repro_torch.convert, repro_torch.serve.engine, "
+            "repro_torch.deploy.planner, repro_torch.deploy.calibrate; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run(
@@ -86,7 +89,8 @@ def test_engine_refuses_a_net_on_another_device(monkeypatch):
 def test_kernels_build_lazily_from_the_repo_sources(monkeypatch, tmp_path):
     root = pathlib.Path(build.__file__).resolve().parents[3]
     monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
-    for k, src in ((QMATMUL, "qmatmul.cu"), (QCONV, "qconv.cu")):
+    for k, src in ((QMATMUL, "qmatmul.cu"), (QCONV, "qconv.cu"),
+                   (QMATMUL_SEGMENTED, "qmatmul_segmented.cu")):
         assert k.source == build.CSRC / src and k.source.exists()
         lib = k.library_path()
         assert lib.parent == root / "build" / "repro_torch_kernels"

@@ -110,26 +110,40 @@ def test_qdot_leading_dims_and_signed_activations():
 
 
 def test_backend_resolution_is_tied_to_the_device(monkeypatch):
+    """The wrappers dispatch on the tensor's device; a backend name from a
+    plan or the CLI is only held against the device the net goes to."""
     _, port, x = _params(1, 8, 8, n=10, k=64)
     xt = torch.from_numpy(x[:, :64])
-    assert p_api.resolve("qdot", xt).name == "torch"
-    assert p_api.backends("qdot") == ("cuda", "torch")
-    with pytest.raises(ValueError, match="does not take cpu tensors"):
-        p_api.qdot(port, xt, backend="cuda")
+    assert p_api.BACKENDS == ("cuda", "torch")
+    p_api.check_backend(None, "cpu")
+    p_api.check_backend("torch", xt.device)
+    p_api.check_backend("cuda", "cuda")
+    with pytest.raises(ValueError, match="does not run on cpu"):
+        p_api.check_backend("cuda", xt.device)
+    with pytest.raises(ValueError, match="does not run on cuda"):
+        p_api.check_backend("torch", "cuda")
     with pytest.raises(ValueError, match="port's backends"):
-        p_api.qdot(port, xt, backend="xla")
-    monkeypatch.setenv(p_api.ENV_VAR, "cuda")
-    with pytest.raises(ValueError, match="does not take cpu tensors"):
-        p_api.qdot(port, xt)
-    # an explicit choice shadows the environment
-    p_api.qdot(port, xt, backend="torch")
-    monkeypatch.delenv(p_api.ENV_VAR)
+        p_api.check_backend("xla", "cpu")
+    # a plan that names the other device's backend is refused at quantize
+    from repro_torch.launch.vision import uniform_plan
+    from repro_torch.vision import models
+    from repro_torch.vision.configs import get_vision_config
+    cfg = get_vision_config("resnet8", smoke=True)
+    absmax = {k: 1.0 for k in ["__input__"] + [L.path for L in cfg.layers]}
+    fp = models.init_fp(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="does not run on cpu"):
+        models.quantize_net(cfg, fp, absmax, device="cpu",
+                            plan=uniform_plan(cfg, 8, 8, backend="cuda"))
+    models.quantize_net(cfg, fp, absmax, device="cpu",
+                        plan=uniform_plan(cfg, 8, 8, backend="torch"))
     monkeypatch.setenv(p_api.ENV_PIPELINE, "triple")
     with pytest.raises(ValueError, match="unknown pipeline"):
         p_api.qdot(port, xt)
-    assert p_api.resolve_pipeline("off") == "off"
-    assert p_api.resolve_pipeline(None, {"pipeline": "double_buffer"}) == \
-        "double_buffer"
+    # an explicit pipeline shadows the environment
+    p_api.qdot(port, xt, pipeline="off")
+    assert p_api.resolve_pipeline("double_buffer") == "double_buffer"
+    monkeypatch.delenv(p_api.ENV_PIPELINE)
+    assert p_api.resolve_pipeline() == "off"
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_tile_fits():

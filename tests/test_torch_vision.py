@@ -222,29 +222,39 @@ def test_residual_add_and_maxpool_match_reference(rng):
                 r_vl.maxpool_fp(jnp.asarray(xf), 2, 2), "maxpool fp")
 
 
-def test_cli_serves_on_cpu_and_names_what_waits(art, capsys):
+def test_cli_serves_on_cpu_and_names_what_waits(art, capsys, tmp_path):
     logits = p_launch.main(["--net", "resnet8", "--smoke", "--device", "cpu",
                             "--bits", "2", "--requests", "3", "--batch",
                             "2"])
     assert logits.shape == (3, 10) and logits.dtype == np.int32
     assert "vision deploy done" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="planner"):
-        p_launch.main(["--net", "resnet8", "--smoke", "--device", "cpu",
-                       "--bits", "8,4"])
-    for name in ("mobilenet-tiny", "qat-cnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            p_config(name)
+    # several widths run the calibrator and the planner
+    p_launch.main(["--net", "resnet8", "--smoke", "--device", "cpu",
+                   "--bits", "8,4", "--out", str(tmp_path / "plan.json"),
+                   "--requests", "2", "--batch", "2"])
+    assert "vision deploy done" in capsys.readouterr().out
+    assert p_config("qat-cnn").name == "qat-cnn"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        p_config("mobilenet-tiny")
     with pytest.raises(KeyError):
         p_config("vgg")
 
 
 def test_segmented_plan_and_missing_absmax_raise(art):
-    plan = p_policy.PrecisionPlan(rules=(p_policy.PlanRule(
-        pattern="stem", w_bits=8, segments=((0, 8, 8),)),))
+    # a run map must tile the conv's channels (the smoke stem has 8), and
+    # the head takes no segments (as in the reference)
     pfp = convert.fp_params_from_numpy(art["fp_np"], "cpu")
-    with pytest.raises(NotImplementedError, match="segmented"):
-        p_models.quantize_net(art["pcfg"], pfp, art["absmax"], plan=plan,
-                              device="cpu")
+    for rule, err, match in (
+            (p_policy.PlanRule(pattern="stem", w_bits=8,
+                               segments=((0, 4, 8),)), ValueError,
+             "do not tile"),
+            (p_policy.PlanRule(pattern="head", w_bits=8,
+                               segments=((0, 10, 8),)), NotImplementedError,
+             "segmented")):
+        with pytest.raises(err, match=match):
+            p_models.quantize_net(art["pcfg"], pfp, art["absmax"],
+                                  plan=p_policy.PrecisionPlan(rules=(rule,)),
+                                  device="cpu")
     absmax = dict(art["absmax"])
     del absmax["s2/c1"]
     with pytest.raises(KeyError, match="s2/c1"):

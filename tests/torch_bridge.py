@@ -4,7 +4,10 @@ The port never imports ``repro``; the parity tests do, and hand artifacts
 across as numpy. `neutral` turns any reference artifact (dataclasses,
 tuples, jax/numpy arrays) into the neutral description that
 `repro_torch.convert.qnet_from_numpy` reads: a dataclass becomes a dict
-with a ``"__type__"`` key, tuples become lists, arrays numpy arrays.
+with a ``"__type__"`` key, tuples become lists, arrays numpy arrays. That
+covers the segmented artifacts too: a `SegmentMap`, a
+`SegmentedLinearParams` (`port_segmented`) and a `QSegmentedConv2D`
+inside a net cross as they are.
 """
 from __future__ import annotations
 
@@ -31,6 +34,13 @@ def neutral(obj):
     if isinstance(obj, dict):
         return {k: neutral(v) for k, v in obj.items()}
     return obj
+
+
+def port_segmented(ref, device="cpu"):
+    """A reference `SegmentedLinearParams` as the port's, bytes as they
+    are."""
+    from repro_torch.convert import segmented_params_from_numpy
+    return segmented_params_from_numpy(neutral(ref), device)
 
 
 def np_tree(tree):
