@@ -5,17 +5,22 @@
 
 1. Prints the card and its power limit, builds the three Hopper kernels
    from ``src/repro_torch/csrc/`` with nvcc for sm_90a, one nvcc per
-   source, all started together.
+   source, all started together, and prints each source's ptxas report
+   (registers, shared memory, spills; every kernel's in the JSON file).
 2. Kernel phase: every kernel, at STAGES=1 ('off') and STAGES=2
    ('double_buffer'), against its plain torch version on the card.
    qmatmul and qconv: every ResNet-8 conv geometry and the head GEMM at a
-   wave of 64, plus one larger GEMM, for A{8,4,2} x W{8,4,2} and all three
-   epilogues. qmatmul_segmented: segment mixes 8|4, 8|2, 4|2, 8|4|2 at a
-   ragged shape (N = 320 with a 64-wide tail panel, K = 200), the
-   reference's fig8 shape 256x2048x256 (half W8, half W2) and qat-cnn's
-   c3 as a GEMM over a wave of 64 (12544x288x256, half W8, half W4), for
-   A{8,4,2} and all three epilogues. Tolerance: none — outputs must be
-   identical (bf16 bit for bit).
+   wave of 64, plus one larger GEMM, then the conv shapes the real-channel
+   K order makes risky (Cin 1, 3, 160, 200: two chunks, one ragged; Cout
+   10, 48, 200; a 1x1 stride-2 conv, 5x5 convs, Wo that does not divide
+   the 128-pixel tile), for A{8,4,2} x W{8,4,2} and all three epilogues.
+   qmatmul_segmented: segment mixes 8|4, 8|2, 4|2, 8|4|2 at a ragged shape
+   (N = 320 with a 64-wide tail panel, K = 200, K split across blocks),
+   one more K = 200 call with a ragged last run, the reference's fig8
+   shape 256x2048x256 (half W8, half W2) and qat-cnn's c3 as a GEMM over a
+   wave of 64 (12544x288x256, half W8, half W4), for A{8,4,2} and all
+   three epilogues. Tolerance: none — outputs must be identical (bf16 bit
+   for bit).
 3. Main path, ResNet-8: full width from seeded random weights, quantized
    on the card at W8, W4 and W2 and served by `VisionEngine` (waves of
    64, 256 images); then one wave with the kernels' double-buffered
@@ -35,7 +40,10 @@
    per-run qconv accumulators.
 5. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
-   computes the same function, and prints them as one JSON line.
+   computes the same function, and prints them as one JSON line. The
+   conv's library yardstick is `torch.nn.functional.conv2d` in bf16,
+   channels-last, on the unpacked integers (the raw product only), summed
+   over the wave's convs; the port never calls it.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
@@ -79,6 +87,12 @@ SEG_MIXES = ((8, 4), (8, 2), (4, 2), (8, 4, 2))
 SEG_RAGGED = (100, 200, 320)
 SEG_FIG8 = ((256, 2048, 256), ((0, 128, 8), (128, 256, 2)))
 SEG_BIG = ((4096, 2048, 1024), ((0, 384, 8), (384, 768, 4), (768, 1024, 2)))
+SEG_RAGGED_RUN = ((40, 200, 200), ((0, 128, 2), (128, 200, 8)))
+# (images, H, W, Cin, Cout, f, stride, padding): conv shapes the
+# real-channel K order makes risky, checked but not timed
+WALL_CONVS = ((2, 9, 7, 1, 10, 5, 1, 2), (2, 11, 9, 3, 48, 3, 1, 1),
+              (2, 8, 8, 160, 200, 3, 2, 1), (2, 9, 9, 200, 48, 1, 2, 0),
+              (1, 7, 13, 3, 200, 5, 1, 2))
 
 
 def say(phase: str, **fields):
@@ -151,6 +165,7 @@ class Case:
             ho, wo = ck.conv_out_hw(h, w_, f, f, s, p)
             self.kw = dict(fh=f, fw=f, stride=s, ho=ho, wo=wo,
                            cin_pad=cin_pad, cout=cout)
+            self.cin = cin
         self.vecs = (
             torch.randint(-127, 128, (cout,), generator=gen,
                           dtype=torch.int32).to(dev),
@@ -164,10 +179,13 @@ class Case:
     def kernel(self, stages: int):
         from repro_torch.kernels.qconv import kernel as ck
         from repro_torch.kernels.qmatmul import kernel as gk
-        fn = (gk.qmatmul_packed_cuda if self.kind == "qmatmul"
-              else ck.qconv_packed_cuda)
-        return fn(self.x, self.w, *self.vecs, pipeline=PIPELINE[stages],
-                  **self.kw)
+        if self.kind == "qmatmul":
+            return gk.qmatmul_packed_cuda(self.x, self.w, *self.vecs,
+                                          pipeline=PIPELINE[stages],
+                                          **self.kw)
+        return ck.qconv_packed_cuda(self.x, self.w, *self.vecs,
+                                    pipeline=PIPELINE[stages], cin=self.cin,
+                                    **self.kw)
 
     def plain(self):
         from repro_torch.kernels.qconv import kernel as ck
@@ -198,6 +216,34 @@ class Case:
             nbytes += 3 * 4 * cout
         nbytes += nout * out_item
         return nbytes / PEAK_BYTES * 1e3, 2 * macs / PEAK_INT8_OPS * 1e3
+
+    def real_macs(self):
+        b, h, w_, cin, cout, f, s, p = self.shape
+        return b * self.kw["ho"] * self.kw["wo"] * f * f * cin * cout
+
+    def contracted_macs(self):
+        """MACs the conv kernel issues: output pixels x the plan's K
+        (real channels, each stage rounded up to 32) x Cout rounded up to
+        the kernel's column tile."""
+        from repro_torch.kernels.qconv import kernel as ck
+        b, h, w_, cin, cout, f, s, p = self.shape
+        k = ck.conv_k_plan(f, f, cin, self.a_bits, self.w_bits,
+                           ck.conv_stage_k(cout)).k_contracted
+        nt = ck.conv_tile_n(cout)
+        return b * self.kw["ho"] * self.kw["wo"] * k * (-(-cout // nt) * nt)
+
+    def library(self):
+        """A closure: the raw conv product of this shape by
+        `torch.nn.functional.conv2d` in bf16, channels-last, on unpacked
+        integers (a timing yardstick only; the port never calls it)."""
+        import torch
+        b, h, w_, cin, cout, f, s, p = self.shape
+        dev = self.x.device
+        x = torch.randint(0, 128, (b, cin, h, w_), device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        w = torch.randint(-8, 8, (cout, cin, f, f), device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        return lambda: torch.nn.functional.conv2d(x, w, stride=s, padding=p)
 
 
 def mix_runs(widths, n):
@@ -295,7 +341,7 @@ def segmented_kernel_phase(dev, report):
     import torch
     gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
     shapes = ([(SEG_RAGGED, mix_runs(w, SEG_RAGGED[2])) for w in SEG_MIXES]
-              + [SEG_FIG8, c3_gemm(WAVE)])
+              + [SEG_RAGGED_RUN, SEG_FIG8, c3_gemm(WAVE)])
     worst = {1: 0.0, 2: 0.0}
     n_cmp = 0
     for shape, runs in shapes:
@@ -342,7 +388,8 @@ def kernel_phase(dev, convs, head, report):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     worst = {(k, s): 0.0 for k in ("qmatmul", "qconv") for s in (1, 2)}
     shapes = ([("qmatmul", head), ("qmatmul", BIG_GEMM)]
-              + [("qconv", s) for s in dict.fromkeys(s for _, s in convs)])
+              + [("qconv", s) for s in dict.fromkeys(s for _, s in convs)]
+              + [("qconv", s) for s in WALL_CONVS])
     n_cmp = 0
     for kind, shape in shapes:
         for a_bits, w_bits in BITS:
@@ -396,6 +443,37 @@ def first_difference(a, b, path="net"):
         if diff is not None:
             return diff
     return None
+
+
+def ptxas_report(kernels):
+    """Each kernel instantiation's registers, shared memory and spills
+    from its build's ptxas report; prints one summary line per source."""
+    import re
+    out = {}
+    for name, k in kernels.items():
+        rows, fn = {}, None
+        for line in k.build_log().read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                rows.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + \
+                    int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                smem = re.search(r"(\d+) bytes smem", line)
+                rows.setdefault(fn, {}).update(
+                    registers=int(m.group(1)),
+                    static_smem=int(smem.group(1)) if smem else 0)
+        out[name] = rows
+        regs = [r["registers"] for r in rows.values() if "registers" in r]
+        say("ptxas", source=f"{name}.cu", kernels=len(rows),
+            registers=f"{min(regs)}-{max(regs)}" if regs else None,
+            spill_bytes_max=max((r.get("spill_bytes", 0)
+                                 for r in rows.values()), default=0))
+    return out
 
 
 def kernels_by_name():
@@ -683,28 +761,48 @@ def profile_wave(dev, qnet, images, report, label):
     report.setdefault("profile_wave", {})[label] = row
 
 
-def kernel_device_ms(cases, stages: int, reps: int = 10):
+def kernel_device_ms(cases, stages: int, reps: int = 10, tries: int = 3):
     """Device time per pass over ``cases`` from torch.profiler's kernel
-    records (None when the trace holds no device time): the kernel alone,
-    without the host time of its wrapper."""
+    records: the kernel alone, without the host time of its wrapper. A
+    trace that holds no record of the kernel is taken again, up to
+    ``tries`` times; None when none does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     name = f"{cases[0].kind}_kernel"
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for c in cases:
+                    c.kernel(stages)
+            torch.cuda.synchronize()
+        us = _device_us(prof, (name,))
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def library_device_ms(fn, reps: int = 10) -> float:
+    """Device time of every CUDA kernel one call of ``fn`` runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            for c in cases:
-                c.kernel(stages)
+            fn()
         torch.cuda.synchronize()
-    us = _device_us(prof, (name,))
-    return us / reps / 1e3 if us > 0 else None
+    return _device_us(prof) / reps / 1e3
 
 
 def timing_phase(dev, convs, head, report):
     """Per-wave times of each kernel at the W8A8 main-path shapes (and
-    W4/W2 into the report), beside the plain version and the bound."""
+    W4/W2 into the report), beside the plain version, the bound and, for
+    the conv, the bf16 cuDNN yardstick; plus the MACs the conv kernel
+    contracts per wave against the real ones."""
     import torch
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     rows = {}
+    conv_library = None
     for a_bits, w_bits in ((8, 8), (8, 4), (8, 2)):
         for kind, layers, epi in (("qmatmul", [("head", head)], "raw"),
                                   ("qconv", convs, "int")):
@@ -715,15 +813,32 @@ def timing_phase(dev, convs, head, report):
             bound_ms = sum(max(b) for b in bounds)
             bytes_ms = sum(b for b, _ in bounds)
             ops_ms = sum(o for _, o in bounds)
+            extra = {}
+            if kind == "qconv":
+                if conv_library is None:
+                    fns = [c.library() for c in cases]
+                    conv_library = {
+                        "library_ms": sum(time_ms(f, 3, 20) for f in fns),
+                        "library_device_ms": sum(library_device_ms(f)
+                                                 for f in fns)}
+                extra = {**conv_library,
+                         "macs_contracted": sum(c.contracted_macs()
+                                                for c in cases),
+                         "macs_real": sum(c.real_macs() for c in cases)}
             for stages in (1, 2):
                 ms = sum(time_ms(lambda c=c: c.kernel(stages), 3, 20)
                          for c in cases)
+                if kind == "qconv" and w_bits == 8:
+                    # where the conv's time goes, layer by layer
+                    extra[f"device_ms_by_layer_s{stages}"] = {
+                        path: kernel_device_ms([c], stages)
+                        for (path, _), c in zip(layers, cases)}
                 rows[(kind, stages, w_bits)] = {
                     "ms": ms, "device_ms": kernel_device_ms(cases, stages),
                     "plain_ms": plain, "bound_ms": bound_ms,
                     "bound_by": ("bytes" if bytes_ms >= ops_ms
                                  else "operations"),
-                    "calls_per_wave": len(cases)}
+                    "calls_per_wave": len(cases), **extra}
     # torch._int_mm on pre-unpacked int8 computes the raw GEMM; it takes
     # the larger GEMM (the head's N = 10 is not a multiple of 8)
     m, k, n = BIG_GEMM
@@ -745,7 +860,13 @@ def timing_phase(dev, convs, head, report):
         say("time", kernel=kind, stages=stages, a_bits=8, w_bits=w_bits,
             ms_per_wave=round(r["ms"], 4), device_ms=r["device_ms"],
             plain_ms=round(r["plain_ms"], 4),
-            bound_ms=round(r["bound_ms"], 5), calls=r["calls_per_wave"])
+            bound_ms=round(r["bound_ms"], 5), calls=r["calls_per_wave"],
+            **{k: r[k] for k in ("library_ms", "library_device_ms",
+                                 "macs_contracted", "macs_real") if k in r})
+        if f"device_ms_by_layer_s{stages}" in r:
+            say("time", kernel=kind, stages=stages, a_bits=8, w_bits=w_bits,
+                device_ms_by_layer=json.dumps(
+                    r[f"device_ms_by_layer_s{stages}"]))
     return rows
 
 
@@ -755,6 +876,7 @@ def segmented_timing_phase(dev, report):
     version, `torch._int_mm` on pre-unpacked int8 operands (the raw
     product only) and the bound."""
     import torch
+    from repro_torch.kernels.qmatmul import kernel as gk
     gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
     rows = {}
     for label, (shape, runs) in (("c3", c3_gemm(WAVE)), ("fig8", SEG_FIG8),
@@ -770,7 +892,10 @@ def segmented_timing_phase(dev, report):
                "plain_ms": time_ms(case.plain, 1, 5),
                "library_ms": time_ms(lambda: torch._int_mm(xu, wu), 3, 20),
                "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "k_splits": gk.k_splits(
+                   -(-m // gk.SEGMENTED_TILE_M) * (case.segmap.n // 128),
+                   -(-k // 128), gk.sm_count(dev))}
         for stages in (1, 2):
             row[f"ms_s{stages}"] = time_ms(lambda: case.kernel(stages), 3, 20)
             row[f"device_ms_s{stages}"] = kernel_device_ms([case], stages)
@@ -811,6 +936,7 @@ def main() -> int:
     say("build", seconds=round(build_s, 1), arch="sm_90a",
         sources="src/repro_torch/csrc/{qmatmul,qconv,qmatmul_segmented}.cu")
     report["build_s"] = build_s
+    report["ptxas"] = ptxas_report(kernels_all)
 
     cfg = get_vision_config("resnet8")
     convs, head = resnet8_shapes(cfg, WAVE)
@@ -834,7 +960,7 @@ def main() -> int:
                 r = rows[(kind, stages, 8)]
                 timed = {"shape": "resnet8 wave of 64, W8A8",
                          "ms": r["ms"], "device_ms": r["device_ms"],
-                         "library_ms": None}
+                         "library_ms": r.get("library_ms")}
             kernels.append({
                 "name": f"{kind}[STAGES={stages}]", "route": "cuda",
                 "source": f"src/repro_torch/csrc/{kind}.cu",

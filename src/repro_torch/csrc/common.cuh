@@ -1,5 +1,7 @@
-// Shared device code of the integer kernels (qmatmul.cu, qconv.cu,
-// qmatmul_segmented.cu).
+// Shared device code of the integer kernels: the cp.async copies, the
+// bit-field decode and the exact eq. 3/4 epilogue (qmatmul.cu, qconv.cu,
+// qmatmul_segmented.cu), and the dp4a mainloop of the packed GEMM
+// (qmatmul.cu; the other two contract on the tensor cores, mma_s8.cuh).
 //
 // One block computes a TILE_M x TILE_N tile of int32 accumulators. K
 // advances one CHUNK (128 logical elements) per step: the packed x and w
@@ -113,29 +115,52 @@ struct EpilogueArgs {
   int epilogue;
 };
 
+// Eq. 3 (int32 wrap) then eq. 4 and the clip to [0, hi]: the 'int'
+// epilogue of one accumulator, given its column's kappa, lambda and m.
+__device__ __forceinline__ int8_t requant_value(int acc, int kappa, int lam,
+                                                int mmul,
+                                                const EpilogueArgs& e) {
+  const uint32_t phi_u = static_cast<uint32_t>(acc) *
+                             static_cast<uint32_t>(kappa) +
+                         static_cast<uint32_t>(lam);
+  const int y = requantize_shift(static_cast<int>(phi_u), mmul, e.d);
+  return static_cast<int8_t>(min(max(y, 0), e.hi));
+}
+
+// The 'dequant' epilogue: float(acc) * scale, rounded to nearest even.
+__device__ __forceinline__ __nv_bfloat16 dequant_value(int acc, float scale) {
+  return __float2bfloat16_rn(__int2float_rn(acc) * scale);
+}
+
+// The epilogue of one accumulator, given its column's kappa, lambda, m
+// and dequant scale (only those its epilogue reads need be valid).
+__device__ __forceinline__ void store_value(void* out, long long idx, int acc,
+                                            int kappa, int lam, int mmul,
+                                            float scale,
+                                            const EpilogueArgs& e) {
+  if (e.epilogue == EPI_INT)
+    static_cast<int8_t*>(out)[idx] = requant_value(acc, kappa, lam, mmul, e);
+  else if (e.epilogue == EPI_DEQUANT)
+    static_cast<__nv_bfloat16*>(out)[idx] = dequant_value(acc, scale);
+  else
+    static_cast<int*>(out)[idx] = acc;
+}
+
 __device__ __forceinline__ void store_out(void* out, long long idx, int acc,
                                           int n, const EpilogueArgs& e) {
-  if (e.epilogue == EPI_INT) {
-    const uint32_t phi_u = static_cast<uint32_t>(acc) *
-                               static_cast<uint32_t>(e.kappa[n]) +
-                           static_cast<uint32_t>(e.lam[n]);
-    int y = requantize_shift(static_cast<int>(phi_u), e.mmul[n], e.d);
-    y = min(max(y, 0), e.hi);
-    static_cast<int8_t*>(out)[idx] = static_cast<int8_t>(y);
-  } else if (e.epilogue == EPI_DEQUANT) {
-    const float s = e.scale_vec != nullptr ? e.scale_vec[n] : e.scale;
-    static_cast<__nv_bfloat16*>(out)[idx] =
-        __float2bfloat16_rn(__int2float_rn(acc) * s);
-  } else {
-    static_cast<int*>(out)[idx] = acc;
-  }
+  const bool q = e.epilogue == EPI_INT;
+  store_value(out, idx, acc, q ? e.kappa[n] : 0, q ? e.lam[n] : 0,
+              q ? e.mmul[n] : 0,
+              e.epilogue == EPI_DEQUANT && e.scale_vec != nullptr
+                  ? e.scale_vec[n]
+                  : e.scale,
+              e);
 }
 
 // The weight columns one block contracts: packed row j of K tile kt
 // starts at base + (kt * WR + j) * ld, and the first `ncols` of the
 // block's TILE_N columns are real (the rest load as zeros). A row-major
-// (K/pf_w, N) panel is {w + n0, N, N - n0}; a panel-major segmented
-// buffer's CHUNK-wide panel is {panel + half * TILE_N, CHUNK, TILE_N}.
+// (K/pf_w, N) panel is {w + n0, N, N - n0}.
 struct WTile {
   const int8_t* base;
   long long ld;
@@ -144,8 +169,7 @@ struct WTile {
 
 // Issue the copies of K tile `kt` into ring slot `slot`. `xsrc.row(r, kt)`
 // gives the global address of row r's packed CHUNK (nullptr: zero row).
-// w rows of tile kt start at packed row kt * WR (tap-major K for the
-// conv: tap t, channel chunk c is tile t * cin_pad / CHUNK + c).
+// w rows of tile kt start at packed row kt * WR.
 template <int STAGES, int A_BITS, int W_BITS, class XSrc>
 __device__ __forceinline__ void load_tile(const XSrc& xsrc, const WTile& w,
                                           int kt, int slot, int8_t* smem) {

@@ -5,120 +5,379 @@
 // src/repro/kernels/qconv/kernel.py:64) as STAGES=1 and `_qconv_kernel_db`
 // (pipeline 'double_buffer', :108) as STAGES=2.
 //
-//   out[b, oy, ox, n] = epilogue( sum_{dy,dx,c} x[b, oy*s+dy, ox*s+dx, c]
-//                                             * w[(dy*fw+dx)*cin_pad + c, n] )
+//   out[p, n] = epilogue( sum_{t, c < cin} x[pixel(p, t), c] * w[t, c, n] )
 //   x: (N, hp, wp, cin_pad/pf_a) packed, spatially padded image; w: the
-//   tap-major `w_packed_fused` panel (fh*fw*cin_pad/pf_w, Cout).
+//   tap-major `w_packed_fused` panel (fh*fw*cin_pad/pf_w, Cout). Both keep
+//   the artifact's layout, each tap's channels padded to cin_pad.
 //
-// The TPU kernel holds the whole packed image in VMEM; a block's shared
-// memory cannot, so each block owns TILE_M consecutive output pixels of
-// one image (TILE_M / Wo whole rows when Wo divides it) x TILE_N output
-// channels and gathers, per K tile = (tap t, channel chunk c), the strided
-// receptive-field row of each of its pixels straight from global memory
-// into a STAGES-slot cp.async ring; tile k+1's gather rides behind tile
-// k's unpack and dot at STAGES=2. No im2col tensor exists in memory.
-//
-// What bounds it on the H100: at ResNet-8 widths the image is read with
-// every tap's channel run padded to CHUNK = 128 (the artifact's layout),
-// so the padded image bytes, re-read once per tap through L2, and the
-// ~7x padded MACs dominate the real work; the math runs on __dp4a.
-// Skipping the zero channels, wgmma and TMA are later work.
-#include "common.cuh"
+// What bounded it on the H100: contracting every tap's channels padded
+// to CHUNK = 128 (22x the real MACs at ResNet-8 widths) on __dp4a, and
+// re-gathering each pixel once per 64-wide Cout panel. What the design
+// does about it:
+//   * K covers the real channels only. The logical K of the conv is the
+//     taps x real channels, cut into stages of at most 192 values
+//     (several taps per stage when Cin is small: a 3x3 conv over 16
+//     channels is one stage; one chunk of one tap when Cin > CHUNK) and
+//     rounded up to wgmma's k = 32 once per stage. In a chunk-planar chunk
+//     channel c sits in byte c % (CHUNK/pf), field c / (CHUNK/pf), so only
+//     the first min(Cin, CHUNK/pf) bytes of a pixel's chunk and as many
+//     weight rows per tap are copied. 8-bit activations of fewer than 16
+//     channels take 4 per tap (the stem: 3 real + 1 zero of the artifact's
+//     padding), so their bytes lie back to back in K order. The stage plan
+//     and the per-K map (ring byte, field, weight row) come from the
+//     Python wrapper (`kernels/qconv/kernel.py::conv_k_plan`), where the
+//     CPU tests check the same index math against the reference; each
+//     block copies the plan into shared memory first.
+//   * A block owns 128 consecutive output pixels (across images) x all of
+//     Cout up to 256 (NT = Cout rounded up to 16, 32, 64, 128 or 256), so
+//     each pixel row is gathered once, and contracts on the tensor cores
+//     (mma_s8.cuh: int8 wgmma, int32 accumulators in registers). 8-bit
+//     activations in K order are copied straight into the A tile; only
+//     the weights (and sub-byte activations) are unpacked.
+//   * The strided receptive-field gather is not a rectangular box, so it
+//     stays a cp.async gather into the STAGES-slot ring.
+// What bounds it now: at ResNet-8 widths every conv is a chain of a few
+// dependent latencies per block (copy the plan and epilogue columns,
+// gather a stage, unpack, wgmma, store), not bytes or tensor-core math:
+// the early layers fill the card with 512 blocks of one stage, the late
+// ones run 32-128 blocks through two or three stages each.
+#include "mma_s8.cuh"
 
 namespace {
 
-struct ConvRows {
-  const int8_t* base;
-  int hp, wp, cp;     // padded image height/width, packed bytes per pixel
-  int wo, howo, fw, stride, cchunks, xb;
-  int b, q0;
-  __device__ const int8_t* row(int r, int kt) const {
-    const int q = q0 + r;
-    if (q >= howo) return nullptr;
-    const int oy = q / wo, ox = q % wo;
-    const int t = kt / cchunks, c = kt % cchunks;
-    const int iy = oy * stride + t / fw, ix = ox * stride + t % fw;
-    return base + ((static_cast<long long>(b) * hp + iy) * wp + ix) * cp +
-           c * xb;
+using rq::tc::THREADS;
+using rq::tc::TILE_M;
+
+// Logical K per stage: 192 (a 3x3 conv over 16 channels in one stage)
+// where the shared memory allows it, 128 for the widest column tile.
+// `conv_stage_k` in kernels/qconv/kernel.py states the same rule.
+template <int NT>
+__host__ __device__ constexpr int stage_k() {
+  return NT <= 128 ? 192 : 128;
+}
+
+// Blocks per SM the conv kernel's register budget is set for
+// (__launch_bounds__): the int32 accumulators take NT / 2 registers a
+// thread, so narrow tiles leave room for more resident blocks to hide each
+// other's stage latency; wide ones keep every register they need.
+template <int NT>
+__host__ __device__ constexpr int min_blocks() {
+  return NT <= 32 ? 4 : NT <= 64 ? 2 : 1;
+}
+
+// One stage of the plan: (first segment, segments, real K, K rounded to
+// 32, x bytes copied per segment, copy granule 4 or 16, ring bytes per
+// segment, weight rows per segment). A segment is (tap, chunk).
+constexpr int STAGE_FIELDS = 8;
+
+// Shared memory of a block's copy of the plan (stages and segments),
+// rounded to the ring's 16-byte alignment.
+__host__ __device__ inline int plan_bytes(int nstages, int nsegs) {
+  return ((nstages * STAGE_FIELDS + 2 * nsegs) * 4 + 15) / 16 * 16;
+}
+
+template <int A_BITS, int W_BITS, int NT>
+struct ConvSrc {
+  static constexpr int SUB_A = rq::CHUNK / (8 / A_BITS);
+  static constexpr int SUB_W = rq::CHUNK / (8 / W_BITS);
+  static constexpr int KS = stage_k<NT>();
+  static constexpr int RING_ROW = rq::tc::ring_row<KS>();
+  const int8_t* x;
+  const int8_t* w;
+  const int* stages;
+  const int* segs;
+  const int* kmap;
+  const long long* row_base;  // per block row: pixel offset, or -1
+  int wp, cp, fw, w_tap_rows, cout, n0;
+  bool a_signed;
+
+  // A stage whose segments hold a multiple of 16 channels unpacks 16 at
+  // a time. A stage of 8-bit activations whose segments lie back to back
+  // in the ring (ring bytes per segment == channels) holds the int8
+  // values in K order already: they go straight into the slot's A tile.
+  static __device__ bool fast(const int* st) {
+    return st[2] / st[1] % 16 == 0;
+  }
+  static __device__ bool direct(const int* st) {
+    return A_BITS == 8 && st[6] == st[2] / st[1];
+  }
+
+  __device__ void issue(int s, const rq::tc::Slot& slot) const {
+    const int* st = stages + s * STAGE_FIELDS;
+    const int seg0 = st[0], nseg = st[1], a_bytes = st[4], a_vec = st[5];
+    const int a_stride = st[6], w_rows = st[7];
+    const bool to_tile = direct(st);
+    const int nch = st[2] / nseg;
+    const int per_seg = a_bytes / a_vec, per_row = nseg * per_seg;
+    for (int v = threadIdx.x; v < TILE_M * per_row; v += THREADS) {
+      const int r = v % TILE_M, rem = v / TILE_M;
+      const int i = rem / per_seg, u = rem - i * per_seg;
+      const int tap = segs[2 * (seg0 + i)], chunk = segs[2 * (seg0 + i) + 1];
+      const long long base = row_base[r];
+      const int8_t* src = x;
+      if (base >= 0)
+        src = x + base + static_cast<long long>((tap / fw) * wp + tap % fw) *
+                             cp + chunk * SUB_A + u * a_vec;
+      if (to_tile && a_vec == 16)
+        rq::cp_async16(
+            slot.a_tile + rq::tc::core_offset(r, i * nch + u * 16, TILE_M),
+            src, base >= 0 ? 16 : 0);
+      else if (to_tile)
+        rq::cp_async4(
+            slot.a_tile + rq::tc::core_offset(r, i * nch + u * 4, TILE_M),
+            src, base >= 0 ? 4 : 0);
+      else if (a_vec == 16)
+        rq::cp_async16(slot.a_ring + r * RING_ROW + i * a_stride + u * 16,
+                       src, base >= 0 ? 16 : 0);
+      else
+        rq::cp_async4(slot.a_ring + r * RING_ROW + i * a_stride + u * 4, src,
+                      base >= 0 ? 4 : 0);
+    }
+    int8_t* rw = slot.w_ring;
+    // weight rows: segment i's rows j < w_rows -> ring rows i * w_rows + j
+    const int rows = nseg * w_rows;
+    const int ncols = min(NT, cout - n0);
+    if (cout % 16 == 0) {
+      for (int v = threadIdx.x; v < rows * (NT / 16); v += THREADS) {
+        const int j = v / (NT / 16), col = (v % (NT / 16)) * 16;
+        const int i = j / w_rows;
+        const int8_t* src =
+            w + static_cast<long long>(segs[2 * (seg0 + i)] * w_tap_rows +
+                                       segs[2 * (seg0 + i) + 1] * SUB_W +
+                                       j % w_rows) * cout + n0 + col;
+        const int valid = min(max(ncols - col, 0), 16);
+        rq::cp_async16(rw + j * NT + col, valid ? src : w, valid);
+      }
+    } else if (cout % 4 == 0) {
+      for (int v = threadIdx.x; v < rows * (NT / 4); v += THREADS) {
+        const int j = v / (NT / 4), col = (v % (NT / 4)) * 4;
+        const int i = j / w_rows;
+        const int8_t* src =
+            w + static_cast<long long>(segs[2 * (seg0 + i)] * w_tap_rows +
+                                       segs[2 * (seg0 + i) + 1] * SUB_W +
+                                       j % w_rows) * cout + n0 + col;
+        const int valid = min(max(ncols - col, 0), 4);
+        rq::cp_async4(rw + j * NT + col, valid ? src : w, valid);
+      }
+    } else {
+      // rows of a ragged Cout are not 4-byte aligned: plain loads
+      for (int v = threadIdx.x; v < rows * NT; v += THREADS) {
+        const int j = v / NT, col = v % NT;
+        const int i = j / w_rows;
+        rw[j * NT + col] =
+            col < ncols
+                ? w[static_cast<long long>(segs[2 * (seg0 + i)] * w_tap_rows +
+                                           segs[2 * (seg0 + i) + 1] * SUB_W +
+                                           j % w_rows) * cout + n0 + col]
+                : 0;
+      }
+    }
+  }
+
+  // A stage whose segments hold a multiple of 16 channels unpacks 16 at a
+  // time (mma_s8.cuh); the weights past its real K are zeroed. Any other
+  // stage (Cin = 1, 3, 5, a ragged last chunk) goes element by element
+  // through its kmap entries: x ring byte (bits 0-7), x field (8-9),
+  // weight ring row (10-17), weight field (18-19); -1 past the real K.
+  __device__ int unpack(int s, const rq::tc::Slot& slot,
+                        int8_t* b_tile) const {
+    const int* st = stages + s * STAGE_FIELDS;
+    const int nseg = st[1], kreal = st[2], kstage = st[3];
+    const int nch = kreal / nseg;
+    const int8_t* ra = slot.a_ring;
+    const int8_t* rw = slot.w_ring;
+    int8_t* a_tile = slot.a_tile;
+    if (fast(st)) {
+      if (!direct(st))
+        rq::tc::unpack_rows16<A_BITS, TILE_M, KS>(ra, nseg, nch, st[6],
+                                                   a_signed, a_tile);
+      rq::tc::unpack_cols16<W_BITS, NT>(rw, nseg, nch, st[7], b_tile);
+      for (int v = threadIdx.x; v < NT * ((kstage - kreal) / 16);
+           v += THREADS)
+        *reinterpret_cast<uint4*>(
+            b_tile + rq::tc::core_offset(v % NT, kreal + (v / NT) * 16,
+                                         NT)) = make_uint4(0, 0, 0, 0);
+      return kstage;
+    }
+    const int* km = kmap + s * KS;
+    const int kq = kstage / 4;
+    const uint8_t* rau = reinterpret_cast<const uint8_t*>(ra);
+    const uint8_t* rwu = reinterpret_cast<const uint8_t*>(rw);
+    for (int v = threadIdx.x; v < (direct(st) ? 0 : TILE_M * kq);
+         v += THREADS) {
+      const int r = v % TILE_M, k = (v / TILE_M) * 4;
+      const int4 e = *reinterpret_cast<const int4*>(km + k);
+      const int ent[4] = {e.x, e.y, e.z, e.w};
+      int8_t val[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        val[q] = ent[q] < 0 ? 0
+                            : rq::field<A_BITS>(
+                                  rau[r * RING_ROW + (ent[q] & 0xFF)],
+                                  (ent[q] >> 8) & 3, a_signed);
+      *reinterpret_cast<uint32_t*>(a_tile +
+                                   rq::tc::core_offset(r, k, TILE_M)) =
+          rq::tc::word4(val[0], val[1], val[2], val[3]);
+    }
+    for (int v = threadIdx.x; v < NT * kq; v += THREADS) {
+      const int n = v % NT, k = (v / NT) * 4;
+      const int4 e = *reinterpret_cast<const int4*>(km + k);
+      const int ent[4] = {e.x, e.y, e.z, e.w};
+      int8_t val[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        val[q] = ent[q] < 0 ? 0
+                            : rq::field<W_BITS>(
+                                  rwu[((ent[q] >> 10) & 0xFF) * NT + n],
+                                  (ent[q] >> 18) & 3, true);
+      *reinterpret_cast<uint32_t*>(b_tile + rq::tc::core_offset(n, k, NT)) =
+          rq::tc::word4(val[0], val[1], val[2], val[3]);
+    }
+    return kstage;
   }
 };
 
-template <int A_BITS, int W_BITS, int STAGES>
-__global__ void __launch_bounds__(rq::THREADS)
-    qconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 void* __restrict__ out, int hp, int wp, int cin_pad, int ho,
-                 int wo, int fh, int fw, int stride, int cout, int a_signed,
-                 rq::EpilogueArgs epi) {
-  extern __shared__ __align__(16) int8_t smem[];
-  using L = rq::Layout<STAGES, A_BITS, W_BITS>;
-  const int howo = ho * wo;
-  const int tiles = (howo + rq::TILE_M - 1) / rq::TILE_M;
-  const int b = blockIdx.x / tiles;
-  const int q0 = (blockIdx.x % tiles) * rq::TILE_M;
-  const int n0 = blockIdx.y * rq::TILE_N;
-  const int cchunks = cin_pad / rq::CHUNK;
-  const ConvRows rows{x,  hp,     wp, cin_pad / (8 / A_BITS),
-                      wo, howo,   fw, stride,
-                      cchunks, L::XB, b, q0};
-  int acc[4][4] = {};
-  rq::mainloop<STAGES, A_BITS, W_BITS>(rows, rq::WTile{w + n0, cout,
-                                                  cout - n0},
-                                       fh * fw * cchunks, a_signed != 0,
-                                       smem, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty + 16 * i;
-    if (q >= howo) continue;
-    const long long pix = static_cast<long long>(b) * howo + q;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < cout) rq::store_out(out, pix * cout + n, acc[i][j], n, epi);
+// One conv launch: operands, the stage plan and the geometry.
+struct ConvArgs {
+  const int8_t* x;
+  const int8_t* w;
+  const int* stages;
+  const int* segs;
+  const int* kmap;
+  void* out;
+  int nstages, nsegs, hp, wp, cp, ho, wo, fw, stride, npix, w_tap_rows, cout;
+  int a_signed;
+  int a_ring;  // 1 when some stage's activations are unpacked from a ring
+};
+
+template <int A_BITS, int W_BITS, int STAGES, int NT>
+__global__ void __launch_bounds__(THREADS, min_blocks<NT>())
+    qconv_kernel(const ConvArgs a, const rq::EpilogueArgs epi) {
+  extern __shared__ __align__(128) int8_t smem[];
+  __shared__ rq::tc::ColumnParams<NT> cols;
+  using S = rq::tc::Smem<NT, STAGES, stage_k<NT>()>;
+  int8_t* b_tile = smem;
+  long long* row_base = reinterpret_cast<long long*>(smem + S::B_TILE);
+  // the stage plan and its segments, read from shared memory from here
+  // on, and the epilogue's columns: copied asynchronously, all in flight
+  // together while the row table is computed
+  int* plan = reinterpret_cast<int*>(smem + S::FIXED);
+  const int plan_ints = a.nstages * STAGE_FIELDS + 2 * a.nsegs;
+  for (int i = threadIdx.x; i < plan_ints; i += THREADS)
+    rq::cp_async4(plan + i,
+                  i < a.nstages * STAGE_FIELDS
+                      ? a.stages + i
+                      : a.segs + (i - a.nstages * STAGE_FIELDS),
+                  4);
+  int8_t* ring = smem + S::FIXED + plan_bytes(a.nstages, a.nsegs);
+  const int p0 = blockIdx.x * TILE_M, n0 = blockIdx.y * NT;
+  cols.load_async(epi, n0, a.cout - n0);
+  rq::cp_async_commit();
+  const int howo = a.ho * a.wo;
+  for (int r = threadIdx.x; r < TILE_M; r += THREADS) {
+    const int p = p0 + r;
+    long long base = -1;
+    if (p < a.npix) {
+      const int b = p / howo, q = p - b * howo;
+      const int oy = q / a.wo, ox = q - oy * a.wo;
+      base = ((static_cast<long long>(b) * a.hp + oy * a.stride) * a.wp +
+              ox * a.stride) * a.cp;
     }
+    row_base[r] = base;
   }
+  rq::cp_async_wait<0>();
+  __syncthreads();
+  const ConvSrc<A_BITS, W_BITS, NT> src{
+      a.x,
+      a.w,
+      plan,
+      plan + a.nstages * STAGE_FIELDS,
+      a.kmap,
+      row_base,
+      a.wp,
+      a.cp,
+      a.fw,
+      a.w_tap_rows,
+      a.cout,
+      n0,
+      a.a_signed != 0};
+  int acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0;
+  rq::tc::mainloop<NT, STAGES, stage_k<NT>()>(src, 0, a.nstages, b_tile,
+                                               ring, a.a_ring != 0, acc);
+  rq::tc::for_each_pair<NT>(acc, [&](int row, int col, int v0, int v1) {
+    const int p = p0 + row;
+    if (p < a.npix)
+      cols.store2(a.out, static_cast<long long>(p) * a.cout + n0 + col, v0,
+                  v1, col, a.cout - n0, epi);
+  });
+}
+
+template <int A_BITS, int W_BITS, int STAGES, int NT>
+cudaError_t launch(const ConvArgs& a, const rq::EpilogueArgs& epi,
+                   cudaStream_t stream) {
+  auto kernel = qconv_kernel<A_BITS, W_BITS, STAGES, NT>;
+  static const cudaError_t attr =
+      rq::tc::set_smem<NT, STAGES, stage_k<NT>()>(kernel);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.npix + TILE_M - 1) / TILE_M, (a.cout + NT - 1) / NT);
+  const int bytes = rq::tc::Smem<NT, STAGES, stage_k<NT>()>::bytes(
+      plan_bytes(a.nstages, a.nsegs), a.nstages, a.a_ring != 0);
+  kernel<<<grid, THREADS, bytes, stream>>>(a, epi);
+  return cudaSuccess;
 }
 
 template <int A_BITS, int W_BITS, int STAGES>
-cudaError_t launch(const int8_t* x, const int8_t* w, void* out, int n_img,
-                   int hp, int wp, int cin_pad, int ho, int wo, int fh,
-                   int fw, int stride, int cout, int a_signed,
-                   const rq::EpilogueArgs& epi, cudaStream_t stream) {
-  auto kernel = qconv_kernel<A_BITS, W_BITS, STAGES>;
-  cudaError_t err = rq::set_smem<STAGES, A_BITS, W_BITS>(kernel);
-  if (err != cudaSuccess) return err;
-  const int tiles = (ho * wo + rq::TILE_M - 1) / rq::TILE_M;
-  const dim3 grid(n_img * tiles, (cout + rq::TILE_N - 1) / rq::TILE_N);
-  kernel<<<grid, rq::THREADS, rq::Layout<STAGES, A_BITS, W_BITS>::BYTES,
-           stream>>>(x, w, out, hp, wp, cin_pad, ho, wo, fh, fw, stride,
-                     cout, a_signed, epi);
-  return cudaSuccess;
+cudaError_t launch_n(int nt, const ConvArgs& a, const rq::EpilogueArgs& epi,
+                     cudaStream_t stream) {
+#define RQ_N(NT) \
+  if (nt == NT) return launch<A_BITS, W_BITS, STAGES, NT>(a, epi, stream);
+  RQ_N(16) RQ_N(32) RQ_N(64) RQ_N(128) RQ_N(256)
+#undef RQ_N
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success); an
-// unsupported (a_bits, w_bits, stages) returns cudaErrorInvalidValue.
-extern "C" int qconv_launch(const void* x, const void* w, const void* kappa,
-                            const void* lam, const void* mmul,
-                            const void* scale_vec, float scale, void* out,
-                            int n_img, int hp, int wp, int cin_pad, int ho,
-                            int wo, int fh, int fw, int stride, int cout,
-                            int a_bits, int w_bits, int a_signed, int d,
-                            int hi, int epilogue, int stages, void* stream) {
+// unsupported (a_bits, w_bits, stages, nt) returns cudaErrorInvalidValue.
+// stages/segs/kmap: the wrapper's stage plan on the device (int32);
+// a_ring: whether some stage unpacks its activations (sub-byte widths, or
+// a stage whose channels are not a multiple of 16); nt: the column tile
+// (`conv_tile_n`).
+extern "C" int qconv_launch(const void* x, const void* w, const void* stages,
+                            const void* segs, const void* kmap, int nstages,
+                            int nsegs, int a_ring,
+                            const void* kappa, const void* lam,
+                            const void* mmul, const void* scale_vec,
+                            float scale, void* out, int n_img, int hp,
+                            int wp, int cp, int ho, int wo, int fw,
+                            int stride, int w_tap_rows, int cout, int a_bits,
+                            int w_bits, int a_signed, int d, int hi,
+                            int epilogue, int pipeline_stages, int nt,
+                            void* stream) {
   const rq::EpilogueArgs epi{static_cast<const int*>(kappa),
                              static_cast<const int*>(lam),
                              static_cast<const int*>(mmul),
                              static_cast<const float*>(scale_vec),
                              scale, d, hi, epilogue};
-  const auto* xp = static_cast<const int8_t*>(x);
-  const auto* wp_ = static_cast<const int8_t*>(w);
+  const ConvArgs a{static_cast<const int8_t*>(x),
+                   static_cast<const int8_t*>(w),
+                   static_cast<const int*>(stages),
+                   static_cast<const int*>(segs),
+                   static_cast<const int*>(kmap),
+                   out,
+                   nstages,
+                   nsegs, hp, wp, cp, ho, wo, fw, stride, n_img * ho * wo,
+                   w_tap_rows, cout, a_signed, a_ring};
+  if (plan_bytes(nstages, nsegs) > 16 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define RQ_DISPATCH(A, W, S)                                                \
-  if (a_bits == A && w_bits == W && stages == S)                            \
-    err = launch<A, W, S>(xp, wp_, out, n_img, hp, wp, cin_pad, ho, wo, fh, \
-                          fw, stride, cout, a_signed, epi, s);
+#define RQ_DISPATCH(A, W, S)                                 \
+  if (a_bits == A && w_bits == W && pipeline_stages == S) \
+    err = launch_n<A, W, S>(nt, a, epi, s);
   RQ_FOR_EACH_CONFIG(RQ_DISPATCH)
 #undef RQ_DISPATCH
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -5,111 +5,256 @@
 // (src/repro/kernels/qmatmul/kernel.py:234), both of its pipeline modes:
 // 'off' as STAGES=1, 'double_buffer' as STAGES=2.
 //
-//   out[m, n] = epilogue( sum_k x[m, k] * w[k, n] )
-//   x: (M, K/pf_a) chunk-planar packed activations, K a CHUNK multiple;
-//   w_flat: a panel-major `pack_segmented` buffer whose N is a CHUNK
-//   multiple (`pad_segmented`): panel p (output channels
-//   [128 p, 128 p + 128)) is (K/pf_p, 128) packed at its run's width,
-//   row stride 128, starting at byte offsets[p]; codes[p] indexes the
-//   width table. kappa/lam/m: (N,) int32, one shift d for every run.
+//   out[m, n] = epilogue( sum_{k < k_logical} x[m, k] * w[k, n] )
+//   x: (M, K_pad/pf_a) chunk-planar packed activations; w_flat: a
+//   panel-major `pack_segmented` buffer whose N is a CHUNK multiple
+//   (`pad_segmented`): panel p (output channels [128 p, 128 p + 128)) is
+//   (K_pad/pf_p, 128) packed at its run's width, row stride 128, starting
+//   at byte offsets[p]; codes[p] indexes the width table. kappa/lam/m:
+//   (N,) int32, one shift d for every run.
 //
-// What bounds it on the H100: the same as qmatmul.cu. At the shapes the
-// port serves or checks (M = 256-12544 rows, K = 288-2048, N = 256-1024)
-// the bound is the bytes, a few microseconds at most, and the kernel is
-// bound by the dp4a instruction rate and the unpack in shared memory;
-// tensor cores (wgmma) and TMA are later work.
-// What the design does about the mixed widths: each block owns a 64-row
-// x 64-column half of one 128-wide panel, so it never straddles a panel
-// or a run. It reads its panel's (code, offset) descriptor once and
-// branches once into the whole K loop instantiated for that width, so
-// the unpack is specialised per width and no element branches. The
-// ring, unpack, dp4a contraction and epilogue are the uniform kernel's
-// (common.cuh); only the weight addressing differs: K tile kt of panel p
-// is the contiguous byte range offsets[p] + kt * (CHUNK/pf) * 128.
-#include "common.cuh"
+// What bounded it on the H100: the int8 math on __dp4a (the library's
+// tensor-core GEMM was 1.8x faster at qat-cnn's c3), K padded to a CHUNK
+// multiple (288 -> 384 at c3), and each block re-reading its x rows for
+// each 64-column half of a panel. What the design does about it:
+//   * one block owns 128 rows x one whole 128-wide panel and contracts on
+//     the tensor cores (mma_s8.cuh: int8 wgmma m64n128k32, int32
+//     accumulators in registers), so each x row is read once per panel;
+//     8-bit activations are copied straight into the A tile;
+//   * K stops at the real K rounded up to 32: the last stage copies only
+//     the bytes of the chunk that hold that K (min(K, CHUNK/pf) of them)
+//     and the weight rows that do, and contracts ceil(rem / 32) * 32;
+//   * where rows x panels give fewer blocks than the card has SMs (fig8:
+//     256 rows), the wrapper splits K across blocks: each adds its int32
+//     partial sums into a zeroed workspace with atomics (integer sums are
+//     exact in any order), and the last block of a tile to finish applies
+//     the epilogue;
+//   * the width is uniform over a panel, so a block reads its panel's
+//     (code, offset) descriptor once and branches once into the whole K
+//     loop instantiated for that width.
+// What bounds it now: the latency of each stage's copy, weight unpack and
+// wgmma within a block; wide grids run two blocks per SM to overlap them.
+#include "mma_s8.cuh"
 
 namespace {
+
+using rq::tc::THREADS;
+using rq::tc::TILE_M;
+constexpr int NT = rq::CHUNK;       // one whole panel per block
+constexpr int STAGE_K = rq::CHUNK;  // one chunk of K per stage
+constexpr int RING_ROW = rq::tc::ring_row<STAGE_K>();
 
 struct WidthTable {
   int bits[3];  // width of code c, widest first (SegmentMap.widths())
 };
 
-template <int STAGES, int A_BITS, int W_BITS>
-__device__ __forceinline__ void panel_mainloop(const rq::GemmRows& rows,
-                                               const int8_t* panel_half,
-                                               int nk, bool a_signed,
-                                               int8_t* smem, int acc[4][4]) {
-  rq::mainloop<STAGES, A_BITS, W_BITS>(
-      rows, rq::WTile{panel_half, rq::CHUNK, rq::TILE_N}, nk, a_signed, smem,
-      acc);
+template <int A_BITS, int W_BITS>
+struct PanelSrc {
+  static constexpr int SUB_A = rq::CHUNK / (8 / A_BITS);
+  static constexpr int SUB_W = rq::CHUNK / (8 / W_BITS);
+  const int8_t* x;
+  const int8_t* panel;  // the block's panel, rows of 128 bytes
+  long long ldx;        // packed bytes per x row
+  int M, m0, k_logical;
+  bool a_signed;
+
+  // the stage's K: its real K rounded up to the MMA's 32; past the real K
+  // the panel's packed rows are the artifact's zero padding
+  __device__ int kstage(int s) const {
+    const int kr = min(STAGE_K, k_logical - s * STAGE_K);
+    return (kr + rq::tc::MMA_K - 1) / rq::tc::MMA_K * rq::tc::MMA_K;
+  }
+
+  // 8-bit activations are their own int8 values in K order: their 16-byte
+  // vectors go straight into the slot's A tile; narrower ones through the
+  // activation ring and unpack_rows16
+  __device__ void issue(int s, const rq::tc::Slot& slot) const {
+    const int ks = kstage(s);
+    const int per_row = min(ks, SUB_A) / 16;  // 16-byte vectors
+    for (int v = threadIdx.x; v < TILE_M * per_row; v += THREADS) {
+      const int r = v % TILE_M, u = v / TILE_M;
+      const int m = m0 + r;
+      const int8_t* src = m < M ? x + m * ldx + s * SUB_A + u * 16 : x;
+      rq::cp_async16(A_BITS == 8 ? slot.a_tile + rq::tc::core_offset(
+                                                     r, u * 16, TILE_M)
+                                 : slot.a_ring + r * RING_ROW + u * 16,
+                     src, m < M ? 16 : 0);
+    }
+    const int rows = min(ks, SUB_W);
+    const int8_t* w0 = panel + static_cast<long long>(s) * SUB_W * NT;
+    for (int v = threadIdx.x; v < rows * (NT / 16); v += THREADS)
+      rq::cp_async16(slot.w_ring + v * 16, w0 + v * 16, 16);
+  }
+
+  // logical k of the stage sits in byte k % SUB, field k / SUB
+  __device__ int unpack(int s, const rq::tc::Slot& slot,
+                        int8_t* b_tile) const {
+    const int ks = kstage(s);
+    if (A_BITS != 8)
+      rq::tc::unpack_rows16<A_BITS, TILE_M, STAGE_K>(slot.a_ring, 1, ks, 0,
+                                                      a_signed,
+                                             slot.a_tile);
+    rq::tc::unpack_cols16<W_BITS, NT>(slot.w_ring, 1, ks, min(ks, SUB_W),
+                                      b_tile);
+    return ks;
+  }
+};
+
+// K split across the gridDim.z blocks of one output tile: each adds its
+// partial sums into the zeroed int32 `workspace` (integer sums are exact
+// in any order) and counts itself in arrivals[tile]; the block that
+// arrives last reads the totals back into `acc` and returns true, the
+// others return false. index(row, col): the workspace index of an
+// accumulator, or -1 outside the output.
+template <class Index>
+__device__ __forceinline__ bool split_k_reduce(int (&acc)[NT / 2],
+                                               int* workspace, int* arrivals,
+                                               int tile, Index index) {
+  rq::tc::for_each_accumulator<NT>(acc, [&](int row, int col, int& v) {
+    const long long i = index(row, col);
+    if (i >= 0) atomicAdd(workspace + i, v);
+  });
+  __threadfence();
+  __syncthreads();
+  __shared__ int last;
+  if (threadIdx.x == 0)
+    last = atomicAdd(arrivals + tile, 1) == static_cast<int>(gridDim.z) - 1;
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  rq::tc::for_each_accumulator<NT>(acc, [&](int row, int col, int& v) {
+    const long long i = index(row, col);
+    if (i >= 0) v = __ldcg(workspace + i);
+  });
+  return true;
 }
 
-template <int A_BITS, int STAGES>
-__global__ void __launch_bounds__(rq::THREADS)
+// MIN_BLOCKS: resident blocks per SM the registers are budgeted for (see
+// `launch`).
+template <int A_BITS, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     qmatmul_segmented_kernel(const int8_t* __restrict__ x,
                              const int8_t* __restrict__ w_flat,
                              const int* __restrict__ codes,
                              const int* __restrict__ offsets,
                              WidthTable widths, void* __restrict__ out,
-                             int M, int N, int K, int a_signed,
+                             int* __restrict__ workspace,
+                             int* __restrict__ arrivals, int M, int N,
+                             int k_pad, int k_logical, int a_signed,
                              rq::EpilogueArgs epi) {
-  extern __shared__ __align__(16) int8_t smem[];
-  constexpr int HALVES = rq::CHUNK / rq::TILE_N;
-  const int panel = blockIdx.y / HALVES;
-  const int half = blockIdx.y % HALVES;
-  const int m0 = blockIdx.x * rq::TILE_M;
-  const int n0 = panel * rq::CHUNK + half * rq::TILE_N;
+  extern __shared__ __align__(128) int8_t smem[];
+  __shared__ rq::tc::ColumnParams<NT> cols;
+  const int panel = blockIdx.y;
+  const int m0 = blockIdx.x * TILE_M, n0 = panel * NT;
+  cols.load_async(epi, n0, NT);
+  rq::cp_async_commit();
+  const int nstages = (k_logical + STAGE_K - 1) / STAGE_K;
+  const int per = (nstages + gridDim.z - 1) / gridDim.z;
+  const int s_begin = blockIdx.z * per;
+  const int s_end = min(nstages, s_begin + per);
   const int w_bits = widths.bits[codes[panel]];
-  const int8_t* panel_half = w_flat + offsets[panel] + half * rq::TILE_N;
-  const rq::GemmRows rows{x, K / (8 / A_BITS), M, m0,
-                          rq::CHUNK / (8 / A_BITS)};
-  const int nk = K / rq::CHUNK;
-  int acc[4][4] = {};
+  const int8_t* pw = w_flat + offsets[panel];
+  const long long ldx = k_pad / (8 / A_BITS);
+  // the B tile first, then the ring
+  int8_t* ring = smem + rq::tc::Smem<NT, STAGES, STAGE_K>::FIXED;
+  int acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0;
   // one branch per block: the width is uniform over the panel
   if (w_bits == 8)
-    panel_mainloop<STAGES, A_BITS, 8>(rows, panel_half, nk, a_signed != 0,
-                                      smem, acc);
+    rq::tc::mainloop<NT, STAGES, STAGE_K>(
+        PanelSrc<A_BITS, 8>{x, pw, ldx, M, m0, k_logical, a_signed != 0},
+        s_begin, s_end, smem, ring, A_BITS != 8, acc);
   else if (w_bits == 4)
-    panel_mainloop<STAGES, A_BITS, 4>(rows, panel_half, nk, a_signed != 0,
-                                      smem, acc);
+    rq::tc::mainloop<NT, STAGES, STAGE_K>(
+        PanelSrc<A_BITS, 4>{x, pw, ldx, M, m0, k_logical, a_signed != 0},
+        s_begin, s_end, smem, ring, A_BITS != 8, acc);
   else
-    panel_mainloop<STAGES, A_BITS, 2>(rows, panel_half, nk, a_signed != 0,
-                                      smem, acc);
-  rq::store_gemm_tile(out, acc, M, N, m0, n0, epi);
+    rq::tc::mainloop<NT, STAGES, STAGE_K>(
+        PanelSrc<A_BITS, 2>{x, pw, ldx, M, m0, k_logical, a_signed != 0},
+        s_begin, s_end, smem, ring, A_BITS != 8, acc);
+  rq::cp_async_wait<0>();  // the epilogue's columns, with no stage run
+  __syncthreads();
+  if (gridDim.z > 1 &&
+      !split_k_reduce(
+          acc, workspace, arrivals, blockIdx.x * gridDim.y + blockIdx.y,
+          [&](int row, int col) {
+            return m0 + row < M
+                       ? static_cast<long long>(m0 + row) * N + n0 + col
+                       : -1LL;
+          }))
+    return;
+  rq::tc::for_each_pair<NT>(acc, [&](int row, int col, int v0, int v1) {
+    if (m0 + row < M)
+      cols.store2(out, static_cast<long long>(m0 + row) * N + n0 + col, v0,
+                  v1, col, NT, epi);
+  });
 }
 
+template <int A_BITS, int STAGES, int MIN_BLOCKS>
+cudaError_t launch_blocks(const int8_t* x, const int8_t* w, const int* codes,
+                          const int* offsets, const WidthTable& widths,
+                          void* out, int* workspace, int* arrivals,
+                          int splits, int M, int N, int k_pad, int k_logical,
+                          int a_signed, const rq::EpilogueArgs& epi,
+                          cudaStream_t stream) {
+  auto kernel = qmatmul_segmented_kernel<A_BITS, STAGES, MIN_BLOCKS>;
+  static const cudaError_t attr =
+      rq::tc::set_smem<NT, STAGES, STAGE_K>(kernel);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((M + TILE_M - 1) / TILE_M, N / NT, splits);
+  const int nstages = (k_logical + STAGE_K - 1) / STAGE_K;
+  const int bytes = rq::tc::Smem<NT, STAGES, STAGE_K>::bytes(
+      0, (nstages + splits - 1) / splits, A_BITS != 8);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      x, w, codes, offsets, widths, out, workspace, arrivals, M, N, k_pad,
+      k_logical, a_signed, epi);
+  return cudaSuccess;
+}
+
+// Registers for two resident blocks per SM (128 a thread, a few spilled)
+// pay off where the grid is wider than the card and a second block hides
+// the first's stage latency (qat-cnn's c3: 196 blocks; H100 measurements
+// in PERF.md); a split-K grid is narrow and latency-bound, and keeps every
+// register (one block per SM). Sub-byte activations need the activation
+// ring, whose shared memory leaves room for one block only.
 template <int A_BITS, int STAGES>
 cudaError_t launch(const int8_t* x, const int8_t* w, const int* codes,
                    const int* offsets, const WidthTable& widths, void* out,
-                   int M, int N, int K, int a_signed,
+                   int* workspace, int* arrivals, int splits, int M, int N,
+                   int k_pad, int k_logical, int a_signed,
                    const rq::EpilogueArgs& epi, cudaStream_t stream) {
-  auto kernel = qmatmul_segmented_kernel<A_BITS, STAGES>;
-  // the 8-bit weight ring is the largest of the three widths
-  using L = rq::Layout<STAGES, A_BITS, 8>;
-  cudaError_t err = rq::set_smem<STAGES, A_BITS, 8>(kernel);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + rq::TILE_M - 1) / rq::TILE_M,
-                  (N / rq::CHUNK) * (rq::CHUNK / rq::TILE_N));
-  kernel<<<grid, rq::THREADS, L::BYTES, stream>>>(
-      x, w, codes, offsets, widths, out, M, N, K, a_signed, epi);
-  return cudaSuccess;
+  if constexpr (A_BITS == 8) {
+    if (splits == 1)
+      return launch_blocks<A_BITS, STAGES, 2>(
+          x, w, codes, offsets, widths, out, workspace, arrivals, splits, M,
+          N, k_pad, k_logical, a_signed, epi, stream);
+  }
+  return launch_blocks<A_BITS, STAGES, 1>(
+      x, w, codes, offsets, widths, out, workspace, arrivals, splits, M, N,
+      k_pad, k_logical, a_signed, epi, stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success); an
 // unsupported a_bits, stages, width or shape returns cudaErrorInvalidValue.
+// splits > 1 splits K across blocks; it needs `workspace` (M x N int32)
+// and `arrivals` (one int32 per 128 x 128 tile), both zeroed.
 extern "C" int qmatmul_segmented_launch(
     const void* x, const void* w_flat, const void* codes,
     const void* offsets, int w0, int w1, int w2, const void* kappa,
     const void* lam, const void* mmul, const void* scale_vec, float scale,
-    void* out, int M, int N, int K, int a_bits, int a_signed, int d, int hi,
+    void* out, void* workspace, void* arrivals, int splits, int M, int N,
+    int k_pad, int k_logical, int a_bits, int a_signed, int d, int hi,
     int epilogue, int stages, void* stream) {
   const WidthTable widths{{w0, w1, w2}};
   for (int c = 0; c < 3; ++c)
     if (widths.bits[c] != 8 && widths.bits[c] != 4 && widths.bits[c] != 2)
       return static_cast<int>(cudaErrorInvalidValue);
-  if (N % rq::CHUNK != 0 || K % rq::CHUNK != 0)
+  if (N % NT != 0 || k_pad % rq::CHUNK != 0 || k_logical <= 0 ||
+      k_logical > k_pad || splits < 1 ||
+      (splits > 1 && (workspace == nullptr || arrivals == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const rq::EpilogueArgs epi{static_cast<const int*>(kappa),
                              static_cast<const int*>(lam),
@@ -120,12 +265,14 @@ extern "C" int qmatmul_segmented_launch(
   const auto* wp = static_cast<const int8_t*>(w_flat);
   const auto* cp = static_cast<const int*>(codes);
   const auto* op = static_cast<const int*>(offsets);
+  auto* ws = static_cast<int*>(workspace);
+  auto* ar = static_cast<int*>(arrivals);
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define RQ_DISPATCH(A, S)                                                 \
-  if (a_bits == A && stages == S)                                         \
-    err = launch<A, S>(xp, wp, cp, op, widths, out, M, N, K, a_signed, epi, \
-                       s);
+#define RQ_DISPATCH(A, S)                                                  \
+  if (a_bits == A && stages == S)                                          \
+    err = launch<A, S>(xp, wp, cp, op, widths, out, ws, ar, splits, M, N,  \
+                       k_pad, k_logical, a_signed, epi, s);
   RQ_DISPATCH(8, 1) RQ_DISPATCH(4, 1) RQ_DISPATCH(2, 1)
   RQ_DISPATCH(8, 2) RQ_DISPATCH(4, 2) RQ_DISPATCH(2, 2)
 #undef RQ_DISPATCH

@@ -5,8 +5,9 @@ plain-C shared library under ``build/repro_torch_kernels/`` at the root
 of the checkout (or under ``$REPRO_TORCH_BUILD_DIR`` when set, which an
 installed package outside a checkout needs), named by a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. `build_all` starts one nvcc per source at once. Nothing
-here runs at import time.
+loaded as it is. `build_all` starts one nvcc per source at once and keeps
+each build's ptxas report (registers, shared memory and spills of every
+kernel) beside its library as ``.log``. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ from typing import Dict, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-HEADERS = ("common.cuh",)
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HEADERS = ("common.cuh", "mma_s8.cuh")
 
 
 def build_dir() -> pathlib.Path:
@@ -80,6 +81,10 @@ class CudaKernel:
         h.update(" ".join(NVCC_FLAGS).encode())
         return build_dir() / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 
+    def build_log(self) -> pathlib.Path:
+        """nvcc's output (the ptxas report) of the library's build."""
+        return self.library_path().with_suffix(".log")
+
     def compile_command(self, out: pathlib.Path):
         return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
 
@@ -125,6 +130,7 @@ def build_all(kernels: Sequence[CudaKernel]) -> float:
         if proc.returncode != 0:
             failed.append(f"{k.name}: nvcc exited {proc.returncode}\n{text}")
             continue
+        out.with_suffix(".log").write_text(text)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -8,11 +8,21 @@ device: CUDA tensors launch the Hopper kernel (``csrc/qconv.cu``, STAGES
 1 or 2 for pipeline 'off' or 'double_buffer'); CPU tensors run
 `qconv_packed_torch`, the per-tap gather + contraction + epilogue in
 torch. No fallback from one to the other.
+
+The kernel contracts the real channels only. `conv_k_plan` is the one
+place that maps the kernel's logical K (taps x real channels, in stages
+of at most `conv_stage_k` values) to the packed artifact's bytes, fields
+and weight rows; the kernel reads its tables, and `qconv_k_order_torch`
+gathers and unpacks through the same tables on the CPU, so the tests
+hold that index math against the reference.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -21,13 +31,135 @@ from repro_torch.core.quantize import wrap_int32
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.common import (EPILOGUE_DTYPES, PIPELINE_STAGES,
                                         apply_epilogue, check_pipeline,
-                                        matmul_planes)
+                                        int_matmul, matmul_planes)
 from repro_torch.kernels.qmatmul.kernel import _check, epilogue_launch_args
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "qconv", "qconv.cu", "qconv_launch",
-    [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P] + [_I] * 17 + [_P])
+    [_P] * 5 + [_I] * 3 + [_P] * 4 + [ctypes.c_float, _P] + [_I] * 18
+    + [_P])
+
+# wgmma's k for 8-bit operands: each stage's K is rounded up to it
+MMA_K = 32
+# shared memory a block keeps for its copy of the stage plan
+PLAN_SMEM_BYTES = 16 * 1024
+
+
+def conv_tile_n(cout: int) -> int:
+    """The kernel's column tile: Cout rounded up to 16, 32, 64, 128 or
+    256 (wider convs take several tiles). wgmma's n."""
+    return min(256, max(16, 1 << (cout - 1).bit_length()))
+
+
+def conv_stage_k(cout: int) -> int:
+    """Logical K per stage of the kernel (``stage_k`` in csrc/qconv.cu):
+    192, so that a 3x3 conv over 16 channels takes one stage, except with
+    the 256-wide column tile, whose shared memory leaves room for 128.
+    A stage also holds at most as many gathered bytes per pixel and packed
+    weight rows."""
+    return 192 if conv_tile_n(cout) <= 128 else 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvKPlan:
+    """The kernel's K order for one conv geometry and width pair.
+
+    ``stages`` (S, 8) int32: first segment, segments, K before rounding,
+    K rounded up to MMA_K, x bytes copied per segment, copy granule (4 or
+    16), ring bytes per segment, weight rows per segment. ``segs`` (G, 2)
+    int32: a segment's (tap, channel chunk). ``kmap`` (S, stage_k) int32:
+    for each logical k of a stage, its x ring byte (bits 0-7) and field
+    (8-9) and its weight ring row (10-17) and field (18-19); -1 past the
+    stage's K.
+    """
+
+    stages: np.ndarray
+    segs: np.ndarray
+    kmap: np.ndarray
+
+    @property
+    def k_contracted(self) -> int:
+        """K the tensor cores contract per output pixel."""
+        return int(self.stages[:, 3].sum())
+
+    def unpacks_activations(self, a_bits: int) -> bool:
+        """Whether some stage unpacks its gathered activation bytes (and
+        so needs the kernel's activation ring): sub-byte activations, or
+        a stage whose segments do not lie back to back in the ring.
+        Otherwise the kernel copies the bytes straight into its A tile."""
+        nch = self.stages[:, 2] // self.stages[:, 1]
+        return a_bits != 8 or bool((self.stages[:, 6] != nch).any())
+
+
+def conv_k_plan(fh: int, fw: int, cin: int, a_bits: int, w_bits: int,
+                stage_k: int) -> ConvKPlan:
+    """Cut the conv's logical K (taps x the ``cin`` real channels) into
+    the kernel's stages of at most ``stage_k`` values.
+
+    In a chunk-planar CHUNK channel c sits in byte c % (CHUNK/pf), field
+    c / (CHUNK/pf), so a tap's real channels occupy the first
+    min(Cin, CHUNK/pf) bytes of each pixel chunk and as many packed weight
+    rows. With Cin <= CHUNK a stage holds as many whole taps as fit in
+    stage_k values, gathered bytes and weight rows; with Cin > CHUNK it
+    holds one chunk of one tap. Each stage's K is rounded up to MMA_K
+    once. 8-bit activations of fewer than 16 channels take a multiple of
+    4 channels per tap (the artifact's zero padding fills the rest), so a
+    stage's bytes lie back to back and need no unpacking.
+    """
+    sub_a = packing.CHUNK // packing.pack_factor(a_bits)
+    sub_w = packing.CHUNK // packing.pack_factor(w_bits)
+    taps = fh * fw
+    if cin <= 0:
+        raise ValueError(f"cin={cin}")
+
+    def ring_bytes(nch):  # (bytes copied, granule) of one segment
+        nb = min(nch, sub_a)
+        gran = 16 if nb > 8 else 4
+        return -(-nb // gran) * gran, gran
+
+    groups = []  # (segments [(tap, chunk)], channels per segment)
+    if cin <= packing.CHUNK:
+        nch = -(-cin // 4) * 4 if a_bits == 8 and cin < 16 else cin
+        per = min(taps, stage_k // nch, stage_k // ring_bytes(nch)[0],
+                  stage_k // min(nch, sub_w))
+        for t0 in range(0, taps, per):
+            groups.append(([(t, 0) for t in range(t0, min(t0 + per, taps))],
+                           nch))
+    else:
+        for t in range(taps):
+            for c in range(-(-cin // packing.CHUNK)):
+                groups.append(([(t, c)],
+                               min(packing.CHUNK, cin - c * packing.CHUNK)))
+    stages, segs = [], []
+    kmap = np.full((len(groups), stage_k), -1, np.int32)
+    for s, (seg, nch) in enumerate(groups):
+        stride, gran = ring_bytes(nch)
+        rows = min(nch, sub_w)
+        kreal = len(seg) * nch
+        stages.append((len(segs), len(seg), kreal,
+                       -(-kreal // MMA_K) * MMA_K, stride, gran, stride,
+                       rows))
+        segs.extend(seg)
+        k = np.arange(kreal)
+        i, ch = k // nch, k % nch
+        kmap[s, :kreal] = ((i * stride + ch % sub_a) | (ch // sub_a) << 8
+                           | (i * rows + ch % sub_w) << 10
+                           | (ch // sub_w) << 18)
+    return ConvKPlan(np.asarray(stages, np.int32),
+                     np.asarray(segs, np.int32).reshape(-1, 2), kmap)
+
+
+@functools.lru_cache(maxsize=256)
+def conv_plan_tensors(fh: int, fw: int, cin: int, a_bits: int, w_bits: int,
+                      stage_k: int, device: torch.device):
+    """`conv_k_plan`'s (stages, segs, kmap) as int32 tensors on
+    ``device``, and whether the kernel unpacks activations, built once
+    per geometry, widths, stage depth and device."""
+    plan = conv_k_plan(fh, fw, cin, a_bits, w_bits, stage_k)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (plan.stages, plan.segs, plan.kmap)) + (
+                     plan.unpacks_activations(a_bits),)
 
 
 def conv_out_hw(h: int, w: int, fh: int, fw: int, stride: int,
@@ -68,13 +200,75 @@ def qconv_packed_torch(xp, w_packed_fused, kappa, lam, m_mul, *, fh: int,
     return y.reshape(n, ho, wo, cout)
 
 
+def _fields(byte: torch.Tensor, plane: torch.Tensor, bits: int,
+            signed: bool) -> torch.Tensor:
+    """Bit-field ``plane`` of each packed byte as the value it encodes."""
+    if bits == 8:
+        return byte.to(torch.int32)
+    v = ((byte.to(torch.int32) & 0xFF) >> (bits * plane)) & ((1 << bits) - 1)
+    if signed:
+        v = torch.where(v >= 1 << (bits - 1), v - (1 << bits), v)
+    return v
+
+
+def qconv_k_order_torch(xp, w_packed_fused, kappa, lam, m_mul, *, fh: int,
+                        fw: int, stride: int, ho: int, wo: int, cin: int,
+                        cin_pad: int, cout: int, a_bits: int,
+                        a_signed: bool, w_bits: int, d: int, out_bits: int,
+                        epilogue: str = "int", scale=1.0) -> torch.Tensor:
+    """The CUDA kernel's data flow in torch, stage by stage of
+    `conv_k_plan`: gather each segment's bytes into a ring row as the
+    kernel copies them, unpack through ``kmap`` (zeros past the real K),
+    contract, then the epilogue. Returns (N, Ho, Wo, Cout)."""
+    stage_k = conv_stage_k(cout)
+    plan = conv_k_plan(fh, fw, cin, a_bits, w_bits, stage_k)
+    n, hp, wp, cp = xp.shape
+    sub_a = packing.CHUNK // packing.pack_factor(a_bits)
+    sub_w = packing.CHUNK // packing.pack_factor(w_bits)
+    w_tap_rows = cin_pad // packing.pack_factor(w_bits)
+    npix = n * ho * wo
+    acc = torch.zeros((npix, cout), dtype=torch.int64, device=xp.device)
+    for s, (seg0, nseg, _, kstage, a_bytes, _, a_stride, w_rows) in \
+            enumerate(plan.stages.tolist()):
+        ring_x = torch.zeros((npix, stage_k), dtype=torch.int8,
+                             device=xp.device)
+        ring_w = torch.zeros((stage_k, cout), dtype=torch.int8,
+                             device=xp.device)
+        for i, (tap, chunk) in enumerate(plan.segs[seg0:seg0 + nseg]
+                                         .tolist()):
+            dy, dx = divmod(tap, fw)
+            patch = xp[:, dy:dy + stride * (ho - 1) + 1:stride,
+                       dx:dx + stride * (wo - 1) + 1:stride,
+                       chunk * sub_a:chunk * sub_a + a_bytes]
+            ring_x[:, i * a_stride:i * a_stride + a_bytes] = \
+                patch.reshape(npix, a_bytes)
+            r0 = tap * w_tap_rows + chunk * sub_w
+            ring_w[i * w_rows:(i + 1) * w_rows] = \
+                w_packed_fused[r0:r0 + w_rows]
+        ent = torch.from_numpy(plan.kmap[s, :kstage].astype(np.int64)).to(
+            xp.device)
+        live = ent >= 0
+        e = torch.where(live, ent, torch.zeros_like(ent))
+        a = _fields(ring_x[:, e & 0xFF], (e >> 8) & 3, a_bits, a_signed)
+        b = _fields(ring_w[(e >> 10) & 0xFF], ((e >> 18) & 3)[:, None],
+                    w_bits, True)
+        acc += int_matmul((a * live).to(torch.int8),
+                          (b * live[:, None]).to(torch.int8)).to(torch.int64)
+    y = apply_epilogue(wrap_int32(acc), kappa, lam, m_mul, d=d,
+                       out_bits=out_bits, epilogue=epilogue, scale=scale)
+    return y.reshape(n, ho, wo, cout)
+
+
 def qconv_packed_cuda(xp, w_packed_fused, kappa, lam, m_mul, *, fh: int,
                       fw: int, stride: int, ho: int, wo: int, cin_pad: int,
                       cout: int, a_bits: int, a_signed: bool, w_bits: int,
                       d: int, out_bits: int, epilogue: str = "int",
-                      scale=1.0, pipeline: str = "off") -> torch.Tensor:
+                      scale=1.0, pipeline: str = "off",
+                      cin: int = None) -> torch.Tensor:
     """Launch the Hopper conv kernel on the packed, padded images ``xp``
-    (N, hp, wp, cin_pad/pf_a); raises on anything it does not take."""
+    (N, hp, wp, cin_pad/pf_a); raises on anything it does not take.
+    ``cin`` is the real channel count the kernel contracts (default
+    ``cin_pad``: every channel, padding included)."""
     stages = PIPELINE_STAGES[check_pipeline(pipeline)]
     dev = xp.device
     _check(xp, "xp", torch.int8, dev, 4)
@@ -92,6 +286,9 @@ def qconv_packed_cuda(xp, w_packed_fused, kappa, lam, m_mul, *, fh: int,
     if (ho - 1) * stride + fh > hp or (wo - 1) * stride + fw > wp:
         raise ValueError(f"padded image {hp}x{wp} too small for a {ho}x{wo} "
                          f"output of a {fh}x{fw}/s{stride} conv")
+    cin = cin_pad if cin is None else cin
+    if not 0 < cin <= cin_pad:
+        raise ValueError(f"cin={cin} does not fit cin_pad={cin_pad}")
     kappa, lam, m_mul, svec, sf, d, hi, code = epilogue_launch_args(
         kappa, lam, m_mul, n=cout, d=d, out_bits=out_bits,
         epilogue=epilogue, scale=scale, device=dev)
@@ -99,14 +296,24 @@ def qconv_packed_cuda(xp, w_packed_fused, kappa, lam, m_mul, *, fh: int,
                       device=dev)
     if out.numel() == 0:
         return out
+    st, segs, kmap, a_ring = conv_plan_tensors(
+        fh, fw, cin, a_bits, w_bits, conv_stage_k(cout), dev)
+    if (st.numel() + segs.numel()) * 4 > PLAN_SMEM_BYTES:
+        raise ValueError(
+            f"a {fh}x{fw} conv over {cin} channels takes {st.shape[0]} "
+            f"stages; the kernel holds at most {PLAN_SMEM_BYTES} bytes of "
+            "stage plan in shared memory")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL.launch(
-            stages, xp.data_ptr(), w_packed_fused.data_ptr(),
-            kappa.data_ptr(), lam.data_ptr(), m_mul.data_ptr(),
+            stages, xp.data_ptr(), w_packed_fused.data_ptr(), st.data_ptr(),
+            segs.data_ptr(), kmap.data_ptr(), st.shape[0], segs.shape[0],
+            int(a_ring), kappa.data_ptr(),
+            lam.data_ptr(), m_mul.data_ptr(),
             None if svec is None else svec.data_ptr(), sf, out.data_ptr(),
-            n, hp, wp, cin_pad, ho, wo, fh, fw, stride, cout, a_bits,
-            w_bits, int(a_signed), d, hi, code, stages, stream)
+            n, hp, wp, cp, ho, wo, fw, stride, cin_pad // pf_w, cout, a_bits,
+            w_bits, int(a_signed), d, hi, code, stages, conv_tile_n(cout),
+            stream)
     return out
 
 
@@ -132,5 +339,5 @@ def qconv2d_fused(x_hat, w_packed_fused, kappa, lam, m_mul, *, fh: int,
               d=d, out_bits=out_bits, epilogue=epilogue, scale=scale)
     if xp.is_cuda:
         return qconv_packed_cuda(xp, w_packed_fused, kappa, lam, m_mul,
-                                 pipeline=pipeline, **kw)
+                                 pipeline=pipeline, cin=cin, **kw)
     return qconv_packed_torch(xp, w_packed_fused, kappa, lam, m_mul, **kw)

@@ -30,8 +30,8 @@ KERNEL = CudaKernel(
     [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P] + [_I] * 10 + [_P])
 SEGMENTED_KERNEL = CudaKernel(
     "qmatmul_segmented", "qmatmul_segmented.cu", "qmatmul_segmented_launch",
-    [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, ctypes.c_float, _P]
-    + [_I] * 9 + [_P])
+    [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P]
+    + [_I] * 11 + [_P])
 
 
 def qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
@@ -199,6 +199,38 @@ def segment_descriptors(segmap, k_logical: int, device: torch.device):
             torch.from_numpy(offs).to(device))
 
 
+# Rows of one block of the mixed-operand kernel (csrc/mma_s8.cuh); its
+# columns are one CHUNK-wide panel and its K stages CHUNK values.
+SEGMENTED_TILE_M = 128
+
+
+def k_splits(tiles: int, stages: int, sms: int) -> int:
+    """How many blocks of the mixed-operand kernel share one output tile's
+    K stages: 1 when the tiles already fill ``sms`` SMs, else enough to
+    fill them, with at least one stage per block. Integer partial sums
+    add exactly in any order, so the split never changes a result."""
+    if tiles >= sms or stages <= 1:
+        return 1
+    per = -(-stages // min(stages, -(-sms // tiles)))
+    return -(-stages // per)
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_workspace(splits: int, outputs: int, tiles: int, device):
+    """Scratch of a launch whose K is split ``splits`` ways: the zeroed
+    int32 tensor (kept alive by the caller until the launch is queued) and
+    the pointers to its two parts, the partial sums of every output and
+    one arrival count per tile; three Nones without a split."""
+    if splits == 1:
+        return None, None, None
+    scratch = torch.zeros(outputs + tiles, dtype=torch.int32, device=device)
+    return scratch, scratch.data_ptr(), scratch.data_ptr() + 4 * outputs
+
+
 def qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul, *,
                            k_logical: int, a_bits: int, a_signed: bool,
                            d: int, out_bits: int, epilogue: str = "int",
@@ -219,14 +251,18 @@ def qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul, *,
     out = torch.empty((m, n), dtype=EPILOGUE_DTYPES[epilogue], device=dev)
     if m == 0:
         return out
+    # one block per 128 rows x one 128-wide panel, K in stages of 128
+    tiles = -(-m // SEGMENTED_TILE_M) * (n // packing.CHUNK)
+    splits = k_splits(tiles, -(-k_logical // packing.CHUNK), sm_count(dev))
+    scratch, work, arrivals = split_workspace(splits, m * n, tiles, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         SEGMENTED_KERNEL.launch(
             stages, x.data_ptr(), w_flat.data_ptr(), codes.data_ptr(),
             offs.data_ptr(), *widths, kappa.data_ptr(), lam.data_ptr(),
             m_mul.data_ptr(), None if svec is None else svec.data_ptr(), sf,
-            out.data_ptr(), m, n, k_pad, a_bits, int(a_signed), d, hi, code,
-            stages, stream)
+            out.data_ptr(), work, arrivals, splits, m, n, k_pad, k_logical,
+            a_bits, int(a_signed), d, hi, code, stages, stream)
     return out
 
 

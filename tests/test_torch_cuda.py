@@ -84,9 +84,47 @@ def test_qconv_kernel_matches_plain(dev, a_bits, w_bits, pipeline):
                       w_bits=w_bits, d=23, out_bits=a_bits, epilogue=epi,
                       scale=0.013)
             got = conv_k.qconv_packed_cuda(xp, wpf, *vecs,
-                                           pipeline=pipeline, **kw)
+                                           pipeline=pipeline, cin=cin, **kw)
             assert _same(got, conv_k.qconv_packed_torch(xp, wpf, *vecs,
                                                         **kw))
+
+
+# (n, h, w, cin, cout, f, stride, padding) the real-channel K order makes
+# risky: Cin 1, 3, 160, 200 (two chunks, one ragged), Cout 10, 48, 200, a
+# 1x1 stride-2 conv, 5x5 convs, Wo not dividing the 128-pixel tile
+WALL = ((2, 9, 7, 1, 10, 5, 1, 2), (2, 11, 9, 3, 48, 3, 1, 1),
+        (2, 8, 8, 160, 200, 3, 2, 1), (2, 9, 9, 200, 48, 1, 2, 0),
+        (1, 7, 13, 3, 200, 5, 1, 2))
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qconv_kernel_real_channels_match_plain(dev, a_bits, w_bits,
+                                                pipeline):
+    rng = np.random.default_rng(a_bits * 10 + w_bits + 1)
+    for n, h, w_, cin, cout, f, s, p in WALL:
+        cin_pad = packing.padded_size(cin)
+        x = _ints(rng, a_bits, False, (n, h, w_, cin), dev)
+        wt = torch.nn.functional.pad(
+            _ints(rng, w_bits, True, (f * f, cin, cout), dev),
+            (0, 0, 0, cin_pad - cin))
+        wpf = packing.pack(wt.reshape(-1, cout), w_bits, axis=0)
+        vecs = [v.to(dev) for v in _epilogue_vectors(rng, cout, dev)]
+        ho, wo = conv_k.conv_out_hw(h, w_, f, f, s, p)
+        xp = conv_k.pad_and_pack(x, padding=p, cin_pad=cin_pad,
+                                 a_bits=a_bits)
+        for epi in ("int", "raw", "dequant"):
+            kw = dict(fh=f, fw=f, stride=s, ho=ho, wo=wo, cin_pad=cin_pad,
+                      cout=cout, a_bits=a_bits, a_signed=False,
+                      w_bits=w_bits, d=23, out_bits=a_bits, epilogue=epi,
+                      scale=0.013)
+            want = conv_k.qconv_packed_torch(xp, wpf, *vecs, **kw)
+            got = conv_k.qconv_packed_cuda(xp, wpf, *vecs,
+                                           pipeline=pipeline, cin=cin, **kw)
+            assert _same(got, want), ((n, h, w_, cin, cout, f, s, p), epi)
+            # the kernel's K order emulated in torch on the card agrees too
+            assert _same(conv_k.qconv_k_order_torch(
+                xp, wpf, *vecs, cin=cin, **kw), want)
 
 
 def test_resnet8_on_the_card_matches_cpu(dev):
@@ -126,10 +164,13 @@ def test_qmatmul_segmented_kernel_matches_plain(dev, a_bits, pipeline):
     from repro_torch.kernels import api
 
     rng = np.random.default_rng(a_bits)
-    for widths in MIXES:
-        # K not a CHUNK multiple, M past one tile, N with a ragged tail
-        m, k, n = 100, 200, 320
-        segmap = _mix_runs(widths, n)
+    # K not a CHUNK multiple (split across blocks at these M), M past one
+    # tile, N with a ragged tail; then a ragged last run at W8
+    cases = [((100, 200, 320), _mix_runs(widths, 320)) for widths in MIXES]
+    cases.append(((40, 200, 200),
+                  packing.SegmentMap(((0, 128, 2), (128, 200, 8)))))
+    for (m, k, n), segmap in cases:
+        widths = tuple(b for _, _, b in segmap.runs)
         w = torch.cat([_ints(rng, b, True, (k, e - s), dev)
                        for s, e, b in segmap.runs], dim=1)
         vecs = [v.to(dev) for v in _epilogue_vectors(rng, n, dev)]
