@@ -10,10 +10,15 @@
 2. Kernel phase: every kernel, at STAGES=1 ('off') and STAGES=2
    ('double_buffer'), against its plain torch version on the card.
    qmatmul and qconv: every ResNet-8 conv geometry and the head GEMM at a
-   wave of 64, plus one larger GEMM, then the conv shapes the real-channel
-   K order makes risky (Cin 1, 3, 160, 200: two chunks, one ragged; Cout
-   10, 48, 200; a 1x1 stride-2 conv, 5x5 convs, Wo that does not divide
-   the 128-pixel tile), for A{8,4,2} x W{8,4,2} and all three epilogues.
+   wave of 64, plus one larger GEMM, then a wall of ragged GEMMs (real K
+   1, 31, 33, 64, 200, 1000; N 1, 10, 17, 100, 128, 200, 384; M 1, 64,
+   100, 4096; K split across blocks where the launch plan splits it, and
+   unsplit; two A8 grids wider than the card at the 128-wide tile, at two
+   blocks per SM as planned and at one) and the conv shapes the
+   real-channel K order makes risky (Cin 1, 3, 160, 200: two chunks, one
+   ragged; Cout 10, 48, 200; a 1x1 stride-2 conv, 5x5 convs, Wo that
+   does not divide the 128-pixel tile), for A{8,4,2} x W{8,4,2} and all
+   three epilogues. The GEMM runs at each launch `Case.launches` lists.
    qmatmul_segmented: segment mixes 8|4, 8|2, 4|2, 8|4|2 at a ragged shape
    (N = 320 with a 64-wide tail panel, K = 200, K split across blocks),
    one more K = 200 call with a ragged last run, the reference's fig8
@@ -41,9 +46,14 @@
 5. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
-   conv's library yardstick is `torch.nn.functional.conv2d` in bf16,
-   channels-last, on the unpacked integers (the raw product only), summed
-   over the wave's convs; the port never calls it.
+   uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
+   the reference's fig8 256x2048x256 and 4096x2048x1024, A8 with W8/W4/W2
+   ('raw'); its yardstick is `torch._int_mm` on pre-unpacked int8 where
+   it takes the shape, else (N = 10) `torch.matmul` in float32 on the
+   unpacked integers, exact while |acc| < 2^24. The conv's is
+   `torch.nn.functional.conv2d` in bf16, channels-last, on the unpacked
+   integers, summed over the wave's convs. Each is the raw product only;
+   the port never calls them.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
@@ -65,6 +75,19 @@ WIDTHS = (8, 4, 2)
 BITS = [(a, w) for a in WIDTHS for w in WIDTHS]
 EPILOGUES = ("int", "raw", "dequant")
 BIG_GEMM = (4096, 1152, 64)
+# rows of one block of either GEMM kernel
+TILE_M = 128
+# (M, K, N) of the uniform GEMM's ragged wall: every K of {1, 31, 33, 64,
+# 200, 1000}, N of {1, 10, 17, 100, 128, 200, 384} and M of {1, 64, 100,
+# 4096}; the last two are A8 grids of more 128 x 128 tiles than the card
+# has SMs, which the plan runs at two blocks per SM (16-byte weight rows,
+# then a ragged M and N with 4-byte rows)
+# (tests/test_torch_cuda.py holds the same wall)
+GEMM_WALL = ((1, 1, 1), (64, 31, 10), (100, 33, 17), (4096, 64, 100),
+             (64, 200, 128), (100, 1000, 200), (1, 64, 384),
+             (4096, 1000, 10), (64, 33, 384), (100, 200, 1),
+             (4096, 200, 17), (1, 1000, 128), (4096, 200, 1024),
+             (4100, 1000, 1000))
 # published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W)
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
@@ -144,14 +167,15 @@ class Case:
                                  dtype=torch.int32).to(torch.int8).to(dev)
 
         if kind == "qmatmul":
-            # K zero-padded to a CHUNK multiple, as `qdot` pads it
+            # K zero-padded to a CHUNK multiple, as `qdot` pads it, and
+            # contracted over the real K, as `qdot` calls it
             m, k, n = shape
             self.x = packing.pack(packing.pad_to_chunk(
                 ints(a_bits, False, (m, k)), axis=-1), a_bits)
             cout = n
             self.w = packing.pack(packing.pad_to_chunk(
                 ints(w_bits, True, (k, n)), axis=0), w_bits, axis=0)
-            self.kw = {}
+            self.kw = {"k_logical": k}
         else:
             b, h, w_, cin, cout, f, s, p = shape
             cin_pad = packing.padded_size(cin)
@@ -175,14 +199,33 @@ class Case:
                           dtype=torch.int32).to(dev))
         self.kw.update(a_bits=a_bits, a_signed=False, w_bits=w_bits, d=23,
                        out_bits=a_bits, epilogue=epilogue, scale=0.0123)
+        # the GEMM's launch (a `GemmLaunch`); None: the planned one
+        self.plan = None
+
+    def launches(self):
+        """The GEMM's planned launch, then those the plan did not choose:
+        K unsplit, and at A8 with the 128-wide tile the other register
+        budget."""
+        from repro_torch.kernels.qmatmul import kernel as gk
+        m, k, n = self.shape
+        sms = gk.sm_count(self.x.device)
+        plan = gk.gemm_launch_plan(m, n, k, self.a_bits, sms)
+        out = [plan]
+        if plan.splits > 1:
+            out.append(gk.gemm_launch_plan(m, n, k, self.a_bits, sms,
+                                           splits=1))
+        if self.a_bits == 8 and plan.nt == 128:
+            out.append(gk.gemm_launch_plan(
+                m, n, k, self.a_bits, sms, splits=plan.splits,
+                min_blocks=3 - plan.min_blocks))
+        return out
 
     def kernel(self, stages: int):
         from repro_torch.kernels.qconv import kernel as ck
         from repro_torch.kernels.qmatmul import kernel as gk
         if self.kind == "qmatmul":
-            return gk.qmatmul_packed_cuda(self.x, self.w, *self.vecs,
-                                          pipeline=PIPELINE[stages],
-                                          **self.kw)
+            return gk._launch_packed(self.x, self.w, *self.vecs, self.plan,
+                                     pipeline=PIPELINE[stages], **self.kw)
         return ck.qconv_packed_cuda(self.x, self.w, *self.vecs,
                                     pipeline=PIPELINE[stages], cin=self.cin,
                                     **self.kw)
@@ -388,25 +431,36 @@ def kernel_phase(dev, convs, head, report):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     worst = {(k, s): 0.0 for k in ("qmatmul", "qconv") for s in (1, 2)}
     shapes = ([("qmatmul", head), ("qmatmul", BIG_GEMM)]
+              + [("qmatmul", s) for s in GEMM_WALL]
               + [("qconv", s) for s in dict.fromkeys(s for _, s in convs)]
               + [("qconv", s) for s in WALL_CONVS])
-    n_cmp = 0
+    n_cmp, n_split, n_two = 0, 0, 0
     for kind, shape in shapes:
         for a_bits, w_bits in BITS:
             for epi in EPILOGUES:
                 case = Case(kind, shape, a_bits, w_bits, epi, gen, dev)
                 want = case.plain()
+                # the GEMM at its planned launch and the others
+                plans = case.launches() if kind == "qmatmul" else [None]
                 for stages in (1, 2):
-                    err = max_abs_err(case.kernel(stages), want)
-                    torch.cuda.synchronize()
-                    worst[(kind, stages)] = max(worst[(kind, stages)], err)
-                    n_cmp += 1
-                    if err != 0.0:
-                        raise AssertionError(
-                            f"{kind} STAGES={stages} A{a_bits}W{w_bits} "
-                            f"{epi} at {shape}: max abs err {err}")
-    say("kernels", compared=n_cmp, shapes=len(shapes), all_exact=True)
-    report["kernel_phase"] = {"comparisons": n_cmp,
+                    for plan in plans:
+                        case.plan = plan
+                        err = max_abs_err(case.kernel(stages), want)
+                        torch.cuda.synchronize()
+                        worst[(kind, stages)] = max(worst[(kind, stages)],
+                                                    err)
+                        n_cmp += 1
+                        n_split += plan is not None and plan.splits > 1
+                        n_two += plan is not None and plan.min_blocks == 2
+                        if err != 0.0:
+                            raise AssertionError(
+                                f"{kind} STAGES={stages} A{a_bits}W{w_bits}"
+                                f" {epi} at {shape} {plan}: max abs err "
+                                f"{err}")
+    say("kernels", compared=n_cmp, split_k=n_split, two_blocks_per_sm=n_two,
+        shapes=len(shapes), all_exact=True)
+    report["kernel_phase"] = {"comparisons": n_cmp, "split_k": n_split,
+                              "two_blocks_per_sm": n_two,
                               "shapes": [list(s) for _, s in shapes]}
     return worst
 
@@ -761,6 +815,21 @@ def profile_wave(dev, qnet, images, report, label):
     report.setdefault("profile_wave", {})[label] = row
 
 
+def _device_ms_per_pass(prof, reps: int, names=()) -> float:
+    """Device ms of one of ``reps`` passes from a trace: per kernel name
+    (of those holding one of ``names``; every kernel when empty), its mean
+    duration times its launches per pass (at least one: every kernel in
+    the trace runs in every pass). The trace may miss records (seen on an
+    H100: the first launch of a profiler session); the mean does not
+    depend on how many it holds."""
+    import torch
+    return sum(e.self_device_time_total / e.count
+               * max(1, round(e.count / reps))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (not names or any(n in e.key for n in names))) / 1e3
+
+
 def kernel_device_ms(cases, stages: int, reps: int = 10, tries: int = 3):
     """Device time per pass over ``cases`` from torch.profiler's kernel
     records: the kernel alone, without the host time of its wrapper. A
@@ -775,9 +844,9 @@ def kernel_device_ms(cases, stages: int, reps: int = 10, tries: int = 3):
                 for c in cases:
                     c.kernel(stages)
             torch.cuda.synchronize()
-        us = _device_us(prof, (name,))
-        if us > 0:
-            return us / reps / 1e3
+        ms = _device_ms_per_pass(prof, reps, (name,))
+        if ms > 0:
+            return ms
     return None
 
 
@@ -791,82 +860,142 @@ def library_device_ms(fn, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return _device_us(prof) / reps / 1e3
+    return _device_ms_per_pass(prof, reps)
 
 
-def timing_phase(dev, convs, head, report):
-    """Per-wave times of each kernel at the W8A8 main-path shapes (and
-    W4/W2 into the report), beside the plain version, the bound and, for
-    the conv, the bf16 cuDNN yardstick; plus the MACs the conv kernel
-    contracts per wave against the real ones."""
+def timing_phase(dev, convs, report):
+    """Per-wave times of the conv kernel at the W8A8 main-path shapes (and
+    W4/W2 into the report), beside the plain version, the bound and the
+    bf16 cuDNN yardstick; plus the MACs it contracts per wave against the
+    real ones."""
     import torch
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     rows = {}
     conv_library = None
     for a_bits, w_bits in ((8, 8), (8, 4), (8, 2)):
-        for kind, layers, epi in (("qmatmul", [("head", head)], "raw"),
-                                  ("qconv", convs, "int")):
-            cases = [Case(kind, shape, a_bits, w_bits, epi, gen, dev)
-                     for _, shape in layers]
-            plain = sum(time_ms(c.plain, 1, 5) for c in cases)
-            bounds = [c.bound() for c in cases]
-            bound_ms = sum(max(b) for b in bounds)
-            bytes_ms = sum(b for b, _ in bounds)
-            ops_ms = sum(o for _, o in bounds)
-            extra = {}
-            if kind == "qconv":
-                if conv_library is None:
-                    fns = [c.library() for c in cases]
-                    conv_library = {
-                        "library_ms": sum(time_ms(f, 3, 20) for f in fns),
-                        "library_device_ms": sum(library_device_ms(f)
-                                                 for f in fns)}
-                extra = {**conv_library,
-                         "macs_contracted": sum(c.contracted_macs()
-                                                for c in cases),
-                         "macs_real": sum(c.real_macs() for c in cases)}
-            for stages in (1, 2):
-                ms = sum(time_ms(lambda c=c: c.kernel(stages), 3, 20)
-                         for c in cases)
-                if kind == "qconv" and w_bits == 8:
-                    # where the conv's time goes, layer by layer
-                    extra[f"device_ms_by_layer_s{stages}"] = {
-                        path: kernel_device_ms([c], stages)
-                        for (path, _), c in zip(layers, cases)}
-                rows[(kind, stages, w_bits)] = {
-                    "ms": ms, "device_ms": kernel_device_ms(cases, stages),
-                    "plain_ms": plain, "bound_ms": bound_ms,
-                    "bound_by": ("bytes" if bytes_ms >= ops_ms
-                                 else "operations"),
-                    "calls_per_wave": len(cases), **extra}
-    # torch._int_mm on pre-unpacked int8 computes the raw GEMM; it takes
-    # the larger GEMM (the head's N = 10 is not a multiple of 8)
-    m, k, n = BIG_GEMM
-    big = Case("qmatmul", BIG_GEMM, 8, 8, "raw", gen, dev)
-    xu = torch.randint(-127, 128, (m, k), generator=gen,
-                       dtype=torch.int32).to(torch.int8).to(dev)
-    wu = torch.randint(-127, 128, (k, n), generator=gen,
-                       dtype=torch.int32).to(torch.int8).to(dev)
-    big_times = {"int_mm_ms": time_ms(lambda: torch._int_mm(xu, wu), 3, 20),
-                 "kernel_s1_ms": time_ms(lambda: big.kernel(1), 3, 20),
-                 "kernel_s2_ms": time_ms(lambda: big.kernel(2), 3, 20),
-                 "plain_ms": time_ms(big.plain, 1, 5),
-                 "bound_ms": max(big.bound())}
-    say("time", big_gemm="x".join(map(str, BIG_GEMM)),
-        **{k: round(v, 4) for k, v in big_times.items()})
-    report["timing"] = {f"{k}_s{s}_W{w}": v for (k, s, w), v in rows.items()}
-    report["big_gemm_a8w8_raw"] = big_times
-    for (kind, stages, w_bits), r in rows.items():
-        say("time", kernel=kind, stages=stages, a_bits=8, w_bits=w_bits,
+        cases = [Case("qconv", shape, a_bits, w_bits, "int", gen, dev)
+                 for _, shape in convs]
+        plain = sum(time_ms(c.plain, 1, 5) for c in cases)
+        bounds = [c.bound() for c in cases]
+        bytes_ms = sum(b for b, _ in bounds)
+        ops_ms = sum(o for _, o in bounds)
+        if conv_library is None:
+            fns = [c.library() for c in cases]
+            conv_library = {
+                "library_ms": sum(time_ms(f, 3, 20) for f in fns),
+                "library_device_ms": sum(library_device_ms(f) for f in fns)}
+        extra = {**conv_library,
+                 "macs_contracted": sum(c.contracted_macs() for c in cases),
+                 "macs_real": sum(c.real_macs() for c in cases)}
+        for stages in (1, 2):
+            ms = sum(time_ms(lambda c=c: c.kernel(stages), 3, 20)
+                     for c in cases)
+            if w_bits == 8:
+                # where the conv's time goes, layer by layer
+                extra[f"device_ms_by_layer_s{stages}"] = {
+                    path: kernel_device_ms([c], stages)
+                    for (path, _), c in zip(convs, cases)}
+            rows[(stages, w_bits)] = {
+                "ms": ms, "device_ms": kernel_device_ms(cases, stages),
+                "plain_ms": plain, "bound_ms": sum(max(b) for b in bounds),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "calls_per_wave": len(cases), **extra}
+    report["timing"] = {f"qconv_s{s}_W{w}": v for (s, w), v in rows.items()}
+    for (stages, w_bits), r in rows.items():
+        say("time", kernel="qconv", stages=stages, a_bits=8, w_bits=w_bits,
             ms_per_wave=round(r["ms"], 4), device_ms=r["device_ms"],
             plain_ms=round(r["plain_ms"], 4),
             bound_ms=round(r["bound_ms"], 5), calls=r["calls_per_wave"],
             **{k: r[k] for k in ("library_ms", "library_device_ms",
-                                 "macs_contracted", "macs_real") if k in r})
-        if f"device_ms_by_layer_s{stages}" in r:
-            say("time", kernel=kind, stages=stages, a_bits=8, w_bits=w_bits,
-                device_ms_by_layer=json.dumps(
-                    r[f"device_ms_by_layer_s{stages}"]))
+                                 "macs_contracted", "macs_real")})
+        say("time", kernel="qconv", stages=stages, a_bits=8, w_bits=w_bits,
+            device_ms_by_layer=json.dumps(
+                r.get(f"device_ms_by_layer_s{stages}")))
+    return rows
+
+
+def gemm_shapes(head):
+    """(label, (M, K, N)) of the uniform GEMM's timed shapes: the two
+    heads at a wave (the main paths' calls), 4096x1152x64, the
+    reference's fig8 256x2048x256 and 4096x2048x1024."""
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import trace_shapes
+    qat = [t for t in trace_shapes(get_vision_config("qat-cnn"))
+           if t["layer"].kind == "linear"][0]
+    return (("resnet8 head", head),
+            ("qat-cnn head", (WAVE, qat["in"][-1], qat["layer"].cout)),
+            ("big", BIG_GEMM), ("fig8", (256, 2048, 256)),
+            ("big2", (4096, 2048, 1024)))
+
+
+def gemm_library(shape, gen, dev):
+    """(name, closure) of one PyTorch call computing the GEMM's raw
+    product on pre-unpacked operands: `torch._int_mm` where it takes the
+    shape (M > 16, K and N multiples of 8), else `torch.matmul` in
+    float32, exact while |acc| < 2^24 (127 x 127 x K at these K)."""
+    import torch
+    m, k, n = shape
+    xu = torch.randint(0, 128, (m, k), generator=gen,
+                       dtype=torch.int32).to(torch.int8).to(dev)
+    wu = torch.randint(-128, 128, (k, n), generator=gen,
+                       dtype=torch.int32).to(torch.int8).to(dev)
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        return "torch._int_mm", lambda: torch._int_mm(xu, wu)
+    if 127 * 128 * k >= 2 ** 24:
+        raise ValueError(f"float32 GEMM of K={k} is not exact")
+    xf, wf = xu.float(), wu.float()
+    return "torch.matmul f32", lambda: torch.matmul(xf, wf)
+
+
+def gemm_timing_phase(dev, head, report):
+    """The uniform GEMM at A8 x W8/W4/W2, 'raw', both STAGES: ms with its
+    wrapper (CUDA events) and device ms of the kernel alone, its launch
+    plan, beside the plain version, the bound and the library's device
+    time; then the device ms of each launch the plan did not choose
+    (`Case.launches`: K unsplit, the other register budget)."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    rows = {}
+    for label, shape in gemm_shapes(head):
+        m, k, n = shape
+        lib_name, lib = gemm_library(shape, gen, dev)
+        library = {"library": lib_name, "library_ms": time_ms(lib, 3, 20),
+                   "library_device_ms": library_device_ms(lib)}
+        for w_bits in WIDTHS:
+            case = Case("qmatmul", shape, 8, w_bits, "raw", gen, dev)
+            bytes_ms, ops_ms = case.bound()
+            row = {"shape": list(shape), "a_bits": 8, "w_bits": w_bits,
+                   "plain_ms": time_ms(case.plain, 1, 5),
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations", **library}
+            plan, *others = case.launches()
+            row["plan"] = vars(plan)
+            for stages in (1, 2):
+                row[f"ms_s{stages}"] = time_ms(lambda: case.kernel(stages),
+                                               3, 20)
+                row[f"device_ms_s{stages}"] = kernel_device_ms([case],
+                                                               stages)
+            for other in others:
+                case.plan = other
+                row["other_launch " + json.dumps(
+                    {"splits": other.splits,
+                     "min_blocks": other.min_blocks})] = {
+                    f"device_ms_s{stages}": kernel_device_ms([case], stages)
+                    for stages in (1, 2)}
+                case.plan = None
+            rows[(label, w_bits)] = row
+            what = label + " " + "x".join(map(str, shape))
+            say("time", kernel="qmatmul", shape=what, **{
+                k_: (round(v, 6) if isinstance(v, float) else v)
+                for k_, v in row.items() if k_ not in ("shape", "plan")
+                and not k_.startswith("other_launch")},
+                plan=json.dumps(row.get("plan")))
+            for k_, v in row.items():
+                if k_.startswith("other_launch"):
+                    say("time", kernel="qmatmul", shape=what, w_bits=w_bits,
+                        launch=k_.split(" ", 1)[1], **v)
+    report["timing_gemm"] = {f"{lb} W{w}": r for (lb, w), r in rows.items()}
     return rows
 
 
@@ -894,7 +1023,7 @@ def segmented_timing_phase(dev, report):
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "k_splits": gk.k_splits(
-                   -(-m // gk.SEGMENTED_TILE_M) * (case.segmap.n // 128),
+                   -(-m // TILE_M) * (case.segmap.n // 128),
                    -(-k // 128), gk.sm_count(dev))}
         for stages in (1, 2):
             row[f"ms_s{stages}"] = time_ms(lambda: case.kernel(stages), 3, 20)
@@ -908,6 +1037,13 @@ def segmented_timing_phase(dev, report):
                                       if k not in ("shape", "runs")})
     report["timing_segmented"] = rows
     return rows
+
+
+def write_report(report, name: str):
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"{name}.json").write_text(json.dumps(report, indent=1,
+                                                 default=str))
 
 
 def main() -> int:
@@ -934,7 +1070,7 @@ def main() -> int:
     kernels_all = kernels_by_name()
     build_s = build_all(list(kernels_all.values()))
     say("build", seconds=round(build_s, 1), arch="sm_90a",
-        sources="src/repro_torch/csrc/{qmatmul,qconv,qmatmul_segmented}.cu")
+        sources=",".join(f"{k}.cu" for k in kernels_all))
     report["build_s"] = build_s
     report["ptxas"] = ptxas_report(kernels_all)
 
@@ -945,7 +1081,8 @@ def main() -> int:
                   segmented_kernel_phase(dev, report).items()})
     by_path = {"resnet8": main_path(dev, cfg, report),
                "qat-cnn": qat_cnn_path(dev, report)}
-    rows = timing_phase(dev, convs, head, report)
+    gemm_rows = gemm_timing_phase(dev, head, report)
+    conv_rows = timing_phase(dev, convs, report)
     seg_rows = segmented_timing_phase(dev, report)
 
     kernels = []
@@ -954,13 +1091,19 @@ def main() -> int:
             if kind == "qmatmul_segmented":
                 r = seg_rows["c3"]
                 timed = {"shape": r["shape"], "ms": r[f"ms_s{stages}"],
+                         "device_ms": r[f"device_ms_s{stages}"]}
+            elif kind == "qmatmul":
+                r = gemm_rows[("resnet8 head", 8)]
+                timed = {"shape": "resnet8 head at a wave of 64, "
+                                  f"{'x'.join(map(str, head))}, W8A8",
+                         "ms": r[f"ms_s{stages}"],
                          "device_ms": r[f"device_ms_s{stages}"],
-                         "library_ms": r["library_ms"]}
+                         "library_device_ms": r["library_device_ms"]}
             else:
-                r = rows[(kind, stages, 8)]
+                r = conv_rows[(stages, 8)]
                 timed = {"shape": "resnet8 wave of 64, W8A8",
                          "ms": r["ms"], "device_ms": r["device_ms"],
-                         "library_ms": r.get("library_ms")}
+                         "library_device_ms": r["library_device_ms"]}
             kernels.append({
                 "name": f"{kind}[STAGES={stages}]", "route": "cuda",
                 "source": f"src/repro_torch/csrc/{kind}.cu",
@@ -969,16 +1112,11 @@ def main() -> int:
                 "launches_by_path": {p: c[kind][stages]
                                      for p, c in by_path.items()},
                 "max_abs_err": worst[(kind, stages)],
-                "ms": timed["ms"], "device_ms": timed["device_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],
-                "library_ms": timed["library_ms"],
-                "shape": timed["shape"]})
+                "library_ms": r["library_ms"], **timed})
     report["kernels"] = kernels
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1,
-                                                    default=str))
+    write_report(report, "chip_smoke")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

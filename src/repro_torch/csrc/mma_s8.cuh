@@ -1,4 +1,4 @@
-// Tensor-core mainloop of the redesigned integer kernels (qconv.cu,
+// Tensor-core mainloop of the integer kernels (qmatmul.cu, qconv.cu,
 // qmatmul_segmented.cu): int8 x int8 -> int32 on Hopper's wgmma.
 //
 // One block of 256 threads (two warpgroups) owns TILE_M = 128 output rows
@@ -7,9 +7,10 @@
 // keeps its m64 x NT int32 accumulators in registers across the K loop.
 //
 // K advances one *stage* at a time, at most KS logical values (the
-// conv's 192, or 128 at NT = 256; the GEMM's 128). What a stage holds is
+// conv's 192, or 128 at NT = 256; the GEMMs' 128). What a stage holds is
 // the caller's (`Src`): the conv gathers taps x real channels through the
-// wrapper's stage plan, the GEMM one CHUNK of its real K. Per stage:
+// wrapper's stage plan, both GEMMs (`GemmSrc`) one CHUNK of their real K.
+// Per stage:
 //   1. `Src::issue` copies the packed bytes the stage needs, global ->
 //      shared, with cp.async into one slot of a STAGES-slot ring
 //      (STAGES == 2: stage s+1's copy is in flight while stage s is
@@ -32,6 +33,8 @@
 // signed activations) or zero-extend, as in common.cuh. K past a stage's
 // real K meets zero weights (zeroed here, or the artifact's padding).
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -491,6 +494,176 @@ __device__ __forceinline__ void unpack_cols16(const int8_t* ring, int nseg,
       }
     }
   }
+}
+
+// The K stages of a packed GEMM over chunk-planar operands, one CHUNK of
+// logical K per stage, for a block whose first output row is m0: x is
+// (M, K_pad/pf_a) row-major with ldx bytes a row; w points at the block's
+// first weight column of a row-major (K_pad/pf_w, ldw) packed matrix, of
+// which the block takes `ncols` <= NT real columns (the rest load as
+// zeros). The uniform artifact is {w + n0, N, min(NT, N - n0)}, a
+// segmented panel {panel, 128, 128}. The weight rows past k_logical are
+// the artifact's zero padding (K_pad is a CHUNK multiple).
+template <int A_BITS, int W_BITS, int NT>
+struct GemmSrc {
+  static constexpr int SUB_A = CHUNK / (8 / A_BITS);
+  static constexpr int SUB_W = CHUNK / (8 / W_BITS);
+  static constexpr int RING_ROW = ring_row<CHUNK>();
+  const int8_t* x;
+  const int8_t* w;
+  long long ldx;  // packed bytes per x row
+  int ldw;        // packed bytes per weight row
+  int ncols;      // real columns of the block
+  int M, m0, k_logical;
+  bool a_signed;
+
+  // the stage's K: its real K rounded up to the MMA's 32
+  __device__ int kstage(int s) const {
+    const int kr = min(CHUNK, k_logical - s * CHUNK);
+    return (kr + MMA_K - 1) / MMA_K * MMA_K;
+  }
+
+  // In a chunk-planar chunk logical k sits in byte k % SUB, field k / SUB,
+  // so a stage of ks values needs min(ks, SUB) bytes of each x row and as
+  // many weight rows. 8-bit activations are their own int8 values in K
+  // order: their 16-byte vectors go straight into the slot's A tile;
+  // narrower ones through the activation ring and unpack_rows16.
+  __device__ void issue(int s, const Slot& slot) const {
+    const int ks = kstage(s);
+    const int per_row = min(ks, SUB_A) / 16;  // 16-byte vectors
+    for (int v = threadIdx.x; v < TILE_M * per_row; v += THREADS) {
+      const int r = v % TILE_M, u = v / TILE_M;
+      const int m = m0 + r;
+      const int8_t* src = m < M ? x + m * ldx + s * SUB_A + u * 16 : x;
+      cp_async16(A_BITS == 8 ? slot.a_tile + core_offset(r, u * 16, TILE_M)
+                             : slot.a_ring + r * RING_ROW + u * 16,
+                 src, m < M ? 16 : 0);
+    }
+    // weight rows -> ring rows of NT bytes
+    const int rows = min(ks, SUB_W);
+    const int8_t* w0 = w + static_cast<long long>(s) * SUB_W * ldw;
+    if (ldw % 16 == 0) {
+      copy_rows<16>(w0, rows, slot.w_ring);
+    } else if (ldw % 4 == 0) {
+      copy_rows<4>(w0, rows, slot.w_ring);
+    } else {
+      // rows of a ragged N (the heads' 10) are not 4-byte aligned: plain
+      // loads
+      for (int v = threadIdx.x; v < rows * NT; v += THREADS) {
+        const int j = v / NT, col = v % NT;
+        slot.w_ring[j * NT + col] =
+            col < ncols ? w0[static_cast<long long>(j) * ldw + col] : 0;
+      }
+    }
+  }
+
+  // `rows` weight rows from w0 into ring rows of NT bytes, in cp.async
+  // copies of BYTES (16, or 4 where the row stride allows no more),
+  // zero-filling the columns past ncols. THREADS is a multiple of the
+  // copies per row, so a thread keeps one column for the whole stage and
+  // walks down the rows.
+  template <int BYTES>
+  __device__ void copy_rows(const int8_t* w0, int rows, int8_t* ring) const {
+    constexpr int PER_ROW = NT / BYTES, STEP = THREADS / PER_ROW;
+    static_assert(THREADS % PER_ROW == 0, "a thread keeps one column");
+    const int col = (threadIdx.x % PER_ROW) * BYTES;
+    const int valid = min(max(ncols - col, 0), BYTES);
+    int j = threadIdx.x / PER_ROW;
+    const int8_t* src = w0 + static_cast<long long>(j) * ldw + col;
+    const long long step = static_cast<long long>(STEP) * ldw;
+    for (; j < rows; j += STEP, src += step) {
+      if constexpr (BYTES == 16)
+        cp_async16(ring + j * NT + col, valid ? src : w, valid);
+      else
+        cp_async4(ring + j * NT + col, valid ? src : w, valid);
+    }
+  }
+
+  __device__ int unpack(int s, const Slot& slot, int8_t* b_tile) const {
+    const int ks = kstage(s);
+    if (A_BITS != 8)
+      unpack_rows16<A_BITS, TILE_M, CHUNK>(slot.a_ring, 1, ks, 0, a_signed,
+                                           slot.a_tile);
+    unpack_cols16<W_BITS, NT>(slot.w_ring, 1, ks, min(ks, SUB_W), b_tile);
+    return ks;
+  }
+};
+
+// At most this many blocks share one output tile's K: a portable thread
+// block cluster.
+constexpr int MAX_SPLITS = 8;
+
+// K split across the gridDim.z blocks of one output tile, launched as one
+// thread block cluster along z (`launch_split`): each block stores its
+// partial sums into its own shared memory (`buf`, TILE_M x NT int32; the
+// mainloop's tiles are free by now), the cluster syncs, and block r adds
+// up its share of the tile's rows from every block's buffer through
+// distributed shared memory, handing each pair of adjacent columns to
+// st(row, col, v0, v1) (col even). The sums wrap in int32 as the
+// accumulators do; integer sums are exact in any order.
+template <int NT, class Store>
+__device__ __forceinline__ void cluster_split_reduce(int (&acc)[NT / 2],
+                                                     int* buf, Store st) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  for_each_pair<NT>(acc, [&](int row, int col, int v0, int v1) {
+    *reinterpret_cast<int2*>(buf + row * NT + col) = make_int2(v0, v1);
+  });
+  cluster.sync();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int* peer[MAX_SPLITS];
+#pragma unroll
+  for (int b = 0; b < MAX_SPLITS; ++b)
+    peer[b] = b < splits ? cluster.map_shared_rank(buf, b) : buf;
+  const int rows = (TILE_M + splits - 1) / splits;
+  const int r0 = static_cast<int>(cluster.block_rank()) * rows;
+  const int r1 = min(TILE_M, r0 + rows);
+  for (int v = threadIdx.x; v < (r1 - r0) * (NT / 2); v += THREADS) {
+    const int row = r0 + v / (NT / 2), col = (v % (NT / 2)) * 2;
+    uint32_t s0 = 0, s1 = 0;
+#pragma unroll
+    for (int b = 0; b < MAX_SPLITS; ++b) {
+      if (b < splits) {
+        const int2 p = *reinterpret_cast<const int2*>(peer[b] + row * NT +
+                                                      col);
+        s0 += static_cast<uint32_t>(p.x);
+        s1 += static_cast<uint32_t>(p.y);
+      }
+    }
+    st(row, col, static_cast<int>(s0), static_cast<int>(s1));
+  }
+  cluster.sync();  // no block leaves while another reads its buffer
+}
+
+// Launches `kernel` on `grid` with THREADS threads and `bytes` of dynamic
+// shared memory; grid.z > 1 (a K split) makes the grid.z blocks of each
+// output tile one thread block cluster, for `cluster_split_reduce`.
+template <class... Params, class... Args>
+cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int bytes,
+                         cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = grid.z;
+  cfg.attrs = cluster;
+  cfg.numAttrs = grid.z > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Dynamic shared memory of a launch whose stages per block are
+// `stages_per_block`: the mainloop's, or a K split's partial-sum buffer
+// where that is larger.
+template <int NT, int STAGES, int KS>
+__host__ int split_bytes(int stages_per_block, bool a_ring, int splits) {
+  const int bytes = Smem<NT, STAGES, KS>::bytes(0, stages_per_block, a_ring);
+  const int partial = TILE_M * NT * 4;
+  return splits > 1 && partial > bytes ? partial : bytes;
 }
 
 template <int NT, int STAGES, int KS, class Kernel>

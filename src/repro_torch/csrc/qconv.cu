@@ -11,7 +11,7 @@
 //   the artifact's layout, each tap's channels padded to cin_pad.
 //
 // What bounded it on the H100: contracting every tap's channels padded
-// to CHUNK = 128 (22x the real MACs at ResNet-8 widths) on __dp4a, and
+// to CHUNK = 128 (22x the real MACs at ResNet-8 widths) on dp4a, and
 // re-gathering each pixel once per 64-wide Cout panel. What the design
 // does about it:
 //   * K covers the real channels only. The logical K of the conv is the

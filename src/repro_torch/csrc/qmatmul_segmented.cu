@@ -13,7 +13,7 @@
 //   at byte offsets[p]; codes[p] indexes the width table. kappa/lam/m:
 //   (N,) int32, one shift d for every run.
 //
-// What bounded it on the H100: the int8 math on __dp4a (the library's
+// What bounded it on the H100: the int8 math on dp4a (the library's
 // tensor-core GEMM was 1.8x faster at qat-cnn's c3), K padded to a CHUNK
 // multiple (288 -> 384 at c3), and each block re-reading its x rows for
 // each 64-column half of a panel. What the design does about it:
@@ -25,10 +25,10 @@
 //     the bytes of the chunk that hold that K (min(K, CHUNK/pf) of them)
 //     and the weight rows that do, and contracts ceil(rem / 32) * 32;
 //   * where rows x panels give fewer blocks than the card has SMs (fig8:
-//     256 rows), the wrapper splits K across blocks: each adds its int32
-//     partial sums into a zeroed workspace with atomics (integer sums are
-//     exact in any order), and the last block of a tile to finish applies
-//     the epilogue;
+//     256 rows), the wrapper splits K across up to 8 blocks, one thread
+//     block cluster per tile, which add up their int32 partial sums
+//     through distributed shared memory (integer sums are exact in any
+//     order), each applying the epilogue to a share of the tile's rows;
 //   * the width is uniform over a panel, so a block reads its panel's
 //     (code, offset) descriptor once and branches once into the whole K
 //     loop instantiated for that width.
@@ -42,92 +42,14 @@ using rq::tc::THREADS;
 using rq::tc::TILE_M;
 constexpr int NT = rq::CHUNK;       // one whole panel per block
 constexpr int STAGE_K = rq::CHUNK;  // one chunk of K per stage
-constexpr int RING_ROW = rq::tc::ring_row<STAGE_K>();
 
 struct WidthTable {
   int bits[3];  // width of code c, widest first (SegmentMap.widths())
 };
 
+// The K stages of panel `pw` (rows of 128 bytes) at width W_BITS.
 template <int A_BITS, int W_BITS>
-struct PanelSrc {
-  static constexpr int SUB_A = rq::CHUNK / (8 / A_BITS);
-  static constexpr int SUB_W = rq::CHUNK / (8 / W_BITS);
-  const int8_t* x;
-  const int8_t* panel;  // the block's panel, rows of 128 bytes
-  long long ldx;        // packed bytes per x row
-  int M, m0, k_logical;
-  bool a_signed;
-
-  // the stage's K: its real K rounded up to the MMA's 32; past the real K
-  // the panel's packed rows are the artifact's zero padding
-  __device__ int kstage(int s) const {
-    const int kr = min(STAGE_K, k_logical - s * STAGE_K);
-    return (kr + rq::tc::MMA_K - 1) / rq::tc::MMA_K * rq::tc::MMA_K;
-  }
-
-  // 8-bit activations are their own int8 values in K order: their 16-byte
-  // vectors go straight into the slot's A tile; narrower ones through the
-  // activation ring and unpack_rows16
-  __device__ void issue(int s, const rq::tc::Slot& slot) const {
-    const int ks = kstage(s);
-    const int per_row = min(ks, SUB_A) / 16;  // 16-byte vectors
-    for (int v = threadIdx.x; v < TILE_M * per_row; v += THREADS) {
-      const int r = v % TILE_M, u = v / TILE_M;
-      const int m = m0 + r;
-      const int8_t* src = m < M ? x + m * ldx + s * SUB_A + u * 16 : x;
-      rq::cp_async16(A_BITS == 8 ? slot.a_tile + rq::tc::core_offset(
-                                                     r, u * 16, TILE_M)
-                                 : slot.a_ring + r * RING_ROW + u * 16,
-                     src, m < M ? 16 : 0);
-    }
-    const int rows = min(ks, SUB_W);
-    const int8_t* w0 = panel + static_cast<long long>(s) * SUB_W * NT;
-    for (int v = threadIdx.x; v < rows * (NT / 16); v += THREADS)
-      rq::cp_async16(slot.w_ring + v * 16, w0 + v * 16, 16);
-  }
-
-  // logical k of the stage sits in byte k % SUB, field k / SUB
-  __device__ int unpack(int s, const rq::tc::Slot& slot,
-                        int8_t* b_tile) const {
-    const int ks = kstage(s);
-    if (A_BITS != 8)
-      rq::tc::unpack_rows16<A_BITS, TILE_M, STAGE_K>(slot.a_ring, 1, ks, 0,
-                                                      a_signed,
-                                             slot.a_tile);
-    rq::tc::unpack_cols16<W_BITS, NT>(slot.w_ring, 1, ks, min(ks, SUB_W),
-                                      b_tile);
-    return ks;
-  }
-};
-
-// K split across the gridDim.z blocks of one output tile: each adds its
-// partial sums into the zeroed int32 `workspace` (integer sums are exact
-// in any order) and counts itself in arrivals[tile]; the block that
-// arrives last reads the totals back into `acc` and returns true, the
-// others return false. index(row, col): the workspace index of an
-// accumulator, or -1 outside the output.
-template <class Index>
-__device__ __forceinline__ bool split_k_reduce(int (&acc)[NT / 2],
-                                               int* workspace, int* arrivals,
-                                               int tile, Index index) {
-  rq::tc::for_each_accumulator<NT>(acc, [&](int row, int col, int& v) {
-    const long long i = index(row, col);
-    if (i >= 0) atomicAdd(workspace + i, v);
-  });
-  __threadfence();
-  __syncthreads();
-  __shared__ int last;
-  if (threadIdx.x == 0)
-    last = atomicAdd(arrivals + tile, 1) == static_cast<int>(gridDim.z) - 1;
-  __syncthreads();
-  if (!last) return false;
-  __threadfence();
-  rq::tc::for_each_accumulator<NT>(acc, [&](int row, int col, int& v) {
-    const long long i = index(row, col);
-    if (i >= 0) v = __ldcg(workspace + i);
-  });
-  return true;
-}
+using PanelSrc = rq::tc::GemmSrc<A_BITS, W_BITS, NT>;
 
 // MIN_BLOCKS: resident blocks per SM the registers are budgeted for (see
 // `launch`).
@@ -138,10 +60,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                              const int* __restrict__ codes,
                              const int* __restrict__ offsets,
                              WidthTable widths, void* __restrict__ out,
-                             int* __restrict__ workspace,
-                             int* __restrict__ arrivals, int M, int N,
-                             int k_pad, int k_logical, int a_signed,
-                             rq::EpilogueArgs epi) {
+                             int M, int N, int k_pad, int k_logical,
+                             int a_signed, rq::EpilogueArgs epi) {
   extern __shared__ __align__(128) int8_t smem[];
   __shared__ rq::tc::ColumnParams<NT> cols;
   const int panel = blockIdx.y;
@@ -163,98 +83,95 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   // one branch per block: the width is uniform over the panel
   if (w_bits == 8)
     rq::tc::mainloop<NT, STAGES, STAGE_K>(
-        PanelSrc<A_BITS, 8>{x, pw, ldx, M, m0, k_logical, a_signed != 0},
+        PanelSrc<A_BITS, 8>{x, pw, ldx, NT, NT, M, m0, k_logical,
+                            a_signed != 0},
         s_begin, s_end, smem, ring, A_BITS != 8, acc);
   else if (w_bits == 4)
     rq::tc::mainloop<NT, STAGES, STAGE_K>(
-        PanelSrc<A_BITS, 4>{x, pw, ldx, M, m0, k_logical, a_signed != 0},
+        PanelSrc<A_BITS, 4>{x, pw, ldx, NT, NT, M, m0, k_logical,
+                            a_signed != 0},
         s_begin, s_end, smem, ring, A_BITS != 8, acc);
   else
     rq::tc::mainloop<NT, STAGES, STAGE_K>(
-        PanelSrc<A_BITS, 2>{x, pw, ldx, M, m0, k_logical, a_signed != 0},
+        PanelSrc<A_BITS, 2>{x, pw, ldx, NT, NT, M, m0, k_logical,
+                            a_signed != 0},
         s_begin, s_end, smem, ring, A_BITS != 8, acc);
   rq::cp_async_wait<0>();  // the epilogue's columns, with no stage run
   __syncthreads();
-  if (gridDim.z > 1 &&
-      !split_k_reduce(
-          acc, workspace, arrivals, blockIdx.x * gridDim.y + blockIdx.y,
-          [&](int row, int col) {
-            return m0 + row < M
-                       ? static_cast<long long>(m0 + row) * N + n0 + col
-                       : -1LL;
-          }))
-    return;
-  rq::tc::for_each_pair<NT>(acc, [&](int row, int col, int v0, int v1) {
+  const auto store = [&](int row, int col, int v0, int v1) {
     if (m0 + row < M)
       cols.store2(out, static_cast<long long>(m0 + row) * N + n0 + col, v0,
                   v1, col, NT, epi);
-  });
+  };
+  if (gridDim.z > 1)
+    rq::tc::cluster_split_reduce<NT>(acc, reinterpret_cast<int*>(smem),
+                                     store);
+  else
+    rq::tc::for_each_pair<NT>(acc, store);
 }
 
 template <int A_BITS, int STAGES, int MIN_BLOCKS>
 cudaError_t launch_blocks(const int8_t* x, const int8_t* w, const int* codes,
                           const int* offsets, const WidthTable& widths,
-                          void* out, int* workspace, int* arrivals,
-                          int splits, int M, int N, int k_pad, int k_logical,
-                          int a_signed, const rq::EpilogueArgs& epi,
-                          cudaStream_t stream) {
+                          void* out, int splits, int M, int N, int k_pad,
+                          int k_logical, int a_signed,
+                          const rq::EpilogueArgs& epi, cudaStream_t stream) {
   auto kernel = qmatmul_segmented_kernel<A_BITS, STAGES, MIN_BLOCKS>;
   static const cudaError_t attr =
       rq::tc::set_smem<NT, STAGES, STAGE_K>(kernel);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((M + TILE_M - 1) / TILE_M, N / NT, splits);
   const int nstages = (k_logical + STAGE_K - 1) / STAGE_K;
-  const int bytes = rq::tc::Smem<NT, STAGES, STAGE_K>::bytes(
-      0, (nstages + splits - 1) / splits, A_BITS != 8);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      x, w, codes, offsets, widths, out, workspace, arrivals, M, N, k_pad,
-      k_logical, a_signed, epi);
-  return cudaSuccess;
+  const int bytes = rq::tc::split_bytes<NT, STAGES, STAGE_K>(
+      (nstages + splits - 1) / splits, A_BITS != 8, splits);
+  return rq::tc::launch_split(kernel, grid, bytes, stream, x, w, codes,
+                              offsets, widths, out, M, N, k_pad, k_logical,
+                              a_signed, epi);
 }
 
-// Registers for two resident blocks per SM (128 a thread, a few spilled)
-// pay off where the grid is wider than the card and a second block hides
-// the first's stage latency (qat-cnn's c3: 196 blocks; H100 measurements
-// in PERF.md); a split-K grid is narrow and latency-bound, and keeps every
+// Registers for two resident blocks per SM (128 a thread) pay off where
+// the grid is wider than the card and a second block hides the first's
+// stage latency (qat-cnn's c3: 196 blocks; H100 measurements in
+// PERF.md); a split-K grid is narrow and latency-bound, and keeps every
 // register (one block per SM). Sub-byte activations need the activation
 // ring, whose shared memory leaves room for one block only.
 template <int A_BITS, int STAGES>
 cudaError_t launch(const int8_t* x, const int8_t* w, const int* codes,
                    const int* offsets, const WidthTable& widths, void* out,
-                   int* workspace, int* arrivals, int splits, int M, int N,
-                   int k_pad, int k_logical, int a_signed,
-                   const rq::EpilogueArgs& epi, cudaStream_t stream) {
+                   int splits, int M, int N, int k_pad, int k_logical,
+                   int a_signed, const rq::EpilogueArgs& epi,
+                   cudaStream_t stream) {
   if constexpr (A_BITS == 8) {
     if (splits == 1)
-      return launch_blocks<A_BITS, STAGES, 2>(
-          x, w, codes, offsets, widths, out, workspace, arrivals, splits, M,
-          N, k_pad, k_logical, a_signed, epi, stream);
+      return launch_blocks<A_BITS, STAGES, 2>(x, w, codes, offsets, widths,
+                                              out, splits, M, N, k_pad,
+                                              k_logical, a_signed, epi,
+                                              stream);
   }
-  return launch_blocks<A_BITS, STAGES, 1>(
-      x, w, codes, offsets, widths, out, workspace, arrivals, splits, M, N,
-      k_pad, k_logical, a_signed, epi, stream);
+  return launch_blocks<A_BITS, STAGES, 1>(x, w, codes, offsets, widths, out,
+                                          splits, M, N, k_pad, k_logical,
+                                          a_signed, epi, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success); an
-// unsupported a_bits, stages, width or shape returns cudaErrorInvalidValue.
-// splits > 1 splits K across blocks; it needs `workspace` (M x N int32)
-// and `arrivals` (one int32 per 128 x 128 tile), both zeroed.
+// Returns the launch's error, else cudaGetLastError() after it (0 on
+// success); an unsupported a_bits, stages, width or shape returns
+// cudaErrorInvalidValue. splits in [1, 8] blocks share each tile's K
+// stages.
 extern "C" int qmatmul_segmented_launch(
     const void* x, const void* w_flat, const void* codes,
     const void* offsets, int w0, int w1, int w2, const void* kappa,
     const void* lam, const void* mmul, const void* scale_vec, float scale,
-    void* out, void* workspace, void* arrivals, int splits, int M, int N,
-    int k_pad, int k_logical, int a_bits, int a_signed, int d, int hi,
-    int epilogue, int stages, void* stream) {
+    void* out, int splits, int M, int N, int k_pad, int k_logical,
+    int a_bits, int a_signed, int d, int hi, int epilogue, int stages,
+    void* stream) {
   const WidthTable widths{{w0, w1, w2}};
   for (int c = 0; c < 3; ++c)
     if (widths.bits[c] != 8 && widths.bits[c] != 4 && widths.bits[c] != 2)
       return static_cast<int>(cudaErrorInvalidValue);
   if (N % NT != 0 || k_pad % rq::CHUNK != 0 || k_logical <= 0 ||
-      k_logical > k_pad || splits < 1 ||
-      (splits > 1 && (workspace == nullptr || arrivals == nullptr)))
+      k_logical > k_pad || splits < 1 || splits > rq::tc::MAX_SPLITS)
     return static_cast<int>(cudaErrorInvalidValue);
   const rq::EpilogueArgs epi{static_cast<const int*>(kappa),
                              static_cast<const int*>(lam),
@@ -265,14 +182,12 @@ extern "C" int qmatmul_segmented_launch(
   const auto* wp = static_cast<const int8_t*>(w_flat);
   const auto* cp = static_cast<const int*>(codes);
   const auto* op = static_cast<const int*>(offsets);
-  auto* ws = static_cast<int*>(workspace);
-  auto* ar = static_cast<int*>(arrivals);
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
 #define RQ_DISPATCH(A, S)                                                  \
   if (a_bits == A && stages == S)                                          \
-    err = launch<A, S>(xp, wp, cp, op, widths, out, ws, ar, splits, M, N,  \
-                       k_pad, k_logical, a_signed, epi, s);
+    err = launch<A, S>(xp, wp, cp, op, widths, out, splits, M, N, k_pad, \
+                       k_logical, a_signed, epi, s);
   RQ_DISPATCH(8, 1) RQ_DISPATCH(4, 1) RQ_DISPATCH(2, 1)
   RQ_DISPATCH(8, 2) RQ_DISPATCH(4, 2) RQ_DISPATCH(2, 2)
 #undef RQ_DISPATCH

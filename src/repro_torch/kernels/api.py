@@ -79,7 +79,8 @@ def qdot_packed(params, x_packed: torch.Tensor, *, epilogue: str = "int",
         x_packed, params.w_packed, params.kappa, params.lam, params.m,
         a_bits=params.a_bits, a_signed=params.a_signed,
         w_bits=params.w_bits, d=params.d, out_bits=params.out_bits,
-        epilogue=epilogue, scale=scale, pipeline=pipeline)
+        epilogue=epilogue, scale=scale, pipeline=pipeline,
+        k_logical=params.k_logical)
 
 
 def _pad_channels(v: torch.Tensor, n_pad: int) -> torch.Tensor:

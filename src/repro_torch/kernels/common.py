@@ -13,13 +13,13 @@ kernels' contraction and epilogue. The contraction is int32 `torch.mm` on
 the CPU; CUDA has no integer `mm`, so there it runs in float64, which is
 exact because every partial sum stays far below 2^53.
 
-The CUDA kernels compile fixed tiles (the packed GEMM 64 x 64 outputs
-with one CHUNK of K per stage, ``csrc/common.cuh``; the conv and the
-mixed-operand GEMM 128 rows x a wgmma-wide column tile with at most 192
-or 128 logical K per stage, ``csrc/mma_s8.cuh``), so there is no block to
-select: the reference's VMEM block selectors have no counterpart, and
-each tile's shared memory is checked against the sm_90 limit when it
-compiles.
+The CUDA kernels compile fixed tiles (``csrc/mma_s8.cuh``): 128 rows x
+a wgmma-wide column tile (the packed GEMM's N rounded up to 16-128, one
+CHUNK of K per stage; the mixed-operand GEMM's 128-wide panels; the
+conv's Cout rounded up to 16-256 with at most 192 or 128 logical K per
+stage), so there is no block to select: the reference's VMEM block
+selectors have no counterpart, and each tile's shared memory is checked
+against the sm_90 limit when it compiles.
 """
 from __future__ import annotations
 

@@ -9,11 +9,21 @@ pipeline 'off', STAGES=2 for 'double_buffer'); CPU tensors run the plain
 versions `qmatmul_packed_torch` / `qmatmul_segmented_torch`, the same
 unpack -> contract -> epilogue in torch. There is no fallback from one to
 the other: a CUDA call that cannot launch raises.
+
+Both kernels contract on the tensor cores in blocks of 128 rows
+(``csrc/mma_s8.cuh``), one CHUNK of K per stage, up to the real K
+(``k_logical``) rounded up to 32. The launch is planned here, where the
+CPU tests reach it: the uniform GEMM's column tile is N rounded up to a
+wgmma width (`gemm_tile_n`); K is split across blocks where the output
+tiles do not fill the card (`k_splits`); the register budget is chosen
+per grid (`gemm_launch_plan`).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -21,25 +31,47 @@ from repro_torch.core import packing
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.common import (EPILOGUE_DTYPES, EPILOGUES,
                                         PIPELINE_STAGES, apply_epilogue,
-                                        check_pipeline, int_matmul,
-                                        matmul_planes)
+                                        check_pipeline, int_matmul)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "qmatmul", "qmatmul.cu", "qmatmul_launch",
-    [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P] + [_I] * 10 + [_P])
+    [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P] + [_I] * 14 + [_P])
 SEGMENTED_KERNEL = CudaKernel(
     "qmatmul_segmented", "qmatmul_segmented.cu", "qmatmul_segmented_launch",
-    [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P]
+    [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, ctypes.c_float, _P]
     + [_I] * 11 + [_P])
+
+
+def _packed_shape(x, w_packed, a_bits: int, w_bits: int,
+                  k_logical: Optional[int]):
+    """(M, K_pad, N, k_logical) of a uniform packed GEMM, after checking
+    the shapes the kernel and its plain version both assume."""
+    pf_a, pf_w = packing.pack_factor(a_bits), packing.pack_factor(w_bits)
+    m, k_pad = x.shape[0], x.shape[1] * pf_a
+    if w_packed.shape[0] * pf_w != k_pad or k_pad % packing.CHUNK:
+        raise ValueError(
+            f"x {tuple(x.shape)} (A{a_bits}) and w {tuple(w_packed.shape)} "
+            f"(W{w_bits}) disagree on K, or K={k_pad} is not a CHUNK "
+            "multiple")
+    k_logical = k_pad if k_logical is None else int(k_logical)
+    if not 0 < k_logical <= k_pad:
+        raise ValueError(f"k_logical={k_logical} outside (0, {k_pad}]")
+    return m, k_pad, w_packed.shape[1], k_logical
 
 
 def qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
                          a_signed: bool, w_bits: int, d: int, out_bits: int,
-                         epilogue: str = "int", scale=1.0) -> torch.Tensor:
-    """Plain version: x (M, K/pf_a) @ w (K/pf_w, N), both packed along K,
-    then the epilogue. Runs on whatever device the tensors are on."""
-    acc = matmul_planes(x, w_packed, a_bits, a_signed, w_bits)
+                         epilogue: str = "int", scale=1.0,
+                         k_logical: Optional[int] = None) -> torch.Tensor:
+    """Plain version: x (M, K_pad/pf_a) @ w (K_pad/pf_w, N), both packed
+    along K, summed over the first ``k_logical`` values of K (default: all
+    of K_pad; the artifact's padding is zero, so both give the same
+    result), then the epilogue. Runs on whatever device the tensors are
+    on."""
+    _, _, _, k = _packed_shape(x, w_packed, a_bits, w_bits, k_logical)
+    acc = int_matmul(packing.unpack(x, a_bits, a_signed, axis=-1)[:, :k],
+                     packing.unpack(w_packed, w_bits, True, axis=0)[:k])
     return apply_epilogue(acc, kappa, lam, m_mul, d=d, out_bits=out_bits,
                           epilogue=epilogue, scale=scale)
 
@@ -91,53 +123,145 @@ def epilogue_launch_args(kappa, lam, m_mul, *, n: int, d: int,
 def qmatmul_packed_cuda(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
                         a_signed: bool, w_bits: int, d: int, out_bits: int,
                         epilogue: str = "int", scale=1.0,
-                        pipeline: str = "off") -> torch.Tensor:
-    """Launch the Hopper kernel on CUDA tensors (raises on anything it
-    does not take)."""
+                        pipeline: str = "off",
+                        k_logical: Optional[int] = None) -> torch.Tensor:
+    """Launch the Hopper kernel on CUDA tensors as `gemm_launch_plan`
+    plans it (raises on anything it does not take)."""
+    return _launch_packed(x, w_packed, kappa, lam, m_mul, None,
+                          a_bits=a_bits, a_signed=a_signed, w_bits=w_bits,
+                          d=d, out_bits=out_bits, epilogue=epilogue,
+                          scale=scale, pipeline=pipeline,
+                          k_logical=k_logical)
+
+
+def _launch_packed(x, w_packed, kappa, lam, m_mul,
+                   plan: Optional["GemmLaunch"], *, a_bits: int,
+                   a_signed: bool, w_bits: int, d: int, out_bits: int,
+                   epilogue: str, scale, pipeline: str,
+                   k_logical: Optional[int]) -> torch.Tensor:
+    """`qmatmul_packed_cuda` at a given launch ``plan`` (None: the planned
+    one). Tests and measurements pass the launches the plan did not
+    choose; the result does not depend on the plan."""
     stages = PIPELINE_STAGES[check_pipeline(pipeline)]
     dev = x.device
     _check(x, "x", torch.int8, dev, 2)
     _check(w_packed, "w_packed", torch.int8, dev, 2)
-    pf_a, pf_w = packing.pack_factor(a_bits), packing.pack_factor(w_bits)
-    m, k = x.shape[0], x.shape[1] * pf_a
-    n = w_packed.shape[1]
-    if w_packed.shape[0] * pf_w != k or k % packing.CHUNK:
-        raise ValueError(
-            f"x {tuple(x.shape)} (A{a_bits}) and w {tuple(w_packed.shape)} "
-            f"(W{w_bits}) disagree on K, or K={k} is not a CHUNK multiple")
+    m, k_pad, n, k_logical = _packed_shape(x, w_packed, a_bits, w_bits,
+                                           k_logical)
     kappa, lam, m_mul, svec, sf, d, hi, code = epilogue_launch_args(
         kappa, lam, m_mul, n=n, d=d, out_bits=out_bits, epilogue=epilogue,
         scale=scale, device=dev)
     out = torch.empty((m, n), dtype=EPILOGUE_DTYPES[epilogue], device=dev)
     if m == 0 or n == 0:
         return out
+    sms = sm_count(dev)
+    if plan is None:
+        plan = gemm_launch_plan(m, n, k_logical, a_bits, sms)
+    elif plan != gemm_launch_plan(m, n, k_logical, a_bits, sms,
+                                  splits=plan.splits,
+                                  min_blocks=plan.min_blocks):
+        raise ValueError(f"{plan} is not a launch of the ({m}, {k_logical},"
+                         f" {n}) A{a_bits} GEMM")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL.launch(
             stages, x.data_ptr(), w_packed.data_ptr(), kappa.data_ptr(),
             lam.data_ptr(), m_mul.data_ptr(),
             None if svec is None else svec.data_ptr(), sf, out.data_ptr(),
-            m, n, k, a_bits, w_bits, int(a_signed), d, hi, code, stages,
-            stream)
+            plan.splits, plan.nt, plan.min_blocks, m, n, k_pad, k_logical,
+            a_bits, w_bits, int(a_signed), d, hi, code, stages, stream)
     return out
 
 
 def qmatmul_packed(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
                    a_signed: bool, w_bits: int, d: int, out_bits: int,
-                   epilogue: str = "int", scale=1.0,
-                   pipeline: str = "off") -> torch.Tensor:
-    """Packed GEMM: x (M, K/pf_a) @ w (K/pf_w, N) with the fused epilogue.
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+                   epilogue: str = "int", scale=1.0, pipeline: str = "off",
+                   k_logical: Optional[int] = None) -> torch.Tensor:
+    """Packed GEMM: x (M, K_pad/pf_a) @ w (K_pad/pf_w, N) over the first
+    ``k_logical`` values of K, with the fused epilogue. CUDA tensors
+    launch the kernel; CPU tensors run the plain version."""
     check_pipeline(pipeline)
+    kw = dict(a_bits=a_bits, a_signed=a_signed, w_bits=w_bits, d=d,
+              out_bits=out_bits, epilogue=epilogue, scale=scale,
+              k_logical=k_logical)
     if x.is_cuda:
-        return qmatmul_packed_cuda(
-            x, w_packed, kappa, lam, m_mul, a_bits=a_bits, a_signed=a_signed,
-            w_bits=w_bits, d=d, out_bits=out_bits, epilogue=epilogue,
-            scale=scale, pipeline=pipeline)
-    return qmatmul_packed_torch(
-        x, w_packed, kappa, lam, m_mul, a_bits=a_bits, a_signed=a_signed,
-        w_bits=w_bits, d=d, out_bits=out_bits, epilogue=epilogue,
-        scale=scale)
+        return qmatmul_packed_cuda(x, w_packed, kappa, lam, m_mul,
+                                   pipeline=pipeline, **kw)
+    return qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, **kw)
+
+
+# ------------------------------------------------------ launch planning ---
+
+# Rows of one block of either GEMM kernel (csrc/mma_s8.cuh); K advances
+# one CHUNK per stage.
+TILE_M = 128
+
+
+def gemm_tile_n(n: int) -> int:
+    """The uniform GEMM's column tile: N rounded up to 16, 32, 64 or 128
+    (wider N takes several tiles). wgmma's n; the mixed-operand GEMM
+    takes one CHUNK-wide panel."""
+    return min(128, max(16, 1 << (n - 1).bit_length()))
+
+
+# At most this many blocks share one tile's K: one portable thread block
+# cluster, whose blocks add up their partial sums through distributed
+# shared memory (csrc/mma_s8.cuh::cluster_split_reduce).
+MAX_SPLITS = 8
+
+
+def k_splits(tiles: int, stages: int, sms: int) -> int:
+    """How many blocks of a GEMM kernel share one output tile's K stages:
+    1 when the tiles already fill ``sms`` SMs, else enough to fill them,
+    at most `MAX_SPLITS`, with at least one stage per block. Integer
+    partial sums add exactly in any order, so the split never changes a
+    result."""
+    if tiles >= sms or stages <= 1:
+        return 1
+    per = -(-stages // min(stages, -(-sms // tiles), MAX_SPLITS))
+    return -(-stages // per)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmLaunch:
+    """One launch of the uniform GEMM kernel: column tile, output tiles,
+    K stages, blocks per tile along K, register budget (blocks per SM)."""
+    nt: int
+    tiles: int
+    stages: int
+    splits: int
+    min_blocks: int
+
+
+def gemm_launch_plan(m: int, n: int, k_logical: int, a_bits: int, sms: int,
+                     *, splits: Optional[int] = None,
+                     min_blocks: Optional[int] = None) -> GemmLaunch:
+    """The uniform GEMM's launch: 128 x `gemm_tile_n(n)` output tiles, K in
+    CHUNK stages split by `k_splits`, and registers for two resident
+    blocks per SM only where the grid is wider than the card at A8 and the
+    128-wide tile (the accumulators alone would hold one block per SM;
+    sub-byte activations need an activation ring, which leaves shared
+    memory for one). ``splits`` / ``min_blocks`` override the choice."""
+    nt = gemm_tile_n(n)
+    tiles = -(-m // TILE_M) * -(-n // nt)
+    stages = -(-k_logical // packing.CHUNK)
+    if splits is None:
+        splits = k_splits(tiles, stages, sms)
+    elif not 1 <= splits <= min(stages, MAX_SPLITS):
+        raise ValueError(f"splits={splits} outside [1, {MAX_SPLITS}] or "
+                         f"above the {stages} stages")
+    if min_blocks is None:
+        min_blocks = 2 if a_bits == 8 and nt == 128 and tiles > sms else 1
+    elif min_blocks not in (1, 2) or (min_blocks == 2 and
+                                      (a_bits != 8 or nt != 128)):
+        raise ValueError(f"min_blocks={min_blocks}: the kernel has 1, and "
+                         "2 at A8 with the 128-wide tile")
+    return GemmLaunch(nt, tiles, stages, splits, min_blocks)
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ------------------------------------------------ segmented (mixed) GEMM ---
@@ -199,38 +323,6 @@ def segment_descriptors(segmap, k_logical: int, device: torch.device):
             torch.from_numpy(offs).to(device))
 
 
-# Rows of one block of the mixed-operand kernel (csrc/mma_s8.cuh); its
-# columns are one CHUNK-wide panel and its K stages CHUNK values.
-SEGMENTED_TILE_M = 128
-
-
-def k_splits(tiles: int, stages: int, sms: int) -> int:
-    """How many blocks of the mixed-operand kernel share one output tile's
-    K stages: 1 when the tiles already fill ``sms`` SMs, else enough to
-    fill them, with at least one stage per block. Integer partial sums
-    add exactly in any order, so the split never changes a result."""
-    if tiles >= sms or stages <= 1:
-        return 1
-    per = -(-stages // min(stages, -(-sms // tiles)))
-    return -(-stages // per)
-
-
-@functools.lru_cache(maxsize=8)
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def split_workspace(splits: int, outputs: int, tiles: int, device):
-    """Scratch of a launch whose K is split ``splits`` ways: the zeroed
-    int32 tensor (kept alive by the caller until the launch is queued) and
-    the pointers to its two parts, the partial sums of every output and
-    one arrival count per tile; three Nones without a split."""
-    if splits == 1:
-        return None, None, None
-    scratch = torch.zeros(outputs + tiles, dtype=torch.int32, device=device)
-    return scratch, scratch.data_ptr(), scratch.data_ptr() + 4 * outputs
-
-
 def qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul, *,
                            k_logical: int, a_bits: int, a_signed: bool,
                            d: int, out_bits: int, epilogue: str = "int",
@@ -252,17 +344,16 @@ def qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul, *,
     if m == 0:
         return out
     # one block per 128 rows x one 128-wide panel, K in stages of 128
-    tiles = -(-m // SEGMENTED_TILE_M) * (n // packing.CHUNK)
+    tiles = -(-m // TILE_M) * (n // packing.CHUNK)
     splits = k_splits(tiles, -(-k_logical // packing.CHUNK), sm_count(dev))
-    scratch, work, arrivals = split_workspace(splits, m * n, tiles, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         SEGMENTED_KERNEL.launch(
             stages, x.data_ptr(), w_flat.data_ptr(), codes.data_ptr(),
             offs.data_ptr(), *widths, kappa.data_ptr(), lam.data_ptr(),
             m_mul.data_ptr(), None if svec is None else svec.data_ptr(), sf,
-            out.data_ptr(), work, arrivals, splits, m, n, k_pad, k_logical,
-            a_bits, int(a_signed), d, hi, code, stages, stream)
+            out.data_ptr(), splits, m, n, k_pad, k_logical, a_bits,
+            int(a_signed), d, hi, code, stages, stream)
     return out
 
 

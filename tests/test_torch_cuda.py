@@ -62,6 +62,56 @@ def test_qmatmul_kernel_matches_plain(dev, a_bits, w_bits, pipeline):
             assert _same(got, gemm_k.qmatmul_packed_torch(x, w, *vecs, **kw))
 
 
+# (M, K, N) of the uniform GEMM's ragged wall: every K of {1, 31, 33, 64,
+# 200, 1000}, N of {1, 10, 17, 100, 128, 200, 384} and M of {1, 64, 100,
+# 4096}; the last two are A8 grids of more 128 x 128 tiles than the card
+# has SMs, which the plan runs at two blocks per SM. Each at its planned
+# launch, with K unsplit, and at A8 with the 128-wide tile at the other
+# register budget
+GEMM_WALL = ((1, 1, 1), (64, 31, 10), (100, 33, 17), (4096, 64, 100),
+             (64, 200, 128), (100, 1000, 200), (1, 64, 384),
+             (4096, 1000, 10), (64, 33, 384), (100, 200, 1),
+             (4096, 200, 17), (1, 1000, 128), (4096, 200, 1024),
+             (4100, 1000, 1000))
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qmatmul_kernel_ragged_wall_matches_plain(dev, a_bits, w_bits,
+                                                  pipeline):
+    rng = np.random.default_rng(a_bits * 10 + w_bits + 2)
+    stages = 1 if pipeline == "off" else 2
+    for m, k, n in GEMM_WALL:
+        x = packing.pack(packing.pad_to_chunk(
+            _ints(rng, a_bits, False, (m, k), dev)), a_bits)
+        w = packing.pack(packing.pad_to_chunk(
+            _ints(rng, w_bits, True, (k, n), dev), axis=0), w_bits, axis=0)
+        vecs = [v.to(dev) for v in _epilogue_vectors(rng, n, dev)]
+        sms = gemm_k.sm_count(dev)
+        plan = gemm_k.gemm_launch_plan(m, n, k, a_bits, sms)
+        plans = {plan, gemm_k.gemm_launch_plan(m, n, k, a_bits, sms,
+                                               splits=1)}
+        if a_bits == 8 and plan.nt == 128:
+            plans.add(gemm_k.gemm_launch_plan(
+                m, n, k, a_bits, sms, splits=plan.splits,
+                min_blocks=3 - plan.min_blocks))
+        for epi in ("int", "raw", "dequant"):
+            kw = dict(a_bits=a_bits, a_signed=False, w_bits=w_bits, d=23,
+                      out_bits=a_bits, epilogue=epi, scale=0.013,
+                      k_logical=k)
+            want = gemm_k.qmatmul_packed_torch(x, w, *vecs, **kw)
+            for launch in plans:
+                before = gemm_k.KERNEL.launches[stages]
+                got = gemm_k._launch_packed(x, w, *vecs, launch,
+                                            pipeline=pipeline, **kw)
+                assert gemm_k.KERNEL.launches[stages] == before + 1
+                assert _same(got, want), ((m, k, n), epi, launch)
+    # a launch planned for another shape is refused
+    other = gemm_k.gemm_launch_plan(m, n + 128, k, a_bits, sms)
+    with pytest.raises(ValueError, match="not a launch"):
+        gemm_k._launch_packed(x, w, *vecs, other, pipeline=pipeline, **kw)
+
+
 @pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
 @pytest.mark.parametrize("a_bits,w_bits", BITS)
 def test_qconv_kernel_matches_plain(dev, a_bits, w_bits, pipeline):

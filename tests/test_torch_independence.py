@@ -16,6 +16,7 @@ from repro_torch.kernels.qmatmul.kernel import \
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "gemm_ab.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -28,7 +29,7 @@ def _imported_roots(path: pathlib.Path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", PORT_FILES + SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))

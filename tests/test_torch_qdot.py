@@ -18,7 +18,8 @@ from repro.kernels import api as r_api
 from repro_torch.core import packing as p_pack
 from repro_torch.core.quantize import QuantizedLinearParams as PParams
 from repro_torch.kernels import api as p_api
-from repro_torch.kernels.qmatmul.kernel import (qmatmul_packed,
+from repro_torch.kernels.qmatmul.kernel import (gemm_launch_plan,
+                                                qmatmul_packed,
                                                 qmatmul_packed_cuda)
 
 from torch_bridge import assert_same
@@ -154,9 +155,14 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_tile_fits():
     with pytest.raises(ValueError, match="CUDA tensors"):
         qmatmul_packed_cuda(*args, **kw)
     # the dispatching wrapper runs the plain version for CPU tensors, the
-    # same for both pipelines (one tile fits any pipeline on the CPU)
+    # same for both pipelines and over the real K
     off = qmatmul_packed(*args, **kw)
     assert off.shape == (M, 10)
     assert_same(qmatmul_packed(*args, pipeline="double_buffer", **kw), off)
+    assert_same(qmatmul_packed(*args, k_logical=64, **kw), off)
+    # on the card this call is one 128 x 16 tile (N = 10 rounded up to a
+    # wgmma width) with one stage of K = 64: no split
+    plan = gemm_launch_plan(M, 10, 64, 4, 132)
+    assert (plan.nt, plan.tiles, plan.stages, plan.splits) == (16, 1, 1, 1)
     with pytest.raises(ValueError, match="pipeline"):
         qmatmul_packed(*args, pipeline="triple", **kw)

@@ -176,10 +176,12 @@ def test_conv_tile_is_cout_rounded_to_a_wgmma_width():
 def test_k_split_fills_the_card_only_when_tiles_do_not():
     # c3 of qat-cnn at a wave: 98 x 2 tiles of 128 x 128, no split
     assert k_splits(98 * 2, 3, 132) == 1
-    # fig8 256x2048x256: 2 x 2 tiles, 16 stages -> one stage per block
-    assert k_splits(4, 16, 132) == 16
-    # every block keeps at least one stage
+    # fig8 256x2048x256: 2 x 2 tiles, 16 stages -> one cluster of 8
+    # blocks per tile, two stages each
+    assert k_splits(4, 16, 132) == 8
+    # every block keeps at least one stage; a tile's blocks fit a cluster
     for tiles, stages in ((3, 2), (2, 2), (1, 2), (128, 3), (7, 18)):
         splits = k_splits(tiles, stages, 132)
         per = -(-stages // splits)
-        assert 1 <= splits <= stages and (splits - 1) * per < stages
+        assert 1 <= splits <= min(stages, 8)
+        assert (splits - 1) * per < stages
