@@ -9,14 +9,17 @@
    (registers, shared memory, spills; every kernel's in the JSON file).
 2. Kernel phase: every kernel, at STAGES=1 ('off') and STAGES=2
    ('double_buffer'), against its plain torch version on the card.
-   qmatmul and qconv: every ResNet-8 conv geometry and the head GEMM at a
-   wave of 64, plus one larger GEMM, then a wall of ragged GEMMs (real K
-   1, 31, 33, 64, 200, 1000; N 1, 10, 17, 100, 128, 200, 384; M 1, 64,
-   100, 4096; K split across blocks where the launch plan splits it, and
-   unsplit; two A8 grids wider than the card at the 128-wide tile, at two
-   blocks per SM as planned and at one) and the conv shapes the
+   qmatmul and qconv: every ResNet-8 and MobileNet conv geometry, the
+   head GEMM, MobileNet's three depthwise layers as block-diagonal GEMMs
+   (4096x144x16, 4096x288x32, 1024x576x64) and as per-channel convs
+   (cin = cout = 1, stride 1 and 2), all at a wave of 64, plus one larger
+   GEMM, then a wall of ragged GEMMs (real K 1, 31, 33, 64, 200, 1000; N
+   1, 10, 17, 100, 128, 200, 384; M 1, 64, 100, 4096; K split across
+   blocks where the launch plan splits it, and unsplit; two A8 grids
+   wider than the card at the 128-wide tile, at two blocks per SM as
+   planned and at one) and the conv shapes the
    real-channel K order makes risky (Cin 1, 3, 160, 200: two chunks, one
-   ragged; Cout 10, 48, 200; a 1x1 stride-2 conv, 5x5 convs, Wo that
+   ragged; Cout 1, 10, 48, 200; a 1x1 stride-2 conv, 5x5 convs, Wo that
    does not divide the 128-pixel tile), for A{8,4,2} x W{8,4,2} and all
    three epilogues. The GEMM runs at each launch `Case.launches` lists.
    qmatmul_segmented: segment mixes 8|4, 8|2, 4|2, 8|4|2 at a ragged shape
@@ -43,7 +46,17 @@
    launched. The CPU re-quantizes both plans (byte-identical artifacts,
    identical logits); the qdot call's raw accumulators must equal c3's
    per-run qconv accumulators.
-5. Times each kernel (CUDA events and profiler device time) beside its
+5. Main path, mobilenet-tiny (depthwise-separable): full width,
+   quantized on the card at W8, W4, W2 and under the plan
+   `calibrate_vision` + `plan_mixed_precision` (widths 8, 4, 2) give on
+   the card, each served (waves of 64, 256 images); one more wave with
+   the double-buffered pipeline, and one wave of each net forced through
+   each depthwise lowering ('qdot': block-diagonal GEMM, 'per_group': one
+   conv per channel), whose integer edges must be identical at every
+   layer and whose logits must equal the served ones. qmatmul and qconv
+   must have launched at both STAGES; the CPU re-quantizes every net
+   (byte-identical artifacts, identical logits).
+6. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -53,7 +66,10 @@
    unpacked integers, exact while |acc| < 2^24. The conv's is
    `torch.nn.functional.conv2d` in bf16, channels-last, on the unpacked
    integers, summed over the wave's convs. Each is the raw product only;
-   the port never calls them.
+   the port never calls them. Each MobileNet depthwise layer is timed at
+   W8A8 under both lowerings beside cuDNN's bf16 channels-last
+   ``conv2d(groups=C)`` on its integer input, with the MACs each
+   lowering contracts against the real ones.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
@@ -112,10 +128,13 @@ SEG_FIG8 = ((256, 2048, 256), ((0, 128, 8), (128, 256, 2)))
 SEG_BIG = ((4096, 2048, 1024), ((0, 384, 8), (384, 768, 4), (768, 1024, 2)))
 SEG_RAGGED_RUN = ((40, 200, 200), ((0, 128, 2), (128, 200, 8)))
 # (images, H, W, Cin, Cout, f, stride, padding): conv shapes the
-# real-channel K order makes risky, checked but not timed
+# real-channel K order makes risky, checked but not timed; the last two
+# are the depthwise per-group lowering's cin = cout = 1 convs
 WALL_CONVS = ((2, 9, 7, 1, 10, 5, 1, 2), (2, 11, 9, 3, 48, 3, 1, 1),
               (2, 8, 8, 160, 200, 3, 2, 1), (2, 9, 9, 200, 48, 1, 2, 0),
-              (1, 7, 13, 3, 200, 5, 1, 2))
+              (1, 7, 13, 3, 200, 5, 1, 2), (2, 8, 8, 1, 1, 3, 1, 1),
+              (2, 8, 8, 1, 1, 3, 2, 1))
+LOWERINGS = ("qdot", "per_group")
 
 
 def say(phase: str, **fields):
@@ -411,29 +430,42 @@ def segmented_kernel_phase(dev, report):
     return worst
 
 
-def resnet8_shapes(cfg, wave):
-    """(layer path, conv shape) per conv of the net, and the head GEMM
-    (M, real K, N)."""
+def net_shapes(cfg, wave):
+    """The kernel calls of one wave of the net: "convs", (layer path, conv
+    shape) per conv; "dw_gemms", (path, (M, real K, N)) per depthwise
+    layer's block-diagonal GEMM (the 'qdot' lowering); "dw_convs", (path,
+    shape) of its per-channel convs (the 'per_group' lowering, cin = cout
+    = 1, one call per channel); "head", the head GEMM (M, real K, N)."""
     from repro_torch.vision.models import trace_shapes
-    convs, head = [], None
+    out = {"convs": [], "dw_gemms": [], "dw_convs": [], "head": None}
     for t in trace_shapes(cfg):
-        L, (h, w, c) = t["layer"], t["in"]
+        L, (h, w, c), (ho, wo, _) = t["layer"], t["in"], t["out"]
         if L.kind == "conv":
-            convs.append((L.path, (wave, h, w, c, L.cout, L.fh, L.stride,
-                                   L.padding)))
+            out["convs"].append((L.path, (wave, h, w, c, L.cout, L.fh,
+                                          L.stride, L.padding)))
+        elif L.kind == "dwconv":
+            out["dw_gemms"].append((L.path, (wave * ho * wo,
+                                             L.fh * L.fw * c, c)))
+            out["dw_convs"].append((L.path, (wave, h, w, 1, 1, L.fh,
+                                             L.stride, L.padding)))
         elif L.kind == "linear":
-            head = (wave, c, L.cout)
-    return convs, head
+            out["head"] = (wave, c, L.cout)
+    return out
 
 
-def kernel_phase(dev, convs, head, report):
+def kernel_phase(dev, nets, report):
+    """qmatmul and qconv at every call shape of the served nets' waves
+    (``nets``: `net_shapes` per net), the larger GEMM, the ragged GEMM
+    wall and the conv wall."""
     import torch
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     worst = {(k, s): 0.0 for k in ("qmatmul", "qconv") for s in (1, 2)}
-    shapes = ([("qmatmul", head), ("qmatmul", BIG_GEMM)]
-              + [("qmatmul", s) for s in GEMM_WALL]
-              + [("qconv", s) for s in dict.fromkeys(s for _, s in convs)]
-              + [("qconv", s) for s in WALL_CONVS])
+    gemms = [n["head"] for n in nets] + [BIG_GEMM] + [
+        s for n in nets for _, s in n["dw_gemms"]] + list(GEMM_WALL)
+    convs = [s for n in nets for key in ("convs", "dw_convs")
+             for _, s in n[key]] + list(WALL_CONVS)
+    shapes = ([("qmatmul", s) for s in dict.fromkeys(gemms)]
+              + [("qconv", s) for s in dict.fromkeys(convs)])
     n_cmp, n_split, n_two = 0, 0, 0
     for kind, shape in shapes:
         for a_bits, w_bits in BITS:
@@ -781,6 +813,169 @@ def qat_cnn_path(dev, report):
     return launches
 
 
+def mobilenet_path(dev, report):
+    """Serve full-width mobilenet-tiny at W8/W4/W2 and under the plan that
+    `calibrate_vision` + `plan_mixed_precision` give on the card, one
+    more wave with the double-buffered pipeline, and one wave of each net
+    forced through each depthwise lowering. Returns the kernels' launch
+    counts over exactly this run, the W8 net and its wave's input."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import to_device
+    from repro_torch.deploy.calibrate import calibrate_vision
+    from repro_torch.deploy.planner import auto_budget, plan_mixed_precision
+    from repro_torch.launch.vision import uniform_plan
+    from repro_torch.serve.engine import VisionEngine
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import (forward_int, init_fp,
+                                           quantize_input, quantize_net)
+
+    cfg = get_vision_config("mobilenet-tiny")
+    rng = np.random.default_rng(SEED)
+    fp = init_fp(cfg, seed=SEED, device=dev)
+    calib = [rng.uniform(0, 1, size=(WAVE, *cfg.in_hw, cfg.in_ch)).astype(
+        np.float32) for _ in range(2)]
+    images = rng.uniform(0, 1, size=(REQUESTS, *cfg.in_hw, cfg.in_ch)
+                         ).astype(np.float32)
+    stats, absmax = calibrate_vision(cfg, fp, calib, bits=WIDTHS,
+                                     a_bits=cfg.a_bits)
+    budget = auto_budget(stats, WIDTHS)
+    plans = {f"W{b}": uniform_plan(cfg, b, cfg.a_bits) for b in WIDTHS}
+    plans["planner"] = plan_mixed_precision(
+        stats, budget, candidates=WIDTHS, a_bits=cfg.a_bits,
+        meta={"arch": cfg.name})
+    for r in plans["planner"].rules:
+        st = stats[r.pattern]
+        say("plan_mobilenet", layer=r.pattern, w_bits=r.w_bits,
+            d_in=st.d_in, d_out=st.d_out,
+            sens=json.dumps({b: round(st.sens(b), 6) for b in WIDTHS}))
+    say("plan_mobilenet", budget=round(budget, 6),
+        packed_weight_bytes=plans["planner"].meta["packed_weight_bytes"],
+        uniform_w8_bytes=plans["planner"].meta["uniform_w8_bytes"])
+    report["mobilenet_plan"] = json.loads(plans["planner"].to_json())
+    nets = {k: quantize_net(cfg, fp, absmax, plan=p, device=dev)
+            for k, p in plans.items()}
+    qdb = quantize_net(cfg, fp, absmax,
+                       plan=uniform_plan(cfg, 8, cfg.a_bits,
+                                         pipeline="double_buffer"),
+                       device=dev)
+    x_wave = quantize_input(nets["W8"], images[:WAVE])
+    # one untimed wave first: torch loads its own CUDA kernels lazily
+    VisionEngine(nets["W8"], batch_size=WAVE, device=dev).run(images[:WAVE])
+
+    reset_launches()
+    served = {k: serve_net(f"mobilenet-tiny {k}", q, images, report)
+              for k, q in nets.items()}
+    db = VisionEngine(qdb, batch_size=WAVE, device=dev).run(images[:WAVE])
+    forced = {}
+    for k, q in nets.items():
+        for low in LOWERINGS:
+            edges = {}
+            logits = forward_int(q, x_wave, lowering=low,
+                                 collect=lambda p, v, e=edges:
+                                 e.setdefault(p, v))
+            forced[(k, low)] = (edges, logits)
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    if not np.array_equal(db, served["W8"][:WAVE]):
+        raise AssertionError("mobilenet-tiny: double_buffer wave differs "
+                             "from 'off'")
+    say("serve", net="mobilenet-tiny W8", pipeline="double_buffer",
+        images=WAVE, logits_equal=True)
+    for k in nets:
+        (e_q, l_q), (e_g, l_g) = (forced[(k, low)] for low in LOWERINGS)
+        dw = [p for p in e_q if p.endswith("/dw")]
+        for path in e_q:
+            if not torch.equal(e_q[path], e_g[path]):
+                raise AssertionError(f"mobilenet-tiny {k}: the lowerings' "
+                                     f"integer edges differ at {path}")
+        for low, got in ((LOWERINGS[0], l_q), (LOWERINGS[1], l_g)):
+            if not np.array_equal(got.cpu().numpy(), served[k][:WAVE]):
+                raise AssertionError(f"mobilenet-tiny {k}: the wave forced "
+                                     f"through {low} differs from the "
+                                     "served logits")
+        say("check", net=f"mobilenet-tiny {k}", lowerings_identical=True,
+            dw_layers=len(dw), edges=len(e_q), logits_equal_served=True)
+    fp_cpu = to_device(fp, "cpu")
+    for k, q in nets.items():
+        check_against_cpu(f"mobilenet-tiny {k}", q, cfg, fp_cpu, absmax,
+                          plans[k], images, served[k])
+    require_launches("mobilenet-tiny", launches, ("qmatmul", "qconv"))
+    report.setdefault("launches", {})["mobilenet-tiny"] = launches
+    profile_wave(dev, nets["W8"], images[:WAVE], report,
+                 "mobilenet-tiny W8")
+    return launches, nets["W8"], x_wave
+
+
+def depthwise_timing_phase(dev, qnet, x_wave, report):
+    """Each depthwise layer of the W8A8 net at a wave: both lowerings'
+    ms (CUDA events, host included), device ms of every kernel the call
+    runs and of the port's kernels alone, beside cuDNN's bf16
+    channels-last ``conv2d(groups=C)`` on the layer's integer input (a
+    yardstick the port never calls), and the MACs each lowering
+    contracts against the real ones."""
+    import torch
+    from repro_torch.kernels.qconv import kernel as ck
+    from repro_torch.kernels.qmatmul import kernel as gk
+    from repro_torch.vision.models import forward_int
+    edges = {"__input__": x_wave}
+    forward_int(qnet, x_wave, collect=lambda k, v: edges.setdefault(k, v))
+    torch.cuda.synchronize()
+    rows, prev = {}, "__input__"
+    names = ("qmatmul_kernel", "qconv_kernel")
+    for L, q in qnet.qlayers:
+        if L.kind == "dwconv":
+            x = edges[L.input_from or prev]
+            n, h, w, c = x.shape
+            ho, wo = ck.conv_out_hw(h, w, L.fh, L.fw, L.stride, L.padding)
+            pix, g = n * ho * wo, q.gemm
+            k_conv = ck.conv_k_plan(L.fh, L.fw, 1, g.a_bits, g.w_bits,
+                                    ck.conv_stage_k(1)).k_contracted
+            row = {"input": [n, h, w, c], "stride": L.stride,
+                   "macs_real": pix * L.fh * L.fw * c,
+                   "macs_contracted_qdot": pix * (-(-g.k_logical // 32)
+                                                  * 32) * gk.gemm_tile_n(c),
+                   "macs_contracted_per_group": c * pix * k_conv
+                   * ck.conv_tile_n(1),
+                   "kernel_launches_per_call": {"qdot": 1,
+                                                "per_group": c}}
+            for low in LOWERINGS:
+                def fn(low=low):
+                    return q.apply(x, lowering=low)
+                row[f"{low}_ms"] = time_ms(fn, 3, 20)
+                row[f"{low}_device_ms"] = library_device_ms(fn)
+                row[f"{low}_kernel_device_ms"] = library_device_ms(
+                    fn, names=names)
+            xb = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            wb = torch.randint(-128, 128, (c, 1, L.fh, L.fw), device=dev).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+            def lib():
+                return torch.nn.functional.conv2d(
+                    xb, wb, stride=L.stride, padding=L.padding, groups=c)
+            row["library_ms"] = time_ms(lib, 3, 20)
+            row["library_device_ms"] = library_device_ms(lib)
+            row["fastest_ms"] = min(LOWERINGS,
+                                    key=lambda lw: row[f"{lw}_ms"])
+            rows[L.path] = row
+            say("time", kernel="depthwise", layer=L.path, a_bits=8, w_bits=8,
+                **{k: (round(v, 5) if isinstance(v, float) else
+                       json.dumps(v) if isinstance(v, (dict, list)) else v)
+                   for k, v in row.items()})
+        if not L.branch:
+            prev = L.path
+    from repro_torch.vision.layers import AUTO_LOWERING
+    total = {low: sum(r[f"{low}_ms"] for r in rows.values())
+             for low in LOWERINGS}
+    say("time", kernel="depthwise", auto=AUTO_LOWERING,
+        **{f"{low}_ms_all_layers": round(v, 5) for low, v in total.items()})
+    report["timing_depthwise"] = {"auto": AUTO_LOWERING, "layers": rows,
+                                  "ms_all_layers": total}
+    return rows
+
+
 def _device_us(prof, names=()) -> float:
     """Summed device time (us) of the profiled CUDA kernels whose name
     holds one of ``names`` (every kernel when ``names`` is empty)."""
@@ -850,8 +1045,9 @@ def kernel_device_ms(cases, stages: int, reps: int = 10, tries: int = 3):
     return None
 
 
-def library_device_ms(fn, reps: int = 10) -> float:
-    """Device time of every CUDA kernel one call of ``fn`` runs."""
+def library_device_ms(fn, reps: int = 10, names=()) -> float:
+    """Device time of every CUDA kernel one call of ``fn`` runs (of those
+    whose name holds one of ``names``, when given)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -860,7 +1056,7 @@ def library_device_ms(fn, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return _device_ms_per_pass(prof, reps)
+    return _device_ms_per_pass(prof, reps, names)
 
 
 def timing_phase(dev, convs, report):
@@ -1075,15 +1271,19 @@ def main() -> int:
     report["ptxas"] = ptxas_report(kernels_all)
 
     cfg = get_vision_config("resnet8")
-    convs, head = resnet8_shapes(cfg, WAVE)
-    worst = kernel_phase(dev, convs, head, report)
+    shapes = net_shapes(cfg, WAVE)
+    convs, head = shapes["convs"], shapes["head"]
+    worst = kernel_phase(dev, [shapes, net_shapes(
+        get_vision_config("mobilenet-tiny"), WAVE)], report)
     worst.update({("qmatmul_segmented", s): e for s, e in
                   segmented_kernel_phase(dev, report).items()})
     by_path = {"resnet8": main_path(dev, cfg, report),
                "qat-cnn": qat_cnn_path(dev, report)}
+    by_path["mobilenet-tiny"], mnet, m_wave = mobilenet_path(dev, report)
     gemm_rows = gemm_timing_phase(dev, head, report)
     conv_rows = timing_phase(dev, convs, report)
     seg_rows = segmented_timing_phase(dev, report)
+    depthwise_timing_phase(dev, mnet, m_wave, report)
 
     kernels = []
     for kind in kernels_all:

@@ -9,10 +9,11 @@ reference package:
 * `qnet_from_numpy(spec, device)` — a `QuantizedVisionNet` description ->
   the port's net. A dataclass instance is described as a dict with a
   ``"__type__"`` key naming the class (``"QConv2D"``,
-  ``"QSegmentedConv2D"``, ``"QuantizedConvParams"``, ``"SegmentMap"``,
-  ...) and one key per field; lists stand for tuples; arrays become
-  tensors on ``device``. A ``backend`` field that a port class does not
-  have must name the device's backend or be None, and is then dropped.
+  ``"QSegmentedConv2D"``, ``"QDepthwiseConv2D"``,
+  ``"QuantizedConvParams"``, ``"SegmentMap"``, ...) and one key per
+  field; lists stand for tuples; arrays become tensors on ``device``.
+  A ``backend`` field that a port class does not have must name the
+  device's backend or be None, and is then dropped.
 * `segmented_params_from_numpy(spec, device)` — a `SegmentedLinearParams`
   description -> the port's mixed-width GEMM artifact.
 """
@@ -37,8 +38,9 @@ from repro_torch.vision.models import (LayerDef, QuantizedVisionNet,
 _TYPES = {cls.__name__: cls for cls in (
     QuantizedVisionNet, VisionConfig, LayerDef, QuantSpec, PrecisionPlan,
     PlanRule, QuantizedConvParams, QuantizedLinearParams, SegmentMap,
-    SegmentedLinearParams, vl.QConv2D, vl.QSegmentedConv2D, vl.QLinear,
-    vl.QMaxPool2D, vl.QAvgPool2D, vl.QResidualAdd)}
+    SegmentedLinearParams, vl.QConv2D, vl.QSegmentedConv2D,
+    vl.QDepthwiseConv2D, vl.QLinear, vl.QMaxPool2D, vl.QAvgPool2D,
+    vl.QResidualAdd)}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -2,13 +2,14 @@
 sensitivities for the deploy planner.
 
 `calibrate_vision` replays the fp net once per calibration batch with two
-observers: the `vision.layers.conv_tap` observer sees every conv's and the
-head's input, and prices each candidate weight width b by the squared
-output error of a simulated W{b}A{a_bits} op against the fp op on the
-layer's real geometry (weights on the per-tensor symmetric grid the
-vision packers deploy, activations symmetric on the a_bits grid); an edge
-tap records every layer boundary's absmax, which `quantize_net` turns into
-the chained activation grids. The resulting `CalibStats` feed
+observers: the `vision.layers.conv_tap` observer sees every conv's,
+depthwise conv's and the head's input, and prices each candidate weight
+width b by the squared output error of a simulated W{b}A{a_bits} op
+against the fp op on the layer's real geometry (weights on the
+per-tensor symmetric grid the vision packers deploy, activations
+symmetric on the a_bits grid); an edge tap records every layer
+boundary's absmax, which `quantize_net` turns into the chained
+activation grids. The resulting `CalibStats` feed
 `deploy.planner.plan_mixed_precision`.
 
 The float sums are float32 torch reductions; they agree with the
@@ -85,15 +86,22 @@ def _sim_quant_acts(x: torch.Tensor, a_bits: int,
     return torch.clamp(torch.round(x / div), -a_max, a_max) * a_scale
 
 
+def _hwio(w: torch.Tensor) -> torch.Tensor:
+    """A conv's (fh, fw, Cin, Cout) weights as they are; a depthwise
+    layer's (fh, fw, C) as (fh, fw, 1, C)."""
+    return w.reshape(*w.shape[:2], 1, w.shape[-1]) if w.dim() == 3 else w
+
+
 def _sim_int_conv(x, w, b: int, a_bits: int, absmax: float, *,
-                  stride: int, padding: int) -> torch.Tensor:
+                  stride: int, padding: int, groups: int) -> torch.Tensor:
     """Simulated W{b}A{a_bits} conv for the sensitivity proxy: the
-    quantize-dequantize image of the deployed integer conv."""
+    quantize-dequantize image of the deployed integer conv (``groups`` =
+    C for a depthwise layer)."""
     from repro_torch.vision.layers import conv2d_raw
 
     return conv2d_raw(_sim_quant_acts(x, a_bits, absmax),
-                      _sim_quant_weights(w, b), stride=stride,
-                      padding=padding)
+                      _hwio(_sim_quant_weights(w, b)), stride=stride,
+                      padding=padding, groups=groups)
 
 
 class _ConvCollector:
@@ -129,8 +137,8 @@ class _ConvCollector:
         if g["kind"] == "linear":
             y_ref = xf @ wf
         else:
-            y_ref = conv2d_raw(xf, wf, stride=g["stride"],
-                               padding=g["padding"])
+            y_ref = conv2d_raw(xf, _hwio(wf), stride=g["stride"],
+                               padding=g["padding"], groups=g["groups"])
         st.sq_ref += float(torch.sum(y_ref * y_ref))
         for b in self.bits:
             if g["kind"] == "linear":
@@ -139,7 +147,8 @@ class _ConvCollector:
             else:
                 y_q = _sim_int_conv(xf, wf, b, self.a_bits, absmax,
                                     stride=g["stride"],
-                                    padding=g["padding"])
+                                    padding=g["padding"],
+                                    groups=g["groups"])
             err = y_q - y_ref
             st.sq_err[b] = st.sq_err.get(b, 0.0) + float(torch.sum(err * err))
             st._add_col_err(b, err)
@@ -149,7 +158,8 @@ class _ConvCollector:
 def _vision_stats_geom(cfg, fp_params):
     """Per compute path: an empty `CalibStats` with the deployable
     artifact's (d_in, d_out), the layer geometry, and the id(w) -> path
-    map the conv tap needs."""
+    map the conv tap needs. A depthwise layer's artifact is its
+    block-diagonal GEMM, (fh*fw*C, C)."""
     from repro_torch.vision.models import (COMPUTE_KINDS, get_path,
                                            trace_shapes)
 
@@ -160,10 +170,15 @@ def _vision_stats_geom(cfg, fp_params):
         L, (_, _, c) = t["layer"], t["in"]
         if L.kind not in COMPUTE_KINDS:
             continue
-        d_in = L.fh * L.fw * c if L.kind == "conv" else c
-        stats[L.path] = CalibStats(L.path, 1, d_in, L.cout)
+        if L.kind == "conv":
+            d_in, d_out, groups = L.fh * L.fw * c, L.cout, 1
+        elif L.kind == "dwconv":
+            d_in, d_out, groups = L.fh * L.fw * c, c, c
+        else:
+            d_in, d_out, groups = c, L.cout, 1
+        stats[L.path] = CalibStats(L.path, 1, d_in, d_out)
         geom[L.path] = {"kind": L.kind, "stride": L.stride,
-                        "padding": L.padding}
+                        "padding": L.padding, "groups": groups}
         id2path[id(get_path(fp_params, L.path)["w"])] = L.path
     return stats, geom, id2path
 
@@ -181,7 +196,7 @@ def calibrate_vision(cfg, fp_params, image_batches: Sequence[np.ndarray], *,
     if sensitivity == "task_loss":
         raise NotImplementedError(
             "calibrate_vision(sensitivity='task_loss') comes with the QAT "
-            "slice (ROADMAP Queue 1, item 12); use sensitivity='mse'")
+            "slice (ROADMAP Queue 1, item 6); use sensitivity='mse'")
     if sensitivity != "mse":
         raise ValueError(f"unknown sensitivity {sensitivity!r}; expected "
                          "'mse' or 'task_loss'")

@@ -118,7 +118,9 @@ def qconv(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,
     if params.groups != 1:
         raise ValueError(
             f"qconv does not support grouped conv (groups={params.groups}); "
-            "depthwise/grouped layers are not ported yet")
+            "lower depthwise/grouped layers via "
+            "repro_torch.vision.layers.QDepthwiseConv2D (per-group qconv "
+            "or block-diagonal im2col + qdot)")
     g = params.gemm
     return qconv2d_fused(
         x_hat, params.w_packed_fused, g.kappa, g.lam, g.m, fh=params.fh,

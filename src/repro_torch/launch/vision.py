@@ -37,7 +37,8 @@ def uniform_plan(cfg, w_bits: int, a_bits: int, backend=None,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--net", required=True,
-                    help="vision config name (repro_torch.vision.configs)")
+                    help="vision config name (repro_torch.vision.configs): "
+                         "resnet8, mobilenet-tiny or qat-cnn")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--a-bits", type=int, default=8,
                     help="activation bits at every layer boundary")

@@ -5,6 +5,10 @@ values in int8 tensors) between layers, with int32 accumulation inside
 and the eq. 3/4 requant epilogue at its output:
 
   QConv2D            one `api.qconv` call (fused implicit-GEMM kernel)
+  QDepthwiseConv2D   depthwise conv lowered above the ops, two lowerings
+                     from one quantization and one fold, identical bit
+                     for bit: one block-diagonal im2col `api.qdot` GEMM,
+                     or C per-channel `api.qconv` calls (cin = cout = 1)
   QSegmentedConv2D   one uniform `QConv2D` per output-channel run of a
                      fine-grain plan, outputs concatenated along Cout
   QLinear            `api.qdot` (classifier head; 'raw' int32 logits)
@@ -14,7 +18,7 @@ and the eq. 3/4 requant epilogue at its output:
 
 The fp applies (`conv2d_fp`, ...) are the calibration-time forward, in
 NHWC like the reference; `conv_tap` lets the deploy calibrator observe
-each conv's and the head's input. Depthwise convs are not ported.
+each conv's, depthwise conv's and the head's input.
 """
 from __future__ import annotations
 
@@ -29,13 +33,16 @@ import torch.nn.functional as F
 from repro_torch.core import packing
 from repro_torch.core.calibration import calibrate_weight
 from repro_torch.core.quantize import (QuantSpec, QuantizedLinearParams,
-                                       pick_requant_md, quantize,
-                                       requantize_shift, wrap_int32)
+                                       fold_bn_requant, pick_requant_md,
+                                       quantize, requantize_shift,
+                                       wrap_int32)
 from repro_torch.kernels import api
-from repro_torch.kernels.qconv.ops import QuantizedConvParams, quantize_conv
+from repro_torch.kernels.qconv.ops import (QuantizedConvParams, im2col_hwc,
+                                           quantize_conv)
 
-# Calibration tap: when set, the fp conv and linear applies call it with
-# (params dict, x) before the op (host-side calibration passes only).
+# Calibration tap: when set, the fp conv, depthwise and linear applies
+# call it with (params dict, x) before the op (host-side calibration
+# passes only).
 _CONV_TAP: Optional[Callable] = None
 
 
@@ -55,10 +62,10 @@ def conv_tap(fn: Callable):
 
 
 def conv2d_raw(x: torch.Tensor, w: torch.Tensor, *, stride: int,
-               padding: int) -> torch.Tensor:
-    """Raw fp conv: x (N,H,W,Cin) f32, w (fh,fw,Cin,Cout) -> NHWC."""
+               padding: int, groups: int = 1) -> torch.Tensor:
+    """Raw fp conv: x (N,H,W,Cin) f32, w (fh,fw,Cin/groups,Cout) -> NHWC."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 stride=stride, padding=padding)
+                 stride=stride, padding=padding, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -69,6 +76,20 @@ def conv2d_fp(p: dict, x: torch.Tensor, *, stride: int, padding: int,
     if _CONV_TAP is not None:
         _CONV_TAP(p, x)
     y = conv2d_raw(x, p["w"], stride=stride, padding=padding)
+    y = y * p["bn_scale"] + p["bn_bias"]
+    return torch.clamp_min(y, 0.0) if relu else y
+
+
+def depthwise_fp(p: dict, x: torch.Tensor, *, stride: int, padding: int,
+                 relu: bool = True) -> torch.Tensor:
+    """fp depthwise conv + BN + ReLU; p["w"]: (fh, fw, C). Calls the
+    `conv_tap` observer."""
+    if _CONV_TAP is not None:
+        _CONV_TAP(p, x)
+    w = p["w"]
+    c = w.shape[-1]
+    y = conv2d_raw(x, w.reshape(*w.shape[:2], 1, c), stride=stride,
+                   padding=padding, groups=c)
     y = y * p["bn_scale"] + p["bn_bias"]
     return torch.clamp_min(y, 0.0) if relu else y
 
@@ -142,6 +163,55 @@ class QSegmentedConv2D:
     def apply(self, x_hat, *, pipeline: Optional[str] = None):
         return torch.cat([p.apply(x_hat, pipeline=pipeline)
                           for p in self.parts], dim=-1)
+
+
+# The lowering `QDepthwiseConv2D.apply` takes for 'auto', on the CPU and
+# on the card alike: one block-diagonal GEMM per layer. On an H100 it
+# beats C per-channel convs by 10-28x per MobileNet layer at a wave of
+# 64, host included (PERF.md §6).
+AUTO_LOWERING = "qdot"
+LOWERINGS = ("auto", "qdot", "per_group")
+
+
+@dataclasses.dataclass(frozen=True)
+class QDepthwiseConv2D:
+    """Depthwise conv lowered onto the two ops (`api.qconv` refuses
+    grouped params). Two lowerings from one quantization and one
+    (kappa, lam, m, d) fold, identical bit for bit:
+
+    * ``qdot``: one block-diagonal im2col GEMM, K = fh*fw*C with
+      W[t*C + c, c'] = 0 unless c == c' (zero weights are zero MACs);
+    * ``per_group``: C standard convs (cin = cout = 1) through
+      `api.qconv`, each on its channel's slice of the shared fold.
+
+    ``lowering='auto'`` is `AUTO_LOWERING`. ``pipeline`` comes from the
+    plan; a call-time value wins."""
+
+    gemm: QuantizedLinearParams            # block-diagonal (fh*fw*C -> C)
+    per_group: Tuple[QuantizedConvParams, ...]
+    fh: int
+    fw: int
+    stride: int
+    padding: int
+    channels: int
+    pipeline: Optional[str] = None
+
+    def apply(self, x_hat, *, pipeline: Optional[str] = None,
+              lowering: str = "auto"):
+        pipeline = pipeline or self.pipeline
+        if lowering not in LOWERINGS:
+            raise ValueError(f"unknown depthwise lowering {lowering!r}; "
+                             "expected 'auto', 'qdot' or 'per_group'")
+        if lowering == "auto":
+            lowering = AUTO_LOWERING
+        if lowering == "per_group":
+            return torch.cat([api.qconv(pg, x_hat[..., c:c + 1],
+                                        pipeline=pipeline)
+                              for c, pg in enumerate(self.per_group)],
+                             dim=-1)
+        cols, _, _ = im2col_hwc(x_hat, self.fh, self.fw, self.stride,
+                                self.padding)
+        return api.qdot(self.gemm, cols, pipeline=pipeline)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,6 +311,61 @@ def quantize_conv_layer_segmented(p: dict, spec_x: QuantSpec,
                                          stride=stride, padding=padding,
                                          pipeline=pipeline))
     return QSegmentedConv2D(runs=runs, parts=tuple(parts))
+
+
+def quantize_depthwise(p: dict, spec_x: QuantSpec, spec_y: QuantSpec,
+                       w_bits: int, *, stride: int, padding: int,
+                       pipeline: Optional[str] = None) -> QDepthwiseConv2D:
+    """fp depthwise node (w: (fh, fw, C)) -> QDepthwiseConv2D on ``w``'s
+    device, both lowerings from ONE quantization and ONE fold; each
+    channel's epilogue vectors are copies of its slice of the layer's (a
+    re-fold per channel would pick other shifts d; a view would start
+    where the conv kernel's 16-byte copies cannot)."""
+    w = p["w"]
+    fh, fw, c = w.shape
+    dev = w.device
+    spec_w = calibrate_weight(w, w_bits)
+    taps = quantize(w, spec_w).reshape(fh * fw, c)
+    kappa, lam, m, d = fold_bn_requant(
+        spec_w.eps, spec_x.eps, spec_y.eps, p["bn_scale"], p["bn_bias"],
+        spec_y.bits)
+
+    # block-diagonal GEMM weights, K tap-major in im2col_hwc's (dy, dx, c)
+    # order, N = C
+    bd = torch.zeros((fh * fw, c, c), dtype=torch.int8, device=dev)
+    ch = torch.arange(c, device=dev)
+    bd[:, ch, ch] = taps
+    k_logical = fh * fw * c
+    gemm = QuantizedLinearParams(
+        w_packed=packing.pack(packing.pad_to_chunk(
+            bd.reshape(k_logical, c), axis=0), w_bits, axis=0),
+        w_bits=w_bits, a_bits=spec_x.bits, a_signed=spec_x.signed,
+        kappa=kappa, lam=lam, m=m, d=d, out_bits=spec_y.bits,
+        k_logical=k_logical)
+
+    # channel ci as a standard (cin=1, cout=1) conv
+    cin_pad = packing.padded_size(1)
+    per_group = []
+    for ci in range(c):
+        wc = taps[:, ci:ci + 1]                       # (fh*fw, 1)
+        w_tap = torch.zeros((fh * fw, cin_pad, 1), dtype=torch.int8,
+                            device=dev)
+        w_tap[:, 0, 0] = wc[:, 0]
+        g = QuantizedLinearParams(
+            w_packed=packing.pack(packing.pad_to_chunk(wc, axis=0), w_bits,
+                                  axis=0),
+            w_bits=w_bits, a_bits=spec_x.bits, a_signed=spec_x.signed,
+            kappa=kappa[ci:ci + 1].clone(), lam=lam[ci:ci + 1].clone(),
+            m=m[ci:ci + 1].clone(), d=d, out_bits=spec_y.bits,
+            k_logical=fh * fw)
+        per_group.append(QuantizedConvParams(
+            gemm=g, fh=fh, fw=fw, stride=stride, padding=padding, cin=1,
+            cout=1, w_packed_fused=packing.pack(
+                w_tap.reshape(fh * fw * cin_pad, 1), w_bits, axis=0),
+            cin_pad=cin_pad))
+    return QDepthwiseConv2D(
+        gemm=gemm, per_group=tuple(per_group), fh=fh, fw=fw, stride=stride,
+        padding=padding, channels=c, pipeline=pipeline)
 
 
 def quantize_linear_head(p: dict, spec_x: QuantSpec, w_bits: int, *,

@@ -27,11 +27,7 @@ from repro_torch.kernels.api import check_backend
 from repro_torch.nn.layers import QuantConfig
 from repro_torch.vision import layers as vl
 
-COMPUTE_KINDS = ("conv", "linear")     # plan-addressable layers
-_NOT_PORTED = {
-    "dwconv": "depthwise layers (QDepthwiseConv2D) are not ported yet; "
-              "see ROADMAP Queue 1, item 4",
-}
+COMPUTE_KINDS = ("conv", "dwconv", "linear")    # plan-addressable layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +35,8 @@ class LayerDef:
     """One graph node. ``path`` doubles as the param/plan label."""
 
     path: str
-    kind: str                 # conv | linear | maxpool | avgpool_global | add
+    kind: str                 # conv | dwconv | linear | maxpool |
+                              # avgpool_global | add
     cout: int = 0
     fh: int = 3
     fw: int = 3
@@ -62,12 +59,6 @@ class VisionConfig:
     a_bits: int = 8
 
 
-def _unknown(L: LayerDef):
-    if L.kind in _NOT_PORTED:
-        return NotImplementedError(f"{L.path}: {_NOT_PORTED[L.kind]}")
-    return ValueError(f"{L.path}: unknown kind {L.kind!r}")
-
-
 # ------------------------------------------------------------ tracing ---
 
 def trace_shapes(cfg: VisionConfig):
@@ -79,9 +70,10 @@ def trace_shapes(cfg: VisionConfig):
     for L in cfg.layers:
         src = edges[L.input_from] if L.input_from else stream
         h, w, c = src
-        if L.kind == "conv":
+        if L.kind in ("conv", "dwconv"):
             dst = ((h + 2 * L.padding - L.fh) // L.stride + 1,
-                   (w + 2 * L.padding - L.fw) // L.stride + 1, L.cout)
+                   (w + 2 * L.padding - L.fw) // L.stride + 1,
+                   L.cout if L.kind == "conv" else c)
         elif L.kind == "maxpool":
             dst = ((h - L.window) // L.stride + 1,
                    (w - L.window) // L.stride + 1, c)
@@ -96,7 +88,7 @@ def trace_shapes(cfg: VisionConfig):
         elif L.kind == "linear":
             dst = (0, 0, L.cout)
         else:
-            raise _unknown(L)
+            raise ValueError(f"{L.path}: unknown kind {L.kind!r}")
         if min(dst[:2]) < 0 or (dst[0] == 0) != (dst[1] == 0):
             raise ValueError(f"{L.path}: bad output geometry {dst}")
         out.append({"layer": L, "in": src, "out": dst})
@@ -144,6 +136,15 @@ def init_fp(cfg: VisionConfig, seed: int = 0, device="cuda") -> dict:
                 "bn_bias": t((rng.normal(size=(L.cout,)) * 0.05).astype(
                     np.float32)),
             }
+        elif L.kind == "dwconv":
+            node = {
+                "w": t(rng.normal(size=(L.fh, L.fw, c)).astype(np.float32)
+                       * (2.0 / (L.fh * L.fw)) ** 0.5),
+                "bn_scale": t((rng.normal(size=(c,)) * 0.05
+                               + 0.4).astype(np.float32)),
+                "bn_bias": t((rng.normal(size=(c,)) * 0.05).astype(
+                    np.float32)),
+            }
         elif L.kind == "linear":
             node = {"w": t(rng.normal(size=(c, L.cout)).astype(np.float32)
                            / c ** 0.5)}
@@ -168,6 +169,9 @@ def forward_fp(cfg: VisionConfig, params: dict, x: torch.Tensor,
         if L.kind == "conv":
             y = vl.conv2d_fp(get_path(params, L.path), xin,
                              stride=L.stride, padding=L.padding)
+        elif L.kind == "dwconv":
+            y = vl.depthwise_fp(get_path(params, L.path), xin,
+                                stride=L.stride, padding=L.padding)
         elif L.kind == "maxpool":
             y = vl.maxpool_fp(xin, L.window, L.stride)
         elif L.kind == "avgpool_global":
@@ -177,7 +181,7 @@ def forward_fp(cfg: VisionConfig, params: dict, x: torch.Tensor,
         elif L.kind == "linear":
             y = vl.linear_fp(get_path(params, L.path), xin)
         else:
-            raise _unknown(L)
+            raise ValueError(f"{L.path}: unknown kind {L.kind!r}")
         if edge_tap is not None:
             edge_tap(L.path, y)
         if L.save_as:
@@ -240,8 +244,8 @@ class QuantizedVisionNet:
 
 
 def _gemms(q) -> Tuple[QuantizedLinearParams, ...]:
-    """The GEMM artifacts of one conv or linear layer (one per run of a
-    segmented conv)."""
+    """The GEMM artifacts of one compute layer: one per run of a
+    segmented conv, a depthwise layer's block-diagonal GEMM."""
     if isinstance(q, vl.QSegmentedConv2D):
         return tuple(p.conv.gemm for p in q.parts)
     if isinstance(q, vl.QConv2D):
@@ -299,6 +303,17 @@ def quantize_net(cfg: VisionConfig, fp_params: dict, absmax: dict, *,
                     get_path(fp_params, L.path), spec_x, spec_y,
                     qcfg.w_bits, stride=L.stride, padding=L.padding,
                     pipeline=qcfg.pipeline)
+        elif L.kind == "dwconv":
+            if qcfg.segments is not None:
+                raise NotImplementedError(
+                    f"{L.path}: segmented plans are not supported on "
+                    "depthwise layers (per-channel grids make channel-"
+                    "group demotion a per-layer width change; plan with "
+                    "granularity='layer' for depthwise nets)")
+            spec_y = out_spec(L.path)
+            q = vl.quantize_depthwise(
+                get_path(fp_params, L.path), spec_x, spec_y, qcfg.w_bits,
+                stride=L.stride, padding=L.padding, pipeline=qcfg.pipeline)
         elif L.kind == "maxpool":
             spec_y = spec_x                      # grid-preserving
             q = vl.QMaxPool2D(window=L.window, stride=L.stride)
@@ -342,17 +357,20 @@ def quantize_input(qnet: QuantizedVisionNet, x) -> torch.Tensor:
 
 
 def forward_int(qnet: QuantizedVisionNet, x_hat: torch.Tensor, *,
-                pipeline: Optional[str] = None,
+                pipeline: Optional[str] = None, lowering: str = "auto",
                 collect: Optional[Callable] = None) -> torch.Tensor:
     """Integer-only forward: uint{a_bits} images in, int32 logits out, on
     the images' device (kernels on CUDA, plain versions on the CPU).
-    ``pipeline`` forces one pipeline net-wide; ``collect(path, y_hat)``
+    ``pipeline`` forces one pipeline net-wide, ``lowering`` one depthwise
+    lowering (`QDepthwiseConv2D.apply`); ``collect(path, y_hat)``
     observes every integer edge."""
     stream = x_hat
     edges: Dict[str, torch.Tensor] = {}
     for L, q in qnet.qlayers:
         xin = edges[L.input_from] if L.input_from else stream
-        if L.kind in COMPUTE_KINDS:
+        if L.kind == "dwconv":
+            y = q.apply(xin, pipeline=pipeline, lowering=lowering)
+        elif L.kind in COMPUTE_KINDS:
             y = q.apply(xin, pipeline=pipeline)
         elif L.kind == "add":
             y = q.apply(xin, edges[L.skip_from])
@@ -374,7 +392,8 @@ def _nbytes(t: torch.Tensor) -> int:
 def streamed_weight_bytes(qnet: QuantizedVisionNet) -> int:
     """Bytes of the weight-side arrays of the GEMM route: per compute
     layer (per run of a segmented conv), the packed weights plus the
-    epilogue vectors."""
+    epilogue vectors. A depthwise layer counts its block-diagonal GEMM
+    only, not its per-channel convs."""
     return sum(_nbytes(a) for L, q in qnet.qlayers
                if L.kind in COMPUTE_KINDS for g in _gemms(q)
                for a in (g.w_packed, g.kappa, g.lam, g.m))
@@ -382,7 +401,7 @@ def streamed_weight_bytes(qnet: QuantizedVisionNet) -> int:
 
 def vision_artifact_bytes(qnet: QuantizedVisionNet) -> int:
     """Total bytes of the arrays in the deployable net (both conv weight
-    layouts count)."""
+    layouts count, and both depthwise lowerings)."""
     seen = set()
 
     def walk(obj) -> int:

@@ -141,10 +141,13 @@ def test_qconv_kernel_matches_plain(dev, a_bits, w_bits, pipeline):
 
 # (n, h, w, cin, cout, f, stride, padding) the real-channel K order makes
 # risky: Cin 1, 3, 160, 200 (two chunks, one ragged), Cout 10, 48, 200, a
-# 1x1 stride-2 conv, 5x5 convs, Wo not dividing the 128-pixel tile
+# 1x1 stride-2 conv, 5x5 convs, Wo not dividing the 128-pixel tile; and
+# the depthwise per-group lowering's cin = cout = 1 3x3 convs at stride 1
+# and 2 (one real column of a 16-wide tile, a 1-byte output row)
 WALL = ((2, 9, 7, 1, 10, 5, 1, 2), (2, 11, 9, 3, 48, 3, 1, 1),
         (2, 8, 8, 160, 200, 3, 2, 1), (2, 9, 9, 200, 48, 1, 2, 0),
-        (1, 7, 13, 3, 200, 5, 1, 2))
+        (1, 7, 13, 3, 200, 5, 1, 2), (2, 8, 8, 1, 1, 3, 1, 1),
+        (2, 8, 8, 1, 1, 3, 2, 1))
 
 
 @pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
@@ -193,6 +196,65 @@ def test_resnet8_on_the_card_matches_cpu(dev):
     cpu = to_device(qnet, "cpu")
     want = models.forward_int(cpu, models.quantize_input(cpu, imgs))
     assert torch.equal(got.cpu(), want)
+
+
+def _card_and_cpu_nets(name, dev, w_bits):
+    """A seeded smoke net quantized on the card at uniform ``w_bits``, its
+    CPU copy and seeded images."""
+    from repro_torch.convert import to_device
+    from repro_torch.launch.vision import uniform_plan
+    from repro_torch.vision import models
+    from repro_torch.vision.configs import get_vision_config
+
+    cfg = get_vision_config(name, smoke=True)
+    fp = models.init_fp(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    absmax = models.collect_absmax(cfg, fp, [rng.uniform(
+        0, 1, (4, *cfg.in_hw, 3)).astype(np.float32)])
+    qnet = models.quantize_net(cfg, fp, absmax, device=dev,
+                               plan=uniform_plan(cfg, w_bits, cfg.a_bits))
+    return qnet, to_device(qnet, "cpu"), rng.uniform(0, 1,
+                                                     (5, *cfg.in_hw, 3))
+
+
+@pytest.mark.parametrize("w_bits", [8, 4, 2])
+def test_mobilenet_on_the_card_matches_cpu(dev, w_bits):
+    from repro_torch.vision import models
+
+    qnet, cpu, imgs = _card_and_cpu_nets("mobilenet-tiny", dev, w_bits)
+    want = models.forward_int(cpu, models.quantize_input(cpu, imgs))
+    x = models.quantize_input(qnet, imgs)
+    for lowering in ("auto", "qdot", "per_group"):
+        for pipeline in ("off", "double_buffer"):
+            got = models.forward_int(qnet, x, lowering=lowering,
+                                     pipeline=pipeline)
+            assert torch.equal(got.cpu(), want), (lowering, pipeline)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_depthwise_lowerings_on_the_card_match_cpu(dev, a_bits, w_bits,
+                                                   pipeline):
+    from repro_torch.convert import to_device
+    from repro_torch.core.quantize import QuantSpec
+    from repro_torch.vision.layers import quantize_depthwise
+
+    rng = np.random.default_rng(a_bits * 10 + w_bits + 3)
+    for c, stride in itertools.product((16, 32, 64), (1, 2)):
+        p = {"w": rng.normal(size=(3, 3, c)).astype(np.float32),
+             "bn_scale": (rng.normal(size=(c,)) * 0.05 + 0.4).astype(
+                 np.float32),
+             "bn_bias": (rng.normal(size=(c,)) * 0.02).astype(np.float32)}
+        dw = quantize_depthwise(
+            {k: torch.from_numpy(v).to(dev) for k, v in p.items()},
+            QuantSpec.activation(a_bits, 2.0),
+            QuantSpec.activation(a_bits, 1.5), w_bits, stride=stride,
+            padding=1)
+        x = _ints(rng, a_bits, False, (3, 8, 8, c), dev)
+        want = to_device(dw, "cpu").apply(x.cpu(), lowering="qdot")
+        for lowering in ("qdot", "per_group"):
+            got = dw.apply(x, lowering=lowering, pipeline=pipeline)
+            assert torch.equal(got.cpu(), want), (c, stride, lowering)
 
 
 MIXES = ((8, 4), (8, 2), (4, 2), (8, 4, 2))

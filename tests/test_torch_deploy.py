@@ -59,9 +59,42 @@ def _port_stats(rstats):
         for p, st in rstats.items()}
 
 
+@pytest.fixture(scope="module")
+def mcalib():
+    """mobilenet-tiny (smoke) calibrated by both packages on the same
+    seeded fp params and images."""
+    rcfg = r_config("mobilenet-tiny", smoke=True)
+    pcfg = p_config("mobilenet-tiny", smoke=True)
+    rng = np.random.default_rng(1)
+    batches = [rng.uniform(0, 1, size=(4, 16, 16, 3)).astype(np.float32)
+               for _ in range(2)]
+    rfp = r_models.init_fp(rcfg, seed=1)
+    rstats, rabsmax = r_cal.calibrate_vision(rcfg, rfp, batches)
+    pfp = convert.fp_params_from_numpy(np_tree(rfp), "cpu")
+    pstats, pabsmax = p_cal.calibrate_vision(pcfg, pfp, batches)
+    images = rng.uniform(0, 1, size=(3, 16, 16, 3)).astype(np.float32)
+    return dict(rcfg=rcfg, pcfg=pcfg, rfp=rfp, pfp=pfp, rstats=rstats,
+                rabsmax=rabsmax, pstats=pstats, pabsmax=pabsmax,
+                images=images)
+
+
 def test_calibrate_vision_matches_reference(calib):
+    _check_calibration(calib, ["c1", "c2", "c3", "head"])
+
+
+def test_mobilenet_calibrate_vision_matches_reference(mcalib):
+    _check_calibration(mcalib, ["stem", "block0/dw", "block0/pw",
+                                "block1/dw", "block1/pw", "head"])
+    # a depthwise layer is priced as its block-diagonal GEMM (fh*fw*C, C)
+    for path, c in (("block0/dw", 8), ("block1/dw", 16)):
+        st = mcalib["pstats"][path]
+        assert (st.d_in, st.d_out) == (9 * c, c), path
+        assert st.col_sq_err[8].shape == (c,)
+
+
+def _check_calibration(calib, paths):
     rs, ps = calib["rstats"], calib["pstats"]
-    assert list(ps) == list(rs) == ["c1", "c2", "c3", "head"]
+    assert list(ps) == list(rs) == paths
     for path, r in rs.items():
         p = ps[path]
         assert (p.layers, p.d_in, p.d_out, p.taps) == \
@@ -109,6 +142,47 @@ def test_planner_json_identical_given_reference_stats(calib, granularity,
         coarse = p_plan.plan_mixed_precision(pstats, rb)
         assert (got.meta["packed_weight_bytes"]
                 <= coarse.meta["packed_weight_bytes"])
+
+
+@pytest.mark.parametrize("granularity", ["layer", "channel_group"])
+@pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
+def test_mobilenet_plan_json_identical_and_serves_alike(mcalib, granularity,
+                                                        frac):
+    """Every MobileNet layer has C <= CHUNK, so a channel-group plan gives
+    no segments (a depthwise layer refuses them); given the reference's
+    stats the plan JSON is the reference's, and it quantizes to
+    byte-identical artifacts whose logits agree under both lowerings."""
+    rstats, pstats = mcalib["rstats"], _port_stats(mcalib["rstats"])
+    rb = r_plan.auto_budget(rstats, frac=frac)
+    meta = {"arch": "mobilenet-tiny", "smoke": True}
+    want = r_plan.plan_mixed_precision(rstats, rb, granularity=granularity,
+                                       meta=meta)
+    got = p_plan.plan_mixed_precision(pstats, rb, granularity=granularity,
+                                      meta=meta)
+    assert got.to_json() == want.to_json()
+    assert all(r.segments is None for r in got.rules)
+    rq = r_models.quantize_net(mcalib["rcfg"], mcalib["rfp"],
+                               mcalib["rabsmax"], plan=want)
+    pq = p_models.quantize_net(mcalib["pcfg"], mcalib["pfp"],
+                               mcalib["rabsmax"], plan=got, device="cpu")
+    assert_artifacts_equal(pq.qlayers, rq.qlayers, "mobilenet plan")
+    assert pq.layer_bits() == rq.layer_bits()
+    assert (p_models.streamed_weight_bytes(pq)
+            == r_models.streamed_weight_bytes(rq))
+    rl = r_models.forward_int(rq, r_models.quantize_input(
+        rq, mcalib["images"]), backend="xla")
+    px = p_models.quantize_input(pq, mcalib["images"])
+    for lowering in ("qdot", "per_group"):
+        assert_same(p_models.forward_int(pq, px, lowering=lowering), rl,
+                    f"plan logits ({lowering})")
+
+
+def test_depthwise_layer_refuses_segments(mcalib):
+    plan = p_policy.PrecisionPlan(rules=(p_policy.PlanRule(
+        pattern="block0/dw", w_bits=8, segments=((0, 8, 8),)),))
+    with pytest.raises(NotImplementedError, match="depthwise"):
+        p_models.quantize_net(mcalib["pcfg"], mcalib["pfp"],
+                              mcalib["rabsmax"], plan=plan, device="cpu")
 
 
 def _skewed_stats(cal):

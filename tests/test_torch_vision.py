@@ -1,5 +1,7 @@
-"""The port's whole slice against the reference: ResNet-8 (smoke size)
-quantized, run and served by both packages from the same numbers.
+"""The port's whole slice against the reference: ResNet-8 and
+MobileNetV1-tiny (smoke size) quantized, run and served by both packages
+from the same numbers; MobileNet's depthwise layers under both
+lowerings.
 
 Integer outputs are compared for exact equality: the quantized artifacts
 array by array, every integer edge of `forward_int`, the logits, and
@@ -38,15 +40,14 @@ WIDTHS = [8, 4, 2]
 def _uniform_ref_plan(cfg, w_bits):
     return r_policy.PrecisionPlan(
         rules=tuple(r_policy.PlanRule(pattern=L.path, w_bits=w_bits)
-                    for L in cfg.layers if L.kind in ("conv", "linear")),
+                    for L in cfg.layers if L.kind in r_models.COMPUTE_KINDS),
         default_w_bits=w_bits)
 
 
-@pytest.fixture(scope="module")
-def art():
+def _art(net):
     """Reference fp params, calibration images, absmax and images."""
-    rcfg = r_config("resnet8", smoke=True)
-    pcfg = p_config("resnet8", smoke=True)
+    rcfg = r_config(net, smoke=True)
+    pcfg = p_config(net, smoke=True)
     rng = np.random.default_rng(SEED)
     batches = [rng.uniform(0, 1, size=(4, *rcfg.in_hw, 3)).astype(
         np.float32) for _ in range(2)]
@@ -55,6 +56,16 @@ def art():
     images = rng.uniform(0, 1, size=(6, *rcfg.in_hw, 3)).astype(np.float32)
     return dict(rcfg=rcfg, pcfg=pcfg, rfp=rfp, fp_np=np_tree(rfp),
                 batches=batches, absmax=absmax, images=images, nets={})
+
+
+@pytest.fixture(scope="module")
+def art():
+    return _art("resnet8")
+
+
+@pytest.fixture(scope="module")
+def mart():
+    return _art("mobilenet-tiny")
 
 
 def _nets(art, w_bits):
@@ -72,6 +83,16 @@ def _nets(art, w_bits):
 
 
 def test_init_fp_and_trace_shapes_match(art):
+    _check_init_fp_and_trace_shapes(art, 9 * 3 + 1)   # 9 convs + head
+
+
+def test_mobilenet_init_fp_and_trace_shapes_match(mart):
+    # stem, two dw + pw blocks (smoke), head, drawn in the reference's
+    # order: a skipped or reordered draw would shift every later array
+    _check_init_fp_and_trace_shapes(mart, 5 * 3 + 1)
+
+
+def _check_init_fp_and_trace_shapes(art, n_arrays):
     pfp = p_models.init_fp(art["pcfg"], seed=SEED, device="cpu")
     flat_r, flat_p = [], []
 
@@ -83,7 +104,7 @@ def test_init_fp_and_trace_shapes_match(art):
             out.append(t)
     walk(art["fp_np"], flat_r)
     walk(pfp, flat_p)
-    assert len(flat_r) == len(flat_p) == 9 * 3 + 1   # 9 convs + head
+    assert len(flat_r) == len(flat_p) == n_arrays
     for p, r in zip(flat_p, flat_r):
         assert_same(p, r, "fp param")
     rs = [(t["in"], t["out"]) for t in r_models.trace_shapes(art["rcfg"])]
@@ -92,6 +113,14 @@ def test_init_fp_and_trace_shapes_match(art):
 
 
 def test_collect_absmax_agrees_to_stated_tolerance(art):
+    _check_collect_absmax(art)
+
+
+def test_mobilenet_collect_absmax_agrees_to_stated_tolerance(mart):
+    _check_collect_absmax(mart)
+
+
+def _check_collect_absmax(art):
     pfp = convert.fp_params_from_numpy(art["fp_np"], "cpu")
     got = p_models.collect_absmax(art["pcfg"], pfp, art["batches"])
     assert got.keys() == art["absmax"].keys()
@@ -101,6 +130,19 @@ def test_collect_absmax_agrees_to_stated_tolerance(art):
 
 @pytest.mark.parametrize("w_bits", WIDTHS)
 def test_quantize_net_artifacts_byte_identical(art, w_bits):
+    _check_artifacts(art, w_bits)
+
+
+@pytest.mark.parametrize("w_bits", WIDTHS)
+def test_mobilenet_quantize_net_artifacts_byte_identical(mart, w_bits):
+    _check_artifacts(mart, w_bits)
+    _, pq = _nets(mart, w_bits)
+    dws = [q for L, q in pq.qlayers if L.kind == "dwconv"]
+    assert len(dws) == 2 and all(isinstance(q, p_vl.QDepthwiseConv2D)
+                                 for q in dws)
+
+
+def _check_artifacts(art, w_bits):
     rq, pq = _nets(art, w_bits)
     assert_artifacts_equal(pq.qlayers, rq.qlayers, "qlayers")
     assert_artifacts_equal(pq.input_spec, rq.input_spec, "input_spec")
@@ -114,6 +156,17 @@ def test_quantize_net_artifacts_byte_identical(art, w_bits):
 
 @pytest.mark.parametrize("w_bits", WIDTHS)
 def test_forward_int_logits_and_edges_identical(art, w_bits):
+    _check_forward_int(art, w_bits, "auto")
+
+
+@pytest.mark.parametrize("lowering", ["qdot", "per_group"])
+@pytest.mark.parametrize("w_bits", WIDTHS)
+def test_mobilenet_forward_int_identical_under_both_lowerings(mart, w_bits,
+                                                              lowering):
+    _check_forward_int(mart, w_bits, lowering)
+
+
+def _check_forward_int(art, w_bits, lowering):
     rq, pq = _nets(art, w_bits)
     rx = r_models.quantize_input(rq, art["images"])
     px = p_models.quantize_input(pq, art["images"])
@@ -121,7 +174,7 @@ def test_forward_int_logits_and_edges_identical(art, w_bits):
     r_edges, p_edges = {}, {}
     rl = r_models.forward_int(rq, rx, backend="xla",
                               collect=lambda k, v: r_edges.setdefault(k, v))
-    pl = p_models.forward_int(pq, px,
+    pl = p_models.forward_int(pq, px, lowering=lowering,
                               collect=lambda k, v: p_edges.setdefault(k, v))
     assert list(p_edges) == list(r_edges)
     for k in r_edges:
@@ -129,7 +182,8 @@ def test_forward_int_logits_and_edges_identical(art, w_bits):
     assert_same(pl, rl, "logits")
     # the reference's own artifact, carried across without re-quantizing
     bridged = convert.qnet_from_numpy(neutral(rq), "cpu")
-    assert_same(p_models.forward_int(bridged, px), rl, "bridged logits")
+    assert_same(p_models.forward_int(bridged, px, lowering=lowering), rl,
+                "bridged logits")
 
 
 def test_vision_engine_ragged_waves_match_reference(art):
@@ -234,8 +288,13 @@ def test_cli_serves_on_cpu_and_names_what_waits(art, capsys, tmp_path):
                    "--requests", "2", "--batch", "2"])
     assert "vision deploy done" in capsys.readouterr().out
     assert p_config("qat-cnn").name == "qat-cnn"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_config("mobilenet-tiny")
+    # the paper's third network builds and serves too
+    logits = p_launch.main(["--net", "mobilenet-tiny", "--smoke", "--device",
+                            "cpu", "--bits", "4", "--requests", "3",
+                            "--batch", "2"])
+    assert logits.shape == (3, 10) and logits.dtype == np.int32
+    out = capsys.readouterr().out
+    assert "vision deploy done" in out and "'block0/dw': 4" in out
     with pytest.raises(KeyError):
         p_config("vgg")
 
