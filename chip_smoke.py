@@ -56,7 +56,28 @@
    layer and whose logits must equal the served ones. qmatmul and qconv
    must have launched at both STAGES; the CPU re-quantizes every net
    (byte-identical artifacts, identical logits).
-6. Times each kernel (CUDA events and profiler device time) beside its
+6. [tune]: `kernels.tune.autotune_qdot` on the card over the ResNet-8
+   head and MobileNet's three block-diagonal GEMMs at a wave of 64,
+   4096x1152x64, fig8 256x2048x256 and 4096x2048x1024 at A8 x W{8,4,2}
+   (every launch `gemm_launches` lists, both pipelines), and
+   `autotune_qconv` over ResNet-8's nine conv geometries at W8A8 (both
+   pipelines), ranked by profiler device time; every candidate's output
+   must equal the planned launch's. One line per shape: the planned
+   launch and its device us, the winner and its device us, both re-timed
+   in turns. The cache is
+   saved to ``chiprun_out/tune_cache.json``, loaded and merged into a
+   cleared cache, and one resnet8 W8 wave served with it: logits equal to
+   the untuned wave's, every dispatch a cache hit with a tuned pipeline.
+7. [obs]: observability off, a served resnet8 wave records nothing; on,
+   one W8A8 wave each of resnet8 and mobilenet-tiny under torch.profiler,
+   exported to ``chiprun_out/trace.json`` and rendered by
+   `repro_torch.obs.report`; the op counters must equal those of the same
+   nets on the CPU plain path (backend name aside). Prints the report's
+   MAC/us per (op, W, A, pipeline) (span wall time, synced) beside MACs
+   over the kernels' device time. Both phases start and end with an
+   empty tune cache and observability off; ``REPRO_QTUNE_CACHE`` is
+   ignored.
+8. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -78,6 +99,7 @@ so the exit code is non-zero and no such line is printed. Details go to
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -579,12 +601,13 @@ def read_launches():
     return {name: dict(k.launches) for name, k in kernels_by_name().items()}
 
 
-def require_launches(path, launches, names):
-    """Fail unless every stage count of each named kernel launched in the
-    window of ``path``; print the window's counts."""
+def require_launches(path, launches, names, stages_needed=(1, 2)):
+    """Fail unless every stage count of ``stages_needed`` of each named
+    kernel launched in the window of ``path``; print the window's
+    counts."""
     for name in names:
         for stages, n in launches[name].items():
-            if n == 0:
+            if n == 0 and stages in stages_needed:
                 raise AssertionError(f"{name} STAGES={stages} never "
                                      f"launched on the {path} main path")
     say("launches", path=path, **{f"{k}_s{s}": n
@@ -1235,6 +1258,284 @@ def segmented_timing_phase(dev, report):
     return rows
 
 
+def w8_net(name, dev):
+    """A full-width net at uniform W8A8 from seeded random weights,
+    quantized on the card, and one wave of images for it."""
+    import numpy as np
+    from repro_torch.launch.vision import uniform_plan
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import (collect_absmax, init_fp,
+                                           quantize_net)
+    cfg = get_vision_config(name)
+    rng = np.random.default_rng(SEED)
+    fp = init_fp(cfg, seed=SEED, device=dev)
+    calib = [rng.uniform(0, 1, size=(WAVE, *cfg.in_hw, cfg.in_ch)).astype(
+        np.float32) for _ in range(2)]
+    qnet = quantize_net(cfg, fp, collect_absmax(cfg, fp, calib),
+                        plan=uniform_plan(cfg, 8, cfg.a_bits), device=dev)
+    images = rng.uniform(0, 1, size=(WAVE, *cfg.in_hw, cfg.in_ch)).astype(
+        np.float32)
+    return qnet, images
+
+
+def clear_tune_and_obs():
+    """Empty the tune cache and every obs buffer, observability off: the
+    phases that count launches per STAGES see no module state."""
+    from repro_torch import obs as obs_pkg
+    from repro_torch.kernels import tune
+    tune.clear()
+    obs_pkg.reset()
+    obs_pkg.disable()
+
+
+def tune_phase(dev, nets, report):
+    """`autotune_qdot` on the card at A8 x W8/W4/W2 over the ResNet-8 head
+    and MobileNet's three block-diagonal GEMMs at a wave, 4096x1152x64,
+    fig8 256x2048x256 and 4096x2048x1024 ('raw'), `autotune_qconv` over
+    ResNet-8's nine conv geometries at W8A8; one [tune] line per shape.
+    Then the cache goes through save / load / merge into a cleared cache
+    and one resnet8 W8 wave is served with it: its logits must equal the
+    untuned wave's, and every dispatch must be a cache hit with a tuned
+    pipeline. Each shape's planned launch and winner are timed once more,
+    in turns (planned, winner, winner, planned, planned, winner; the
+    median of each), to check the winner against the selection's own
+    noise. Returns the kernels' launch counts over the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import api, tune
+    from repro_torch.obs import trace as obs
+    from repro_torch.serve.engine import VisionEngine
+
+    clear_tune_and_obs()
+    try:
+        qnet, images = w8_net("resnet8", dev)
+        untuned = VisionEngine(qnet, batch_size=WAVE, device=dev).run(images)
+        gen = torch.Generator().manual_seed(SEED + 5)
+        gemms = ([("resnet8 head", nets[0]["head"])]
+                 + [(f"mobilenet {p}", sh) for p, sh in nets[1]["dw_gemms"]]
+                 + list(TUNE_GEMMS))
+        rows, runs = [], []
+        reset_launches()
+        t0 = time.perf_counter()
+        with obs.enabled_scope():
+            for label, (m, k, n) in gemms:
+                for w_bits in WIDTHS:
+                    params, xp = tune._mk_qdot_artifact(gen, m, k, n, 8,
+                                                        w_bits, dev)
+                    tune.autotune_qdot(params, xp, epilogue="raw")
+                    rows.append(dict(obs.spans("tune.sweep")[-1]["args"],
+                                     label=label + " " + "x".join(
+                                         map(str, (m, k, n)))))
+                    runs.append(("qmatmul_kernel",
+                                 lambda lc, pl, a=params, b=xp: api.qdot_run(
+                                     a, b, epilogue="raw", scale=1.0,
+                                     pipeline=pl, launch=lc)))
+            for path, (b, h, w_, cin, cout, f, s, p) in nets[0]["convs"]:
+                params, x = tune._mk_qconv_artifact(
+                    gen, h, w_, cin, cout, f, f, s, p, 8, 8, batch=b,
+                    device=dev)
+                tune.autotune_qconv(params, x)
+                rows.append(dict(obs.spans("tune.sweep")[-1]["args"],
+                                 label=f"resnet8 {path}"))
+                runs.append(("qconv_kernel",
+                             lambda lc, pl, a=params, b=x: api.qconv_run(
+                                 a, b, epilogue="int", scale=1.0,
+                                 pipeline=pl)))
+        sweep_s = time.perf_counter() - t0
+        with obs.enabled_scope():
+            for r, (kernel, run) in zip(rows, runs):
+                picks = {"planned": (r["planned_launch"],
+                                     r["planned_pipeline"]),
+                         "winner": (r["winner_launch"],
+                                    r["winner_pipeline"])}
+                turns = {"planned": [], "winner": []}
+                for which in ("planned", "winner", "winner", "planned",
+                              "planned", "winner"):
+                    lc, pl = picks[which]
+                    turns[which].append(tune._device_us(
+                        lambda lc=lc, pl=pl: run(lc, pl), kernel, 20))
+                r["confirm_planned_us"] = sorted(turns["planned"])[1]
+                r["confirm_winner_us"] = sorted(turns["winner"])[1]
+            # timings the profiler held no record of (`tune._device_us`)
+            event_timed = obs.counter_values().get("tune.event_timed", 0)
+        for r in rows:
+            say("tune", op=r["op"], shape=r["label"], a_bits=r["a_bits"],
+                w_bits=r["w_bits"], candidates=r["candidates"],
+                planned=json.dumps(r["planned_launch"]),
+                planned_pipeline=r["planned_pipeline"],
+                planned_us=r["planned_us"],
+                winner=json.dumps(r["winner_launch"]),
+                winner_pipeline=r["winner_pipeline"],
+                winner_us=r["winner_us"],
+                planned_over_winner=round(r["planned_us"] / r["winner_us"],
+                                          4),
+                confirm_planned_us=round(r["confirm_planned_us"], 3),
+                confirm_winner_us=round(r["confirm_winner_us"], 3),
+                confirm_ratio=round(r["confirm_planned_us"]
+                                    / r["confirm_winner_us"], 4),
+                timer=r["timer"], exact=r["exact"])
+            if not r["exact"] or r["timer"] != "device":
+                raise AssertionError(f"tune {r['op']} {r['label']} "
+                                     f"W{r['w_bits']}: {r['mismatched']} "
+                                     "differ from the planned launch")
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        tune.save(out / "tune_cache.json")
+        n_entries = len(tune.entries())
+        tune.clear()
+        tune.merge(tune.load(out / "tune_cache.json"))
+        if len(tune.entries()) != n_entries:
+            raise AssertionError("the tune cache did not survive save/load")
+        with obs.enabled_scope():
+            tuned = VisionEngine(qnet, batch_size=WAVE,
+                                 device=dev).run(images)
+            log = obs.dispatch_log()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if not np.array_equal(tuned, untuned):
+            raise AssertionError("the tuned resnet8 wave's logits differ "
+                                 "from the untuned wave's")
+        bad = [d for d in log if not d["tune_cache_hit"]
+               or d["pipeline_source"] != "tuned"]
+        if len(log) != 10 or bad:
+            raise AssertionError(f"tuned wave: {len(log)} dispatches, "
+                                 f"misses or untuned pipelines: {bad}")
+        say("tune", net="resnet8 W8", images=WAVE, entries=n_entries,
+            sweep_s=round(sweep_s, 1), event_timed=event_timed,
+            dispatches=len(log),
+            all_cache_hits=True, logits_equal_untuned=True,
+            tuned_pipelines=json.dumps(sorted(
+                {d["pipeline"] for d in log})),
+            tuned_launches=json.dumps(sorted(
+                {json.dumps(d["launch"]) for d in log})))
+        require_launches("tune", launches, ("qmatmul", "qconv"))
+        report["tune"] = {"rows": rows, "sweep_s": sweep_s,
+                          "event_timed": event_timed, "entries": n_entries,
+                          "launches": launches}
+        return launches
+    finally:
+        clear_tune_and_obs()
+
+
+# the GEMMs the [tune] phase sweeps besides the main paths' own
+TUNE_GEMMS = (("big", BIG_GEMM), ("fig8", (256, 2048, 256)),
+              ("big2", (4096, 2048, 1024)))
+# the port's kernels by the op their launches count under
+KERNEL_OPS = {"qmatmul_kernel": "qdot", "qconv_kernel": "qconv",
+              "qmatmul_segmented_kernel": "qdot_mixed"}
+
+
+def obs_phase(dev, report):
+    """Observability off: a served resnet8 wave records nothing. On: one
+    W8A8 wave each of resnet8 and mobilenet-tiny, then the same waves
+    again under one torch.profiler session, exported to
+    chiprun_out/trace.json and rendered by the port's report; their op
+    counters must equal the same nets' on the CPU plain path (backend
+    name aside). Prints the report's MAC/us rows (span wall time, synced;
+    with and without the profiler) beside MACs over the kernels' device
+    time. Returns the kernels' launch counts over the card waves."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs as obs_pkg
+    from repro_torch.convert import to_device
+    from repro_torch.kernels.api import device_backend
+    from repro_torch.obs import counters, report as obs_report
+    from repro_torch.obs import trace as obs
+    from repro_torch.serve.engine import VisionEngine
+
+    clear_tune_and_obs()
+    try:
+        waves = [w8_net(name, dev) for name in ("resnet8", "mobilenet-tiny")]
+        reset_launches()
+        VisionEngine(waves[0][0], batch_size=WAVE, device=dev).run(
+            waves[0][1])
+        if obs.events() or obs.dispatch_log() or counters.snapshot() \
+                or obs.counter_values():
+            raise AssertionError("observability off recorded something")
+        # the spans once without the profiler, whose tracing costs host
+        # time per launch
+        with obs.enabled_scope():
+            for qnet, images in waves:
+                VisionEngine(qnet, batch_size=WAVE, device=dev).run(images)
+        unprofiled = {r["op"]: r["us"] for r in obs_report.mac_table(
+            obs.chrome_trace())}
+        # the profiled pass, again where the trace holds no record of an
+        # op (the profiler has dropped whole sessions on an H100)
+        for _ in range(3):
+            obs_pkg.reset()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                with obs.enabled_scope():
+                    for qnet, images in waves:
+                        VisionEngine(qnet, batch_size=WAVE,
+                                     device=dev).run(images)
+                torch.cuda.synchronize()
+            # device time per op: mean per launch x the op's calls (a
+            # trace may miss a record)
+            dev_us = {}
+            for e in prof.key_averages():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                m = re.search(r"(\w+_kernel)\b", e.key)
+                op = KERNEL_OPS.get(m.group(1)) if m else None
+                if op is not None:
+                    t, n = dev_us.get(op, (0.0, 0))
+                    dev_us[op] = (t + e.self_device_time_total,
+                                  n + e.count)
+            if {"qdot", "qconv"} <= set(dev_us):
+                break
+        launches = read_launches()
+        card = counters.snapshot()
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        path = obs.export_chrome_trace(str(out / "trace.json"))
+        doc = obs_report.load_trace(path)
+        text = obs_report.render(doc)
+        obs_pkg.reset()
+        with obs.enabled_scope():
+            for qnet, images in waves:
+                VisionEngine(to_device(qnet, "cpu"), batch_size=WAVE,
+                             device="cpu").run(images)
+        cpu = counters.snapshot()
+        tag = f"|{device_backend(dev)}|"
+        renamed = {k.replace(tag, "|torch|"): v for k, v in card.items()}
+        if renamed != cpu or not all(tag in k for k in card):
+            raise AssertionError(f"card op counters {card} differ from the "
+                                 f"CPU's {cpu}")
+        say("obs", off_records_nothing=True, trace=str(path),
+            events=len(doc["traceEvents"]),
+            dispatches=len(doc["repro"]["dispatch"]), report_lines=len(
+                text.splitlines()), counters_equal_cpu=True,
+            buckets=len(card))
+        rows = obs_report.mac_table(doc)
+        if len({r["op"] for r in rows}) != len(rows):
+            raise AssertionError("one mac_table row per op expected")
+        for r in rows:
+            if r["op"] not in dev_us:
+                raise AssertionError(f"the profiler holds no kernel of "
+                                     f"{r['op']}")
+            t, n = dev_us[r["op"]]
+            r["device_us"] = t / n * r["calls"]
+            r["macs_per_device_us"] = r["macs"] / r["device_us"]
+            say("obs", op=r["op"], w_bits=r["w_bits"], a_bits=r["a_bits"],
+                backend=r["backend"], pipeline=r["pipeline"],
+                calls=r["calls"], macs=r["macs"],
+                span_us=round(r["us"], 3),
+                macs_per_us=round(r["macs_per_us"], 3),
+                span_us_unprofiled=round(unprofiled[r["op"]], 3),
+                device_us=round(r["device_us"], 3),
+                macs_per_device_us=round(r["macs_per_device_us"], 3),
+                span_over_device=round(r["us"] / r["device_us"], 3))
+        report["obs"] = {"mac_table": rows, "counters": card,
+                         "span_us_unprofiled": unprofiled,
+                         "launches": launches}
+        require_launches("obs", launches, ("qmatmul", "qconv"),
+                         stages_needed=(1,))
+        return launches
+    finally:
+        clear_tune_and_obs()
+
+
 def write_report(report, name: str):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -1248,6 +1549,8 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    # the tune cache is this run's own
+    os.environ.pop("REPRO_QTUNE_CACHE", None)
     from repro_torch.kernels.build import build_all
     from repro_torch.vision.configs import get_vision_config
 
@@ -1272,14 +1575,16 @@ def main() -> int:
 
     cfg = get_vision_config("resnet8")
     shapes = net_shapes(cfg, WAVE)
+    m_shapes = net_shapes(get_vision_config("mobilenet-tiny"), WAVE)
     convs, head = shapes["convs"], shapes["head"]
-    worst = kernel_phase(dev, [shapes, net_shapes(
-        get_vision_config("mobilenet-tiny"), WAVE)], report)
+    worst = kernel_phase(dev, [shapes, m_shapes], report)
     worst.update({("qmatmul_segmented", s): e for s, e in
                   segmented_kernel_phase(dev, report).items()})
     by_path = {"resnet8": main_path(dev, cfg, report),
                "qat-cnn": qat_cnn_path(dev, report)}
     by_path["mobilenet-tiny"], mnet, m_wave = mobilenet_path(dev, report)
+    by_path["tune"] = tune_phase(dev, [shapes, m_shapes], report)
+    by_path["obs"] = obs_phase(dev, report)
     gemm_rows = gemm_timing_phase(dev, head, report)
     conv_rows = timing_phase(dev, convs, report)
     seg_rows = segmented_timing_phase(dev, report)

@@ -1,30 +1,53 @@
 """Quantized-op API: one entry point per op.
 
 ``qdot`` (packed sub-byte GEMM, eq. 2-4; a `SegmentedLinearParams`
-routes to the mixed-operand GEMM) and ``qconv`` (fused implicit-GEMM HWC
-conv) pad and pack on the fly and call the kernel wrappers, which choose
-by the tensor's device: CUDA tensors launch the hand-written Hopper
-kernel (csrc/), CPU tensors run its plain torch version. That is the
-only dispatch; nothing falls back from one to the other.
+routes to the mixed-operand GEMM, op ``qdot_mixed``) and ``qconv``
+(fused implicit-GEMM HWC conv) pad and pack on the fly and call the
+kernel wrappers, which choose by the tensor's device: CUDA tensors
+launch the hand-written Hopper kernel (csrc/), CPU tensors run its plain
+torch version. That is the only dispatch; nothing falls back from one to
+the other.
 
-A backend *name* survives only where a plan JSON or the CLI carries one
-(``cuda`` or ``torch``): `check_backend` holds it against the device the
-net is placed on. Pipeline (the Mac&Load knob, STAGES of the kernels):
-explicit ``pipeline=`` -> ``REPRO_QPIPELINE`` -> ``'off'``.
+A backend *name* survives where a plan JSON or the CLI carries one, and
+in the tune cache's keys and the op counters: ``cuda`` or ``torch``, the
+one the tensor's device runs. `check_backend` holds a plan's name
+against the device the net is placed on.
+
+**Per-call resolution** (`_resolve_call`), with one tune-cache probe
+(`repro_torch.kernels.tune`) per call:
+- pipeline (the Mac&Load knob, STAGES of the kernels): explicit
+  ``pipeline=`` (a plan's pipeline arrives this way from
+  `vision/layers.py`) -> ``REPRO_QPIPELINE`` -> the tuned winner for
+  this (op, shape, bits, backend) -> ``'off'``;
+- launch (the uniform GEMM's K split and register budget): tuned ->
+  planned (`gemm_launch_plan`). ``qdot_mixed`` looks up the pipeline
+  only, keyed by its widest segment width; its K split and the conv's
+  tile are not runtime knobs.
+
+**Observability.** With ``REPRO_OBS=1`` (`repro_torch.obs`), every call
+records one dispatch event (the choice and where each field came from,
+queryable via `repro_torch.obs.dispatch_log()`), bumps the per-(op,
+bits, backend, pipeline) MAC/byte counters and runs inside a
+``cat='kernel'`` span that waits for the device, so the kernel's device
+time lands inside it. Disabled (the default), the instrumentation is a
+single predicate per call.
 """
 from __future__ import annotations
 
-import os
 from typing import Optional, Union
 
 import torch
 
 from repro_torch.core import packing
 from repro_torch.core.quantize import SegmentedLinearParams
+from repro_torch.kernels import tune
 from repro_torch.kernels.common import check_pipeline
 from repro_torch.kernels.qconv.kernel import qconv2d_fused
 from repro_torch.kernels.qmatmul.kernel import (qmatmul_packed,
                                                 qmatmul_segmented)
+from repro_torch.obs import counters as obs_counters
+from repro_torch.obs import env as obsenv
+from repro_torch.obs import trace as obs
 
 # the backend a plan or the CLI may name, by the device it runs on
 BACKENDS = ("cuda", "torch")
@@ -43,15 +66,68 @@ def check_backend(backend: Optional[str],
             f"backend {backend!r} is not a backend of this port; the "
             f"port's backends are {list(BACKENDS)}")
     device = torch.device(device)
-    if backend != ("cuda" if device.type == "cuda" else "torch"):
+    if backend != device_backend(device):
         raise ValueError(
             f"backend {backend!r} does not run on {device} ('cuda' runs "
             "CUDA tensors, 'torch' CPU tensors)")
 
 
-def resolve_pipeline(pipeline: Optional[str] = None) -> str:
-    """Explicit -> ``REPRO_QPIPELINE`` -> 'off'."""
-    return check_pipeline(pipeline or os.environ.get(ENV_PIPELINE) or "off")
+def device_backend(device: torch.device) -> str:
+    """The backend that runs tensors on ``device``."""
+    return "cuda" if device.type == "cuda" else "torch"
+
+
+def resolve_pipeline(pipeline: Optional[str] = None,
+                     entry: Optional[dict] = None) -> str:
+    """Explicit -> ``REPRO_QPIPELINE`` -> the tuned ``entry`` (a tune
+    cache entry, or None) -> 'off'. The env is read (and so validated)
+    only when no explicit pipeline decided."""
+    return check_pipeline(pipeline or obsenv.get(ENV_PIPELINE)
+                          or (entry["pipeline"] if entry else None)
+                          or "off")
+
+
+def _resolve_call(op: str, shape, a_bits: int, w_bits: int, backend: str,
+                  pipeline: Optional[str]):
+    """One tune-cache probe; the call's (launch, pipeline) by the module
+    docstring's precedence; with observability on, one dispatch event
+    with each field's provenance."""
+    entry = tune.get_entry(op, shape, a_bits, w_bits, backend)
+    chosen = resolve_pipeline(pipeline, entry)
+    launch = None if entry is None else entry["launch"]
+    if obs.enabled():
+        env = None if pipeline is not None else obsenv.get(ENV_PIPELINE)
+        obs.dispatch_event(
+            op=op, shape=tuple(int(s) for s in shape), a_bits=int(a_bits),
+            w_bits=int(w_bits), backend=backend, backend_source="device",
+            pipeline=chosen,
+            pipeline_source=("explicit" if pipeline is not None
+                             else "env" if env is not None
+                             else "tuned" if entry is not None
+                             else "default"),
+            env_pipeline=env, launch=launch,
+            launch_source="tuned" if launch is not None else "planned",
+            tune_cache_hit=entry is not None, tune_winner=entry)
+    return launch, chosen
+
+
+def _run_counted(op: str, shape, a_bits: int, w_bits: int, backend: str,
+                 pipeline: str, thunk,
+                 w_packed_bytes: Optional[int] = None):
+    """Run the kernel call. With observability on, bump the (op, bits,
+    backend, pipeline) MAC/byte counters and wrap the run in a
+    ``cat='kernel'`` span that waits for the device, so the device time
+    lands inside it; off, it is a bare call."""
+    if not obs.enabled():
+        return thunk()
+    costs = obs_counters.record(op, shape, a_bits, w_bits, backend=backend,
+                                pipeline=pipeline,
+                                w_packed_bytes=w_packed_bytes)
+    with obs.span(op, cat="kernel", backend=backend, pipeline=pipeline,
+                  a_bits=int(a_bits), w_bits=int(w_bits),
+                  shape=tuple(int(s) for s in shape), macs=costs["macs"],
+                  packed_bytes=costs["packed_bytes"]) as sp:
+        return sp.sync(thunk())
 
 
 def qdot(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,
@@ -70,17 +146,40 @@ def qdot(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,
 
 def qdot_packed(params, x_packed: torch.Tensor, *, epilogue: str = "int",
                 scale=1.0, pipeline: Optional[str] = None) -> torch.Tensor:
-    """`qdot` over already-packed activations (M, K_pad/pf_a)."""
-    pipeline = resolve_pipeline(pipeline)
+    """`qdot` over already-packed activations (M, K_pad/pf_a). The shape
+    key is (M, K padded to CHUNK, N)."""
+    backend = device_backend(x_packed.device)
+    m = x_packed.shape[0]
+    k = x_packed.shape[1] * packing.pack_factor(params.a_bits)
     if isinstance(params, SegmentedLinearParams):
-        return _qdot_mixed(params, x_packed, epilogue=epilogue, scale=scale,
-                           pipeline=pipeline)
+        shape = (m, k, params.segmap.n)
+        w_key = params.segmap.widths()[0]   # widest width present
+        _, pipeline = _resolve_call("qdot_mixed", shape, params.a_bits,
+                                    w_key, backend, pipeline)
+        return _run_counted(
+            "qdot_mixed", shape, params.a_bits, w_key, backend, pipeline,
+            lambda: _qdot_mixed(params, x_packed, epilogue=epilogue,
+                                scale=scale, pipeline=pipeline),
+            w_packed_bytes=params.segmap.packed_bytes(params.k_logical))
+    shape = (m, k, params.w_packed.shape[1])
+    launch, pipeline = _resolve_call("qdot", shape, params.a_bits,
+                                     params.w_bits, backend, pipeline)
+    return _run_counted(
+        "qdot", shape, params.a_bits, params.w_bits, backend, pipeline,
+        lambda: qdot_run(params, x_packed, epilogue=epilogue, scale=scale,
+                         pipeline=pipeline, launch=launch))
+
+
+def qdot_run(params, x_packed: torch.Tensor, *, epilogue: str, scale,
+             pipeline: str, launch: Optional[dict] = None) -> torch.Tensor:
+    """The uniform GEMM's wrapper call at a resolved pipeline and launch,
+    with no lookup and no recording (`kernels/tune.py` times it)."""
     return qmatmul_packed(
         x_packed, params.w_packed, params.kappa, params.lam, params.m,
         a_bits=params.a_bits, a_signed=params.a_signed,
         w_bits=params.w_bits, d=params.d, out_bits=params.out_bits,
         epilogue=epilogue, scale=scale, pipeline=pipeline,
-        k_logical=params.k_logical)
+        k_logical=params.k_logical, launch=launch)
 
 
 def _pad_channels(v: torch.Tensor, n_pad: int) -> torch.Tensor:
@@ -114,7 +213,8 @@ def _qdot_mixed(params: SegmentedLinearParams, x_packed, *, epilogue,
 def qconv(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,
           pipeline: Optional[str] = None) -> torch.Tensor:
     """Quantized HWC conv: (N, H, W, Cin) int8 images -> (N, Ho, Wo, Cout)
-    through the fused implicit-GEMM route."""
+    through the fused implicit-GEMM route. The shape key is (n, h, w, cin,
+    fh, fw, stride, padding, cout, groups), Cin the image's real one."""
     if params.groups != 1:
         raise ValueError(
             f"qconv does not support grouped conv (groups={params.groups}); "
@@ -122,10 +222,25 @@ def qconv(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,
             "repro_torch.vision.layers.QDepthwiseConv2D (per-group qconv "
             "or block-diagonal im2col + qdot)")
     g = params.gemm
+    shape = (*x_hat.shape, params.fh, params.fw, params.stride,
+             params.padding, params.cout, params.groups)
+    backend = device_backend(x_hat.device)
+    _, pipeline = _resolve_call("qconv", shape, g.a_bits, g.w_bits, backend,
+                                pipeline)
+    return _run_counted(
+        "qconv", shape, g.a_bits, g.w_bits, backend, pipeline,
+        lambda: qconv_run(params, x_hat, epilogue=epilogue, scale=scale,
+                          pipeline=pipeline))
+
+
+def qconv_run(params, x_hat: torch.Tensor, *, epilogue: str, scale,
+              pipeline: str) -> torch.Tensor:
+    """The conv's wrapper call at a resolved pipeline, with no lookup and
+    no recording (`kernels/tune.py` times it)."""
+    g = params.gemm
     return qconv2d_fused(
         x_hat, params.w_packed_fused, g.kappa, g.lam, g.m, fh=params.fh,
         fw=params.fw, stride=params.stride, padding=params.padding,
         cin_pad=params.cin_pad, cout=params.cout, a_bits=g.a_bits,
         a_signed=g.a_signed, w_bits=g.w_bits, d=g.d, out_bits=g.out_bits,
-        epilogue=epilogue, scale=scale,
-        pipeline=resolve_pipeline(pipeline))
+        epilogue=epilogue, scale=scale, pipeline=pipeline)

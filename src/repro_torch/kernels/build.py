@@ -20,6 +20,8 @@ import subprocess
 import time
 from typing import Dict, Sequence
 
+from repro_torch.obs import env as obsenv
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -29,7 +31,7 @@ HEADERS = ("common.cuh", "mma_s8.cuh")
 def build_dir() -> pathlib.Path:
     """Where the kernel libraries go: ``$REPRO_TORCH_BUILD_DIR``, else
     ``build/repro_torch_kernels/`` of the checkout the package runs from."""
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    env = obsenv.get("REPRO_TORCH_BUILD_DIR")
     if env:
         return pathlib.Path(env)
     here = pathlib.Path(__file__).resolve()

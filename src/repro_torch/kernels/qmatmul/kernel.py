@@ -16,7 +16,8 @@ Both kernels contract on the tensor cores in blocks of 128 rows
 CPU tests reach it: the uniform GEMM's column tile is N rounded up to a
 wgmma width (`gemm_tile_n`); K is split across blocks where the output
 tiles do not fill the card (`k_splits`); the register budget is chosen
-per grid (`gemm_launch_plan`).
+per grid (`gemm_launch_plan`). A launch measured by `kernels/tune.py`
+(``launch=``, one of `gemm_launches`) replaces the planned one.
 """
 from __future__ import annotations
 
@@ -124,10 +125,19 @@ def qmatmul_packed_cuda(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
                         a_signed: bool, w_bits: int, d: int, out_bits: int,
                         epilogue: str = "int", scale=1.0,
                         pipeline: str = "off",
-                        k_logical: Optional[int] = None) -> torch.Tensor:
+                        k_logical: Optional[int] = None,
+                        launch: Optional[dict] = None) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors as `gemm_launch_plan`
-    plans it (raises on anything it does not take)."""
-    return _launch_packed(x, w_packed, kappa, lam, m_mul, None,
+    plans it, or with ``launch`` ({"splits", "min_blocks"}, a tuned
+    launch, which `gemm_launch_plan` refuses unless it fits the shape);
+    raises on anything it does not take."""
+    plan = None
+    if launch is not None:
+        m, _, n, k = _packed_shape(x, w_packed, a_bits, w_bits, k_logical)
+        plan = gemm_launch_plan(m, n, k, a_bits, sm_count(x.device),
+                                splits=launch["splits"],
+                                min_blocks=launch["min_blocks"])
+    return _launch_packed(x, w_packed, kappa, lam, m_mul, plan,
                           a_bits=a_bits, a_signed=a_signed, w_bits=w_bits,
                           d=d, out_bits=out_bits, epilogue=epilogue,
                           scale=scale, pipeline=pipeline,
@@ -176,17 +186,19 @@ def _launch_packed(x, w_packed, kappa, lam, m_mul,
 def qmatmul_packed(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
                    a_signed: bool, w_bits: int, d: int, out_bits: int,
                    epilogue: str = "int", scale=1.0, pipeline: str = "off",
-                   k_logical: Optional[int] = None) -> torch.Tensor:
+                   k_logical: Optional[int] = None,
+                   launch: Optional[dict] = None) -> torch.Tensor:
     """Packed GEMM: x (M, K_pad/pf_a) @ w (K_pad/pf_w, N) over the first
     ``k_logical`` values of K, with the fused epilogue. CUDA tensors
-    launch the kernel; CPU tensors run the plain version."""
+    launch the kernel (at ``launch`` when given, else as planned); CPU
+    tensors run the plain version, which has no launch to choose."""
     check_pipeline(pipeline)
     kw = dict(a_bits=a_bits, a_signed=a_signed, w_bits=w_bits, d=d,
               out_bits=out_bits, epilogue=epilogue, scale=scale,
               k_logical=k_logical)
     if x.is_cuda:
         return qmatmul_packed_cuda(x, w_packed, kappa, lam, m_mul,
-                                   pipeline=pipeline, **kw)
+                                   pipeline=pipeline, launch=launch, **kw)
     return qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, **kw)
 
 
@@ -257,6 +269,20 @@ def gemm_launch_plan(m: int, n: int, k_logical: int, a_bits: int, sms: int,
         raise ValueError(f"min_blocks={min_blocks}: the kernel has 1, and "
                          "2 at A8 with the 128-wide tile")
     return GemmLaunch(nt, tiles, stages, splits, min_blocks)
+
+
+def gemm_launches(m: int, n: int, k_logical: int, a_bits: int,
+                  sms: int) -> list:
+    """Every launch `gemm_launch_plan` accepts for the shape, the planned
+    one first: each K split from 1 to min(stages, `MAX_SPLITS`) at each
+    register budget the tile allows. Every one gives the same result."""
+    plan = gemm_launch_plan(m, n, k_logical, a_bits, sms)
+    budgets = (1, 2) if a_bits == 8 and plan.nt == 128 else (1,)
+    others = [gemm_launch_plan(m, n, k_logical, a_bits, sms, splits=s,
+                               min_blocks=b)
+              for s in range(1, min(plan.stages, MAX_SPLITS) + 1)
+              for b in budgets]
+    return [plan] + [p for p in others if p != plan]
 
 
 @functools.lru_cache(maxsize=8)

@@ -12,6 +12,12 @@ at ``--budget``, ``auto`` by default) and save the plan to ``--out``.
 loads too; a channel-group plan with segments comes in this way). The
 net is packed and served through `VisionEngine` on ``--device`` (default
 ``cuda``).
+
+With ``REPRO_OBS=1`` the run records spans (``deploy.calibrate``,
+``deploy.plan``, ``deploy.pack``, ``serve.generate``), the kernels'
+dispatch events and op counters, and exports a Chrome trace on exit to
+``REPRO_OBS_TRACE`` (default ``vision_trace.json``); render it with
+``python -m repro_torch.obs.report``.
 """
 from __future__ import annotations
 
@@ -69,6 +75,7 @@ def main(argv=None):
     from repro_torch.deploy.policy import load_plan, save_plan
     from repro_torch.device import resolve_device
     from repro_torch.kernels.api import check_backend
+    from repro_torch.obs import trace as obs
     from repro_torch.serve.engine import VisionEngine
     from repro_torch.vision.configs import get_vision_config
     from repro_torch.vision.models import (collect_absmax, init_fp,
@@ -96,14 +103,19 @@ def main(argv=None):
         print(f"calibrating {cfg.name}: {len(batches)} batches of "
               f"{args.calib_batch} images {cfg.in_hw}, "
               f"candidates W{candidates}")
-        stats, absmax = calibrate_vision(cfg, fp_params, batches,
-                                         bits=candidates, a_bits=args.a_bits)
-        budget = (auto_budget(stats, candidates)
-                  if args.budget == "auto" else float(args.budget))
-        plan = plan_mixed_precision(
-            stats, budget, candidates=candidates, a_bits=args.a_bits,
-            backend=args.backend,
-            meta={"arch": cfg.name, "smoke": args.smoke})
+        with obs.span("deploy.calibrate", cat="deploy", arch=cfg.name,
+                      batches=len(batches), candidates=candidates):
+            stats, absmax = calibrate_vision(cfg, fp_params, batches,
+                                             bits=candidates,
+                                             a_bits=args.a_bits)
+        with obs.span("deploy.plan", cat="deploy", arch=cfg.name,
+                      paths=len(stats)):
+            budget = (auto_budget(stats, candidates)
+                      if args.budget == "auto" else float(args.budget))
+            plan = plan_mixed_precision(
+                stats, budget, candidates=candidates, a_bits=args.a_bits,
+                backend=args.backend,
+                meta={"arch": cfg.name, "smoke": args.smoke})
         for r in plan.rules:
             st = stats[r.pattern]
             sens = ", ".join(f"{b}:{st.sens(b):.2e}" for b in candidates)
@@ -112,20 +124,29 @@ def main(argv=None):
         save_plan(plan, args.out)
         print(f"plan ({len(plan.rules)} rules, w_bits "
               f"{plan.distinct_w_bits()}) -> {args.out}")
-    qnet = quantize_net(cfg, fp_params, absmax, plan=plan, device=device)
+    with obs.span("deploy.pack", cat="deploy", arch=cfg.name,
+                  rules=len(plan.rules)):
+        qnet = quantize_net(cfg, fp_params, absmax, plan=plan,
+                            device=device)
     print(f"packed artifact: {vision_artifact_bytes(qnet):,} bytes, "
           f"per-layer bits {qnet.layer_bits()}")
 
     engine = VisionEngine(qnet, batch_size=args.batch, device=device)
     images = rng.uniform(0, 1, size=(
         args.requests, *cfg.in_hw, cfg.in_ch)).astype(np.float32)
-    logits = engine.run(images)
+    with obs.span("serve.generate", cat="serve", requests=len(images),
+                  batch=args.batch):
+        logits = engine.run(images)
     print(f"served {len(images)} images in waves of {args.batch} on "
           f"{device}: preds {logits.argmax(-1).tolist()}")
     lat = engine.utilization_report()["latency_us"]
     if lat is not None:
         print(f"wave latency: p50={lat['p50'] / 1e3:.3f}ms "
               f"p95={lat['p95'] / 1e3:.3f}ms over {lat['waves']} wave(s)")
+    trace_path = obs.export_if_configured("vision_trace.json")
+    if trace_path:
+        print(f"trace -> {trace_path} (render: python -m "
+              "repro_torch.obs.report)")
     print("vision deploy done")
     return logits
 

@@ -1,38 +1,112 @@
-"""Spans and named counters — the subset the serving runtime calls.
+"""Tracing core: spans, named counters, dispatch log, Chrome-trace export.
 
-Off by default: `span()` and `counter()` then return shared no-op
-objects, and the hot path pays one predicate. ``REPRO_OBS`` (1/true/yes/
-on) turns recording on at import; `enable()`/`disable()` switch it at run
-time. Recorded spans land in a bounded ring buffer. Trace export, reports
-and the dispatch log are not ported yet.
+The software analogue of the paper's hardware performance-counter setup
+(Sec. V): everything the runtime wants to measure funnels through this
+module into one in-process ring buffer, and one exported artifact makes
+a run auditable after the fact.
+
+Design points:
+
+* **Zero overhead when disabled.** `span()`/`counter()` return shared
+  no-op singletons and `dispatch_event()` returns immediately; the only
+  cost on the hot path is one module-global predicate. Enablement comes
+  from the ``REPRO_OBS`` env at import (via `repro_torch.obs.env`) or
+  programmatically via `enable()`/`disable()`.
+* **Thread-safe ring buffers.** Spans/instants land in a bounded
+  `collections.deque` guarded by one lock; old events fall off the
+  front instead of growing without bound under serving load.
+* **Chrome trace-event export.** `chrome_trace()` renders the buffer as
+  the trace-event JSON object form (openable in Perfetto /
+  chrome://tracing); repo-specific payloads (generic counters, the
+  per-(op, bits, backend, pipeline) op counters, the dispatch log) ride
+  under a top-level ``"repro"`` key, which the format explicitly allows.
+* **CUDA-aware.** `Span.sync` and `time_call` synchronize the CUDA
+  device a result lives on, so a span or a timed call holds the device
+  time of the work it launched. torch is imported lazily there only, so
+  this module loads with the standard library alone. There is no
+  profiler pass-through (the reference mirrors spans into XLA profiles;
+  the torch analogue, `torch.profiler.record_function`, is left out).
+
+Timestamps are microseconds relative to a module-load epoch
+(`perf_counter_ns`), matching the trace-event format's ``ts``/``dur``
+unit.
 """
 from __future__ import annotations
 
-import os
+import json
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional
 
-_TRUE = ("1", "true", "yes", "on")
+from repro_torch.obs import env as obsenv
+
+TRACE_SCHEMA_VERSION = 1
+DEFAULT_CAPACITY = 100_000
+
 _T0_NS = time.perf_counter_ns()
-_LOCK = threading.Lock()
-_EVENTS: deque = deque(maxlen=100_000)
+_LOCK = threading.RLock()
+_EVENTS: deque = deque(maxlen=DEFAULT_CAPACITY)
+_DISPATCH: deque = deque(maxlen=DEFAULT_CAPACITY)
 _COUNTERS: Dict[str, "Counter"] = {}
-_ENABLED = os.environ.get("REPRO_OBS", "").lower() in _TRUE
+_TIDS: Dict[int, int] = {}
+_ENABLED = obsenv.get_bool("REPRO_OBS")
 
 
 def _now_us() -> float:
     return (time.perf_counter_ns() - _T0_NS) / 1e3
 
 
+def _tid() -> int:
+    """Small stable per-thread id (trace viewers want dense tids)."""
+    ident = threading.get_ident()
+    with _LOCK:
+        tid = _TIDS.get(ident)
+        if tid is None:
+            tid = _TIDS[ident] = len(_TIDS)
+        return tid
+
+
+def _cuda_device(value):
+    """The device of the first CUDA tensor in ``value`` (a tensor, or a
+    tuple / list / dict holding some), or None."""
+    if isinstance(value, (tuple, list)):
+        items = value
+    elif isinstance(value, dict):
+        items = value.values()
+    else:
+        return value.device if getattr(value, "is_cuda", False) else None
+    for v in items:
+        dev = _cuda_device(v)
+        if dev is not None:
+            return dev
+    return None
+
+
+def _sync(value):
+    """Wait for the CUDA device ``value`` lives on (no-op otherwise)."""
+    dev = _cuda_device(value)
+    if dev is not None:
+        import torch
+        torch.cuda.synchronize(dev)
+    return value
+
+
+# ------------------------------------------------------------- lifecycle ---
+
 def enabled() -> bool:
     return _ENABLED
 
 
-def enable() -> None:
-    global _ENABLED
-    _ENABLED = True
+def enable(capacity: Optional[int] = None) -> None:
+    """Turn observability on; optionally resize the ring buffers."""
+    global _ENABLED, _EVENTS, _DISPATCH
+    with _LOCK:
+        if capacity is not None and capacity != _EVENTS.maxlen:
+            _EVENTS = deque(_EVENTS, maxlen=capacity)
+            _DISPATCH = deque(_DISPATCH, maxlen=capacity)
+        _ENABLED = True
 
 
 def disable() -> None:
@@ -41,27 +115,56 @@ def disable() -> None:
 
 
 def reset() -> None:
+    """Drop all recorded events, dispatch entries, and generic counters
+    (op counters live in `repro_torch.obs.counters` —
+    `repro_torch.obs.reset()` clears both)."""
     with _LOCK:
         _EVENTS.clear()
+        _DISPATCH.clear()
         _COUNTERS.clear()
 
 
+@contextmanager
+def enabled_scope():
+    """Force-enable observability inside the block, restoring the prior
+    state on exit — how a measurement takes counter readings without
+    requiring ``REPRO_OBS`` in the environment."""
+    global _ENABLED
+    prev = _ENABLED
+    enable()
+    try:
+        yield
+    finally:
+        _ENABLED = prev
+
+
+# ------------------------------------------------------------------ spans ---
+
 class Span:
-    """One timed region, recorded as a complete ("X") trace event."""
+    """One timed region. ``with span("qdot", cat="kernel", w_bits=4):``
+    records an "X" (complete) trace event on exit carrying the attrs as
+    ``args``. `set()` adds attrs mid-span; `sync(value)` waits for the
+    CUDA device ``value`` lives on, so device time lands inside the
+    span, and returns it."""
 
     __slots__ = ("name", "cat", "attrs", "_t0")
 
     def __init__(self, name: str, cat: str, attrs: Dict[str, Any]):
-        self.name, self.cat, self.attrs = name, cat, attrs
+        self.name = name
+        self.cat = cat
+        self.attrs = attrs
         self._t0 = 0.0
 
     def __enter__(self) -> "Span":
         self._t0 = _now_us()
         return self
 
-    def set(self, **attrs) -> None:
-        """Add attributes known only inside the span."""
+    def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
+        return self
+
+    def sync(self, value):
+        return _sync(value)
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         dur = _now_us() - self._t0
@@ -69,38 +172,48 @@ class Span:
             self.attrs.setdefault("error", exc_type.__name__)
         if _ENABLED:
             with _LOCK:
-                _EVENTS.append({"name": self.name, "cat": self.cat,
-                                "ph": "X", "ts": round(self._t0, 3),
-                                "dur": round(dur, 3),
-                                "args": dict(self.attrs)})
+                _EVENTS.append({
+                    "name": self.name, "cat": self.cat, "ph": "X",
+                    "ts": round(self._t0, 3), "dur": round(dur, 3),
+                    "pid": 0, "tid": _tid(),
+                    "args": dict(self.attrs)})
         return False
 
 
 class _NullSpan:
+    """Shared do-nothing span returned while observability is off."""
+
     __slots__ = ()
 
     def __enter__(self):
         return self
 
-    def set(self, **attrs) -> None:
-        pass
-
     def __exit__(self, *exc):
         return False
+
+    def set(self, **attrs):
+        return self
+
+    def sync(self, value):
+        return value
 
 
 _NULL_SPAN = _NullSpan()
 
 
 def span(name: str, cat: str = "span", **attrs):
-    """Context manager timing the enclosed block (no-op when disabled)."""
+    """A context manager timing the enclosed block (no-op singleton when
+    disabled). Extra keyword attrs land in the event's ``args``."""
     if not _ENABLED:
         return _NULL_SPAN
     return Span(name, cat, attrs)
 
 
+# --------------------------------------------------------------- counters ---
+
 class Counter:
-    """A named accumulating value; `add` is a no-op while disabled."""
+    """A named monotonically-accumulating value; `add` is a no-op while
+    observability is off so handles can be cached across enable state."""
 
     __slots__ = ("name", "value")
 
@@ -127,7 +240,7 @@ _NULL_COUNTER = _NullCounter("<disabled>")
 
 def counter(name: str) -> Counter:
     """The named counter (created on first use); a shared no-op when
-    disabled."""
+    observability is off, so the registry holds no disabled-mode state."""
     if not _ENABLED:
         return _NULL_COUNTER
     with _LOCK:
@@ -142,6 +255,115 @@ def counter_values() -> Dict[str, float]:
         return {name: c.value for name, c in _COUNTERS.items()}
 
 
-def spans(name: str = None) -> List[Dict[str, Any]]:
+# ----------------------------------------------------------- dispatch log ---
+
+def dispatch_event(**fields) -> None:
+    """Record one structured launch/pipeline dispatch decision
+    (`kernels/api.py` calls this once per resolution). Also mirrored
+    into the span stream as an instant event so trace viewers show the
+    decision inline with the kernel spans."""
+    if not _ENABLED:
+        return
+    ts = _now_us()
     with _LOCK:
-        return [e for e in _EVENTS if name is None or e["name"] == name]
+        _DISPATCH.append(dict(fields, ts=round(ts, 3)))
+        _EVENTS.append({
+            "name": f"dispatch:{fields.get('op', '?')}",
+            "cat": "dispatch", "ph": "i", "s": "t",
+            "ts": round(ts, 3), "pid": 0, "tid": _tid(),
+            "args": dict(fields)})
+
+
+def dispatch_log() -> List[Dict[str, Any]]:
+    with _LOCK:
+        return list(_DISPATCH)
+
+
+# -------------------------------------------------------------- rendering ---
+
+def events() -> List[Dict[str, Any]]:
+    with _LOCK:
+        return list(_EVENTS)
+
+
+def spans(name: Optional[str] = None,
+          cat: Optional[str] = None) -> List[Dict[str, Any]]:
+    return [e for e in events()
+            if e["ph"] == "X"
+            and (name is None or e["name"] == name)
+            and (cat is None or e["cat"] == cat)]
+
+
+def chrome_trace() -> Dict[str, Any]:
+    """The full buffer as a Chrome trace-event JSON object. Repo payloads
+    (counters, op counters, dispatch log) ride under ``"repro"`` — extra
+    top-level keys are explicitly allowed by the object form."""
+    from repro_torch.obs import counters as _opcounters
+    return {
+        "traceEvents": events(),
+        "displayTimeUnit": "ms",
+        "repro": {
+            "version": TRACE_SCHEMA_VERSION,
+            "counters": counter_values(),
+            "op_counters": _opcounters.snapshot(),
+            "dispatch": dispatch_log(),
+        },
+    }
+
+
+def export_chrome_trace(path: str) -> str:
+    with open(path, "w") as fh:
+        json.dump(chrome_trace(), fh, indent=1, default=str)
+    return path
+
+
+def export_if_configured(default_path: Optional[str] = None) -> Optional[str]:
+    """Export the trace when observability is on: to ``REPRO_OBS_TRACE``
+    if set, else to ``default_path`` (no-op when neither). CLIs call
+    this on exit so `REPRO_OBS=1 REPRO_OBS_TRACE=t.json <cli>` is the
+    whole recipe."""
+    if not _ENABLED:
+        return None
+    path = obsenv.get("REPRO_OBS_TRACE") or default_path
+    if not path:
+        return None
+    return export_chrome_trace(path)
+
+
+def summary() -> Dict[str, Any]:
+    """Aggregate view: per-span-name {count, total_us, mean_us, max_us},
+    generic counters, dispatch-event count."""
+    agg: Dict[str, Dict[str, float]] = {}
+    for e in spans():
+        s = agg.setdefault(e["name"], {"count": 0, "total_us": 0.0,
+                                       "max_us": 0.0})
+        s["count"] += 1
+        s["total_us"] += e["dur"]
+        s["max_us"] = max(s["max_us"], e["dur"])
+    for s in agg.values():
+        s["mean_us"] = s["total_us"] / s["count"]
+    return {"spans": agg, "counters": counter_values(),
+            "dispatch_events": len(dispatch_log())}
+
+
+# ------------------------------------------------------------ shared timer ---
+
+def time_call(fn, *args, warmup: int = 1, iters: int = 3) -> float:
+    """Mean wall-clock µs per call of ``fn(*args)``.
+
+    ``warmup`` calls, one sync on the last result, then ``iters``
+    back-to-back calls with one sync on the last result: launches
+    overlap inside the loop, the sync charges all device work to the
+    measured window. A wall clock over short kernels measures the host's
+    launch rate, not the device (`repro_torch.kernels.tune` ranks CUDA
+    candidates by profiler device time instead).
+    """
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    _sync(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    _sync(out)
+    return (time.perf_counter() - t0) / iters * 1e6

@@ -340,3 +340,52 @@ def test_qat_cnn_plan_a_on_the_card_matches_cpu(dev):
                               device="cpu")
     want = models.forward_int(cpu, models.quantize_input(cpu, imgs))
     assert torch.equal(got.cpu(), want)
+
+
+def test_tuned_launch_matches_planned_and_tune_times_the_device(dev):
+    """A GEMM with many valid launches (fig8, 16 K stages, the 128-wide
+    tile at A8): each launch at both pipelines gives the planned launch's
+    output; `autotune_qdot` ranks by device time, and the api then takes
+    the tuned launch and pipeline without moving the result."""
+    from repro_torch import obs as obs_pkg
+    from repro_torch.kernels import api, tune
+    from repro_torch.obs import trace as obs
+
+    gen = torch.Generator().manual_seed(7)
+    m, k, n = 256, 2048, 256
+    params, xp = tune._mk_qdot_artifact(gen, m, k, n, 8, 4, dev)
+    launches = gemm_k.gemm_launches(m, n, k, 8, gemm_k.sm_count(dev))
+    assert len(launches) == 16
+    tune.clear()
+    obs_pkg.reset()
+    try:
+        want = api.qdot_run(params, xp, epilogue="raw", scale=1.0,
+                            pipeline="off")
+        for pipeline in ("off", "double_buffer"):
+            for L in launches:
+                got = api.qdot_run(
+                    params, xp, epilogue="raw", scale=1.0, pipeline=pipeline,
+                    launch={"splits": L.splits, "min_blocks": L.min_blocks})
+                assert torch.equal(got, want), (pipeline, L)
+        with pytest.raises(ValueError, match="splits=9"):
+            api.qdot_run(params, xp, epilogue="raw", scale=1.0,
+                         pipeline="off",
+                         launch={"splits": 9, "min_blocks": 1})
+        with obs.enabled_scope():
+            launch, pipe = tune.autotune_qdot(params, xp, epilogue="raw",
+                                              iters=3)
+            (sweep,) = obs.spans("tune.sweep")
+        assert sweep["args"]["exact"] is True
+        assert sweep["args"]["candidates"] == 32
+        e = tune.get_entry("qdot", (m, k, n), 8, 4, "cuda")
+        assert e["timer"] == "device" and e["us"] > 0
+        assert (e["launch"], e["pipeline"]) == (launch, pipe)
+        with obs.enabled_scope():
+            got = api.qdot_packed(params, xp, epilogue="raw")
+            (ev,) = obs.dispatch_log()
+        assert ev["launch_source"] == "tuned" and ev["launch"] == launch
+        assert ev["pipeline_source"] == "tuned"
+        assert torch.equal(got, want)
+    finally:
+        tune.clear()
+        obs_pkg.reset()

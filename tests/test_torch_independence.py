@@ -16,7 +16,8 @@ from repro_torch.kernels.qmatmul.kernel import \
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "gemm_ab.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "gemm_ab.py",
+           ROOT / "tools" / "profiler_check.py"]
 
 
 def _imported_roots(path: pathlib.Path):

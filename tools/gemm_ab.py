@@ -74,7 +74,7 @@ def main() -> int:
     report = {"nvidia_smi": smi, "src": args.src,
               "build_s": build_all(list(kernels.values())),
               "ptxas": cs.ptxas_report(kernels)}
-    _, head = cs.resnet8_shapes(get_vision_config("resnet8"), cs.WAVE)
+    head = cs.net_shapes(get_vision_config("resnet8"), cs.WAVE)["head"]
     cs.gemm_timing_phase(dev, head, report)
     cs.segmented_timing_phase(dev, report)
     cs.write_report(report, args.out)
