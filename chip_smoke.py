@@ -77,7 +77,27 @@
    over the kernels' device time. Both phases start and end with an
    empty tune cache and observability off; ``REPRO_QTUNE_CACHE`` is
    ignored.
-8. Times each kernel (CUDA events and profiler device time) beside its
+8. [lm]: the quantized dense LM, qwen2.5-3b. Kernels 1-3 at its four
+   dense shapes (K x N 2048x2048, 2048x256, 2048x11008, 11008x2048; M 1,
+   4 and 64; kernel 3 under a two-run plan on 2048x11008, half W8, half
+   W4) with signed activations, a per-channel dequant scale and both
+   output dtypes (bfloat16, float32), A{8,4,2} x W{8,4,2}, both STAGES,
+   identical to the plain version. Then full width (36 layers) from
+   seeded weights made and quantized on the card at W8A8, W4A8 and W2A8,
+   each served by `Engine` (8 requests of 2-8 prompt tokens, 16 new
+   tokens, batch 4, max_len 128, bf16 compute as configured), W4A8 once
+   more double-buffered (the same tokens); qmatmul must have launched at
+   both STAGES. Every dense call of one W4A8 decode step (`dense_tap`,
+   36 x 7) is identical to the same call on the CPU; one decode step is
+   profiled. A plan with a segments rule on every layers/mlp/wi (half
+   W8, half W4) is served and then the CLI `python -m
+   repro_torch.launch.serve --arch qwen2.5-3b --quant w4a8`; kernel 3 must
+   have launched. At 2 layers of the full width, float32 compute, the
+   W4A8 artifact packed on the card equals the CPU's byte for byte, and
+   prefill plus 8 decode steps stay within 1e-3 of the largest logit of
+   the CPU run, with greedy tokens equal wherever the CPU's top-1 margin
+   exceeds that.
+9. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -90,7 +110,9 @@
    the port never calls them. Each MobileNet depthwise layer is timed at
    W8A8 under both lowerings beside cuDNN's bf16 channels-last
    ``conv2d(groups=C)`` on its integer input, with the MACs each
-   lowering contracts against the real ones.
+   lowering contracts against the real ones. Each of qwen2.5-3b's four
+   dense shapes at M = 4, A8 x W{8,4,2}, beside its bound and
+   `torch.matmul` in bf16 on dequantized weights.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
@@ -98,6 +120,7 @@ so the exit code is non-zero and no such line is printed. Details go to
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import pathlib
@@ -1068,18 +1091,29 @@ def kernel_device_ms(cases, stages: int, reps: int = 10, tries: int = 3):
     return None
 
 
-def library_device_ms(fn, reps: int = 10, names=()) -> float:
+def _sum_or_none(values):
+    values = list(values)
+    return None if None in values else sum(values)
+
+
+def library_device_ms(fn, reps: int = 10, names=(), tries: int = 3):
     """Device time of every CUDA kernel one call of ``fn`` runs (of those
-    whose name holds one of ``names``, when given)."""
+    whose name holds one of ``names``, when given). A trace that holds no
+    kernel record is taken again, up to ``tries`` times; None when none
+    does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return _device_ms_per_pass(prof, reps, names)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = _device_ms_per_pass(prof, reps, names)
+        if ms > 0:
+            return ms
+    return None
 
 
 def timing_phase(dev, convs, report):
@@ -1102,7 +1136,8 @@ def timing_phase(dev, convs, report):
             fns = [c.library() for c in cases]
             conv_library = {
                 "library_ms": sum(time_ms(f, 3, 20) for f in fns),
-                "library_device_ms": sum(library_device_ms(f) for f in fns)}
+                "library_device_ms": _sum_or_none(
+                    library_device_ms(f) for f in fns)}
         extra = {**conv_library,
                  "macs_contracted": sum(c.contracted_macs() for c in cases),
                  "macs_real": sum(c.real_macs() for c in cases)}
@@ -1536,6 +1571,445 @@ def obs_phase(dev, report):
         clear_tune_and_obs()
 
 
+# ------------------------------------------------------------- [lm] ---
+
+LM_ARCH = "qwen2.5-3b"
+# (K, N) of qwen2.5-3b's seven denses: wq and attn wo, wk and wv, wi and
+# wg, mlp wo; M of a decode step (1), of the served batch (4) and of a
+# prefill (64)
+LM_SHAPES = ((2048, 2048), (2048, 256), (2048, 11008), (11008, 2048))
+LM_M = (1, 4, 64)
+# kernel 3's two-run plan on 2048 x 11008: half W8, half W4
+LM_RUNS = ((0, 5504, 8), (5504, 11008, 4))
+LM_REQUESTS, LM_BATCH, LM_MAX_NEW, LM_MAX_LEN = 8, 4, 16, 128
+# the CPU cross-check: logits within this share of the largest |logit|
+# (float32 math on two devices; a flipped activation code at a .5
+# boundary moves a logit by far less)
+LM_CPU_RTOL = 1e-3
+LM_CPU_LAYERS, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 8, 8
+
+
+class DenseCase:
+    """One call of the LM dense path's GEMM: signed activation codes at
+    a_bits packed with a_signed=True, packed weights at w_bits (or a
+    segmented buffer), a per-channel dequant scale; the kernel at both
+    STAGES and both output dtypes, and the plain version."""
+
+    def __init__(self, m, k, n, a_bits, w_bits, gen, dev, runs=None,
+                 w=None):
+        import torch
+        from repro_torch.core import packing
+
+        def ints(bits, size):
+            lo, hi = packing.int_range(bits, True)
+            return torch.randint(-hi if bits == 8 else lo, hi + 1, size,
+                                 generator=gen, dtype=torch.int32).to(
+                torch.int8).to(dev)
+
+        self.shape, self.a_bits, self.w_bits, self.runs = (m, k, n), \
+            a_bits, w_bits, runs
+        self.kind = "qmatmul" if runs is None else "qmatmul_segmented"
+        self.x = packing.pack(packing.pad_to_chunk(ints(a_bits, (m, k))),
+                              a_bits)
+        if w is not None:
+            self.w, self.segmap = w
+        elif runs is None:
+            self.w = packing.pack(packing.pad_to_chunk(
+                ints(w_bits, (k, n)), axis=0), w_bits, axis=0)
+            self.segmap = None
+        else:
+            segmap = packing.SegmentMap(runs)
+            wv = torch.cat([ints(b, (k, e - s)) for s, e, b in runs], dim=1)
+            self.w, self.segmap = packing.pad_segmented(
+                packing.pack_segmented(wv, segmap), segmap, k)
+        self.scale = (torch.rand(n, generator=gen) * 1e-3 + 1e-5).to(dev)
+
+    def weights(self):
+        return self.w, self.segmap
+
+    def _kw(self, out_dtype):
+        return dict(a_bits=self.a_bits, a_signed=True, d=0, out_bits=8,
+                    epilogue="dequant", scale=self.scale,
+                    k_logical=self.shape[1], out_dtype=out_dtype)
+
+    def kernel(self, stages, out_dtype=None):
+        from repro_torch.kernels.qmatmul import kernel as gk
+        if self.segmap is None:
+            return gk.qmatmul_packed_cuda(
+                self.x, self.w, None, None, None, w_bits=self.w_bits,
+                pipeline=PIPELINE[stages], **self._kw(out_dtype))
+        return gk.qmatmul_segmented_cuda(
+            self.x, self.w, self.segmap, None, None, None,
+            pipeline=PIPELINE[stages], **self._kw(out_dtype))
+
+    def plain(self, out_dtype):
+        from repro_torch.kernels.qmatmul import kernel as gk
+        if self.segmap is None:
+            return gk.qmatmul_packed_torch(self.x, self.w, None, None, None,
+                                           w_bits=self.w_bits,
+                                           **self._kw(out_dtype))
+        return gk.qmatmul_segmented_torch(self.x, self.w, self.segmap, None,
+                                          None, None, **self._kw(out_dtype))
+
+    def bound(self, out_dtype):
+        """(bytes ms, operations ms): activations packed at a_bits, the
+        packed weights (each run at its width), the per-channel scale and
+        the output, each moved once; ops = 2 x MACs."""
+        import torch
+        m, k, n = self.shape
+        runs = self.runs or ((0, n, self.w_bits),)
+        nbytes = (m * k * self.a_bits / 8
+                  + sum(k * (e - s) * b / 8 for s, e, b in runs)
+                  + 4 * n + m * n * (4 if out_dtype == torch.float32 else 2))
+        return nbytes / PEAK_BYTES * 1e3, 2 * m * k * n / PEAK_INT8_OPS * 1e3
+
+
+def lm_kernel_phase(dev, report):
+    """Kernels 1-3 at qwen2.5-3b's four dense shapes, M 1/4/64, signed
+    activations, a per-channel scale, both output dtypes, both STAGES:
+    identical to the plain version on the card."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    worst = {("qmatmul", s): 0.0 for s in (1, 2)}
+    worst.update({("qmatmul_segmented", s): 0.0 for s in (1, 2)})
+    n_cmp = {"qmatmul": 0, "qmatmul_segmented": 0}
+    cases = []
+    for k, n in LM_SHAPES:
+        for w_bits in WIDTHS:
+            w = None
+            for m in LM_M:
+                for a_bits in WIDTHS:
+                    c = DenseCase(m, k, n, a_bits, w_bits, gen, dev, w=w)
+                    w = c.weights()
+                    cases.append(c)
+    seg_w = None
+    k, n = LM_SHAPES[2]                 # wi / wg
+    for m in LM_M:
+        for a_bits in WIDTHS:
+            c = DenseCase(m, k, n, a_bits, 8, gen, dev, runs=LM_RUNS,
+                          w=seg_w)
+            seg_w = c.weights()
+            cases.append(c)
+    for c in cases:
+        kind = c.kind
+        for out_dtype in (torch.bfloat16, torch.float32):
+            want = c.plain(out_dtype)
+            for stages in (1, 2):
+                got = c.kernel(stages, out_dtype)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                if got.dtype != out_dtype or err != 0.0:
+                    raise AssertionError(
+                        f"[lm] {kind} STAGES={stages} A{c.a_bits}W"
+                        f"{c.w_bits} {c.runs} {out_dtype} at {c.shape}: "
+                        f"dtype {got.dtype}, max abs err {err}")
+                worst[(kind, stages)] = max(worst[(kind, stages)], err)
+                n_cmp[kind] += 1
+    say("lm", kernels="qmatmul,qmatmul_segmented", a_signed=True,
+        scale="per-channel", out_dtypes="bfloat16,float32",
+        compared=json.dumps(n_cmp), all_exact=True)
+    report["lm_kernel_phase"] = {"comparisons": n_cmp,
+                                 "shapes": [list(s) for s in LM_SHAPES],
+                                 "m": list(LM_M), "runs": LM_RUNS}
+    return worst
+
+
+def _lm_requests(cfg, seed=SEED):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(2, cfg.vocab, size=(
+        int(rng.integers(2, 9)),)).astype(np.int32),
+        max_new_tokens=LM_MAX_NEW) for _ in range(LM_REQUESTS)]
+
+
+def _lm_model(cfg, w_bits, pipeline=None, plan=None):
+    import dataclasses
+    from repro_torch.models.api import build
+    from repro_torch.nn.layers import QuantConfig
+    return build(dataclasses.replace(
+        cfg, quant=QuantConfig(mode="int", w_bits=w_bits, a_bits=8,
+                               pipeline=pipeline), quant_plan=plan))
+
+
+def _dense_bytes(params):
+    """Bytes of the packed dense weights (every `w_packed` leaf)."""
+    if isinstance(params, dict):
+        return sum(v.numel() if k == "w_packed" else _dense_bytes(v)
+                   for k, v in params.items())
+    return 0
+
+
+def serve_lm(name, model, params, report):
+    """Serve the LM requests through `Engine`; print and record the
+    [lm] serve line; return the outputs."""
+    import torch
+    from repro_torch.nn.module import param_bytes
+    from repro_torch.serve.engine import Engine
+    eng = Engine(model, params, batch_size=LM_BATCH, max_len=LM_MAX_LEN,
+                 device=params["embed"]["table"].device)
+    t0 = time.perf_counter()
+    out = eng.generate(_lm_requests(model.cfg))   # host tokens: synced
+    wall = time.perf_counter() - t0
+    toks = sum(len(r.out) for r in out)
+    # each request runs to max_new tokens or stops at EOS (id 1)
+    if any(not (len(r.out) == LM_MAX_NEW or (0 < len(r.out) < LM_MAX_NEW
+                                              and r.out[-1] == eng.eos))
+           or (r.out < 0).any() or (r.out >= model.cfg.vocab).any()
+           for r in out):
+        raise AssertionError(f"[lm] {name}: bad outputs "
+                             f"{[r.out.tolist() for r in out]}")
+    lat = eng.utilization_report()["latency_us"]
+    row = {"tok_per_s": toks / wall, "tokens": toks, "wall_s": wall,
+           "wave_p50_ms": lat["p50"] / 1e3, "wave_p95_ms": lat["p95"] / 1e3,
+           "waves": lat["waves"], "dense_bytes": _dense_bytes(params),
+           "param_bytes": param_bytes(params),
+           "embed_bytes": param_bytes(params["embed"]),
+           "device": torch.cuda.get_device_name(0)}
+    say("lm", serve=name, **{k: (round(v, 3) if isinstance(v, float) else v)
+                             for k, v in row.items()})
+    report.setdefault("lm_serve", {})[name] = row
+    return [r.out.tolist() for r in out]
+
+
+def _check_dense_calls(dev, model, params):
+    """One decode step of the served W4A8 model with `dense_tap` on: every
+    one of its dense calls, run again on the card, is identical to the
+    same call on the CPU (the kernels' plain versions)."""
+    import torch
+    from repro_torch.convert import to_device
+    from repro_torch.nn.layers import dense_apply, dense_tap
+    cfg = model.cfg
+    cache = model.init_cache(LM_BATCH, LM_MAX_LEN, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    toks = torch.randint(2, cfg.vocab, (LM_BATCH, 5), generator=gen).to(dev)
+    for t in range(4):
+        model.decode(params, cache, toks[:, t:t + 1], t)
+    calls = []
+    with dense_tap(lambda p, x: calls.append((p, x))):
+        # each slot at its own position, as the serving adapter feeds them
+        model.decode(params, cache, toks[:, 4:5],
+                     torch.tensor([4, 3, 4, 2], device=dev))
+    torch.cuda.synchronize()
+    if len(calls) != 7 * cfg.n_layers:
+        raise AssertionError(f"[lm] tapped {len(calls)} dense calls, "
+                             f"expected {7 * cfg.n_layers}")
+    for i, (p, x) in enumerate(calls):
+        got = dense_apply(p, x, qcfg=cfg.quant)
+        want = dense_apply(to_device(p, "cpu"), x.cpu(), qcfg=cfg.quant)
+        err = max_abs_err(got.cpu(), want)
+        if err != 0.0:
+            raise AssertionError(f"[lm] dense call {i} ({tuple(x.shape)} x "
+                                 f"{tuple(p['w_packed'].shape)}): max abs "
+                                 f"err {err} against the CPU plain path")
+    say("lm", check="dense_tap", arch=cfg.name, w_bits=cfg.quant.w_bits,
+        dense_calls=len(calls), all_equal_cpu_plain=True)
+    return len(calls)
+
+
+def profile_decode_step(dev, model, params, report):
+    """One decode step (batch 4) under torch.profiler: wall, device busy
+    and idle share, the qmatmul kernels' device ms; and the logits head
+    (tied embedding matmul and its mask) profiled alone at the step's
+    shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.nn.layers import embedding_logits
+    cfg = model.cfg
+    cache = model.init_cache(LM_BATCH, LM_MAX_LEN, device=dev)
+    tok = torch.full((LM_BATCH, 1), 7, device=dev)
+    model.decode(params, cache, tok, 0)           # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode(params, cache, tok, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = _device_us(prof) or None
+    ours = _device_us(prof, ("qmatmul_kernel", "qmatmul_segmented_kernel"))
+    x = torch.randn(LM_BATCH, 1, cfg.d_model, device=dev).to(torch.bfloat16)
+    head_ms = library_device_ms(
+        lambda: embedding_logits(params["embed"], x, cfg.vocab))
+    row = {"wall_ms": wall_us / 1e3,
+           "device_busy_ms": None if busy is None else busy / 1e3,
+           "device_idle_share": None if busy is None
+           else max(0.0, 1.0 - busy / wall_us),
+           "qmatmul_device_ms": ours / 1e3 if ours else None,
+           "logits_head_device_ms": head_ms}
+    say("lm", profile="decode step", arch=cfg.name, batch=LM_BATCH,
+        w_bits=cfg.quant.w_bits, **row)
+    report["lm_profile_decode_step"] = row
+
+
+def lm_timing_phase(dev, report):
+    """Each dense shape of qwen2.5-3b at M = 4 (a decode step of the
+    served batch), A8 x W8/W4/W2, bf16 output: the kernel's device ms at
+    both STAGES beside its bound, its plain version and `torch.matmul`
+    in bf16 on the dequantized weights (`torch._int_mm` does not take
+    M = 4)."""
+    import torch
+    from repro_torch.core import packing
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    rows = {}
+    for k, n in LM_SHAPES:
+        library = None
+        for w_bits in WIDTHS:
+            c = DenseCase(4, k, n, 8, w_bits, gen, dev)
+            if library is None:
+                # the W8 case's codes and weights, dequantized to bf16
+                xb = packing.unpack(c.x, 8, True)[:, :k].to(torch.bfloat16)
+                wb = (packing.unpack(c.w, 8, True, axis=0)[:k].float()
+                      * c.scale).to(torch.bfloat16)
+                lib = lambda: torch.matmul(xb, wb)  # noqa: E731
+                library = {"library": "torch.matmul bf16",
+                           "library_ms": time_ms(lib, 3, 20),
+                           "library_device_ms": library_device_ms(lib)}
+            bytes_ms, ops_ms = c.bound(torch.bfloat16)
+            row = {"shape": [4, k, n], "a_bits": 8, "w_bits": w_bits,
+                   "plain_ms": time_ms(lambda: c.plain(torch.bfloat16), 1,
+                                       5),
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations", **library}
+            for stages in (1, 2):
+                row[f"ms_s{stages}"] = time_ms(
+                    lambda: c.kernel(stages, torch.bfloat16), 3, 20)
+                row[f"device_ms_s{stages}"] = kernel_device_ms([c], stages)
+            rows[f"{k}x{n} W{w_bits}"] = row
+            say("time", kernel="qmatmul", lm_shape=f"4x{k}x{n}", **{
+                k_: (round(v, 6) if isinstance(v, float) else v)
+                for k_, v in row.items() if k_ != "shape"})
+    report["timing_lm"] = rows
+    return rows
+
+
+def lm_cpu_check(dev, report):
+    """qwen2.5-3b's widths at LM_CPU_LAYERS layers, float32 compute, fp
+    weights from a CPU generator: the W4A8 artifact packed on the card is
+    byte-identical to the CPU's; prefill plus LM_CPU_STEPS decode steps
+    on the card stay within LM_CPU_RTOL of the CPU plain run, and greedy
+    tokens agree wherever the CPU's top-1 margin exceeds that
+    tolerance."""
+    import dataclasses
+    import torch
+    from repro_torch.convert import to_device
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.models.api import build, get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CPU_LAYERS,
+                              compute_dtype="float32")
+    fp_cpu = build(cfg).init(SEED, device="cpu")
+    model = _lm_model(cfg, 4)
+    q = {d: convert_params(model.init(0, device=d), to_device(fp_cpu, d), 4)
+         for d in ("cpu", dev)}
+    diff = first_difference(to_device(q[dev], "cpu"), q["cpu"])
+    if diff is not None:
+        raise AssertionError(f"[lm] the W4A8 artifact packed on the card "
+                             f"differs from the CPU's at {diff}")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    prompt = torch.randint(2, cfg.vocab, (2, LM_CPU_PROMPT), generator=gen)
+    total = LM_CPU_PROMPT + LM_CPU_STEPS
+    logits, caches = {}, {}
+    for d in ("cpu", dev):
+        lg, (k, v) = model.prefill(q[d], {"tokens": prompt.to(d)})
+        cache = model.init_cache(2, total, torch.float32, device=d)
+        cache["kv"]["k"][:, :, :LM_CPU_PROMPT] = k
+        cache["kv"]["v"][:, :, :LM_CPU_PROMPT] = v
+        logits[d], caches[d] = [lg[:, -1].cpu()], cache
+    tol = LM_CPU_RTOL * float(logits["cpu"][0][:, :cfg.vocab].abs().max())
+    worst, agreed, compared = 0.0, 0, 0
+    for t in range(LM_CPU_STEPS + 1):
+        ref = logits["cpu"][t][:, :cfg.vocab]
+        got = logits[dev][t][:, :cfg.vocab]
+        worst = max(worst, float((got - ref).abs().max()))
+        top2 = ref.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol
+        same = got.argmax(-1) == ref.argmax(-1)
+        compared += int(sure.sum())
+        agreed += int((same & sure).sum())
+        if t == LM_CPU_STEPS:
+            break
+        tok = ref.argmax(-1, keepdim=True)      # the CPU's greedy token
+        for d in ("cpu", dev):
+            lg, caches[d] = model.decode(q[d], caches[d], tok.to(d),
+                                         LM_CPU_PROMPT + t)
+            logits[d].append(lg[:, -1].cpu())
+    if worst > tol or agreed != compared:
+        raise AssertionError(f"[lm] card vs CPU at {LM_CPU_LAYERS} layers: "
+                             f"max |dlogit| {worst} (tol {tol}), greedy "
+                             f"tokens {agreed}/{compared} where the margin "
+                             "exceeds tol")
+    row = {"layers": LM_CPU_LAYERS, "artifact_equal_cpu": True,
+           "max_abs_logit_err": worst, "tol": tol,
+           "greedy_agree": f"{agreed}/{compared}"}
+    say("lm", check="card_vs_cpu", arch=LM_ARCH, w_bits=4,
+        compute="float32", **row)
+    report["lm_cpu_check"] = row
+
+
+def lm_path(dev, report):
+    """Serve full-width qwen2.5-3b from seeded weights made and quantized
+    on the card: W8A8, W4A8, W2A8 and W4A8 double-buffered through
+    `Engine`, every dense call of one W4A8 decode step held against the
+    CPU plain path, a plan with a segments rule on every layers/mlp/wi
+    (half W8, half W4), then the CLI `repro_torch.launch.serve` at W4A8.
+    Returns the kernels' launch counts over the two serving windows."""
+    import torch
+    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.policy import PlanRule, PrecisionPlan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.models.api import build, get_config
+
+    cfg = get_config(LM_ARCH)
+    fp = build(cfg).init(SEED, device=dev)
+    models = {w: _lm_model(cfg, w) for w in WIDTHS}
+    params = {w: convert_params(m.init(0, device=dev), fp, w)
+              for w, m in models.items()}
+    db = _lm_model(cfg, 4, pipeline="double_buffer")
+    # one untimed request first: torch loads its own CUDA kernels lazily
+    serve_lm("warm-up", models[8], params[8], {})
+    reset_launches()
+    outs = {w: serve_lm(f"{LM_ARCH} W{w}A8", models[w], params[w], report)
+            for w in WIDTHS}
+    out_db = serve_lm(f"{LM_ARCH} W4A8 double_buffer", db, params[4],
+                      report)
+    torch.cuda.synchronize()
+    first = read_launches()
+    if out_db != outs[4]:
+        raise AssertionError("[lm] double_buffer tokens differ from 'off'")
+    require_launches(LM_ARCH, first, ("qmatmul",))
+    _check_dense_calls(dev, models[4], params[4])
+    profile_decode_step(dev, models[4], params[4], report)
+
+    plan = PrecisionPlan(rules=(PlanRule("layers/mlp/wi", 8,
+                                         segments=LM_RUNS),),
+                         default_w_bits=4)
+    pm = _lm_model(cfg, 4, plan=plan)
+    pp = apply_plan(pm.init(0, device=dev), fp, plan, 4)
+    del fp, params
+    reset_launches()
+    serve_lm(f"{LM_ARCH} plan wi W8|W4", pm, pp, report)
+    del pp
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = serve_cli.main(["--arch", LM_ARCH, "--quant", "w4a8",
+                          "--requests", str(LM_REQUESTS), "--batch",
+                          str(LM_BATCH), "--max-new", str(LM_MAX_NEW)])
+    torch.cuda.synchronize()
+    second = read_launches()
+    if len(cli) != LM_REQUESTS or not all(len(r.out) for r in cli):
+        raise AssertionError("[lm] the serve CLI returned no tokens")
+    say("lm", cli="python -m repro_torch.launch.serve --arch qwen2.5-3b "
+        "--quant w4a8", seconds=round(time.perf_counter() - t0, 1))
+    require_launches(f"{LM_ARCH} plan + CLI", second,
+                     ("qmatmul_segmented", "qmatmul"), stages_needed=(1,))
+    launches = {k: {s: first[k][s] + second[k][s] for s in (1, 2)}
+                for k in first}
+    report.setdefault("launches", {})[LM_ARCH] = launches
+    return launches
+
+
 def write_report(report, name: str):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -1585,6 +2059,13 @@ def main() -> int:
     by_path["mobilenet-tiny"], mnet, m_wave = mobilenet_path(dev, report)
     by_path["tune"] = tune_phase(dev, [shapes, m_shapes], report)
     by_path["obs"] = obs_phase(dev, report)
+    for key, err in lm_kernel_phase(dev, report).items():
+        worst[key] = max(worst[key], err)
+    by_path[LM_ARCH] = lm_path(dev, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_cpu_check(dev, report)
+    lm_timing_phase(dev, report)
     gemm_rows = gemm_timing_phase(dev, head, report)
     conv_rows = timing_phase(dev, convs, report)
     seg_rows = segmented_timing_phase(dev, report)

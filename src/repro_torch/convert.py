@@ -4,8 +4,10 @@ Both functions take *neutral* descriptions made of plain dicts, lists,
 numpy arrays, ints, floats and strings, so the port never needs the
 reference package:
 
-* `fp_params_from_numpy(tree, device)` — an fp param tree of numpy arrays
-  (the reference's `init_fp` output after ``np.asarray``) -> tensors.
+* `fp_params_from_numpy(tree, device)` — a param tree of numpy arrays
+  (the reference's `init_fp` output, or an LM tree in fp or int mode:
+  packed int8 `w_packed`, float32 `w_scale`, after ``np.asarray``) ->
+  tensors of the same dtypes.
 * `qnet_from_numpy(spec, device)` — a `QuantizedVisionNet` description ->
   the port's net. A dataclass instance is described as a dict with a
   ``"__type__"`` key naming the class (``"QConv2D"``,
@@ -48,7 +50,7 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def fp_params_from_numpy(tree, device="cuda"):
-    """Reference fp param tree (nested dicts of numpy arrays) -> tensors."""
+    """Reference param tree (nested dicts of numpy arrays) -> tensors."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: fp_params_from_numpy(v, dev) for k, v in tree.items()}

@@ -77,6 +77,27 @@ def dequantize(t_hat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     return zero + spec.eps * t_hat.to(torch.float32)
 
 
+def fake_quantize(t: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through estimator (the QAT
+    forward of the dense layer's 'fake' mode): the reference's values, in
+    its types. The grid step is taken in ``t``'s dtype (the reference
+    casts its Python-float eps to the array's dtype), the dequantized
+    grid in float32, and the result is float32; the gradient is identity
+    inside the representable range and zero outside."""
+    def lit(v, dtype=t.dtype):
+        return torch.tensor(v, dtype=dtype, device=t.device)
+
+    zero = 0.0 if spec.signed else spec.alpha
+    t_hat = torch.clamp(torch.round((t - lit(zero)) / lit(spec.eps)),
+                        spec.int_min, spec.int_max).to(torch.int8)
+    q = (lit(zero, torch.float32)
+         + lit(spec.eps, torch.float32) * t_hat.to(torch.float32))
+    lo = spec.alpha + spec.eps * spec.int_min if spec.signed else spec.alpha
+    hi = spec.alpha + spec.eps * spec.int_max
+    t_clip = torch.clamp(t, lit(lo), lit(hi))
+    return t_clip + (q - t_clip).detach()
+
+
 def wrap_int32(v: torch.Tensor) -> torch.Tensor:
     """int64 values reduced mod 2^32 into the int32 range (two's
     complement), still as int64 — how int32 arithmetic wraps."""

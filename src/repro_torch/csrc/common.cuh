@@ -11,8 +11,10 @@
 //     every product in uint32 (its int32 wrap) and arithmetic shifts;
 //   * 4/2-bit weights (and signed activations) sign-extend, unsigned
 //     activations zero-extend; 8-bit containers are used as int8;
-//   * dequant is __float2bfloat16_rn(float(acc) * scale): round to
-//     nearest even, as XLA's convert.
+//   * dequant is float(acc) * scale in float32, as the reference's
+//     acc.astype(f32) * scale: stored as it is for a float32 output, or
+//     rounded to bfloat16 by __float2bfloat16_rn (round to nearest even,
+//     as XLA's convert).
 #pragma once
 
 #include <cstdint>
@@ -86,6 +88,7 @@ struct EpilogueArgs {
   int d;
   int hi;                  // top of the unsigned out_bits grid
   int epilogue;
+  int out_f32;             // 'dequant' writes float32, else bfloat16
 };
 
 // Eq. 3 (int32 wrap) then eq. 4 and the clip to [0, hi]: the 'int'
@@ -100,9 +103,15 @@ __device__ __forceinline__ int8_t requant_value(int acc, int kappa, int lam,
   return static_cast<int8_t>(min(max(y, 0), e.hi));
 }
 
-// The 'dequant' epilogue: float(acc) * scale, rounded to nearest even.
+// The 'dequant' epilogue in float32: float(acc) * scale, unrounded.
+__device__ __forceinline__ float dequant_f32(int acc, float scale) {
+  return __int2float_rn(acc) * scale;
+}
+
+// The 'dequant' epilogue to bfloat16: the float32 value rounded to
+// nearest even.
 __device__ __forceinline__ __nv_bfloat16 dequant_value(int acc, float scale) {
-  return __float2bfloat16_rn(__int2float_rn(acc) * scale);
+  return __float2bfloat16_rn(dequant_f32(acc, scale));
 }
 
 // The epilogue of one accumulator, given its column's kappa, lambda, m
@@ -113,6 +122,8 @@ __device__ __forceinline__ void store_value(void* out, long long idx, int acc,
                                             const EpilogueArgs& e) {
   if (e.epilogue == EPI_INT)
     static_cast<int8_t*>(out)[idx] = requant_value(acc, kappa, lam, mmul, e);
+  else if (e.epilogue == EPI_DEQUANT && e.out_f32)
+    static_cast<float*>(out)[idx] = dequant_f32(acc, scale);
   else if (e.epilogue == EPI_DEQUANT)
     static_cast<__nv_bfloat16*>(out)[idx] = dequant_value(acc, scale);
   else

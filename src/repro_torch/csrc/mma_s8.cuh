@@ -95,6 +95,10 @@ struct ColumnParams {
           make_char2(requant_value(v0, kappa[c], lam[c], mmul[c], e),
                      requant_value(v1, kappa[c + 1], lam[c + 1],
                                    mmul[c + 1], e));
+    } else if (e.epilogue == EPI_DEQUANT && e.out_f32) {
+      *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) =
+          make_float2(dequant_f32(v0, scale[c]),
+                      dequant_f32(v1, scale[c + 1]));
     } else if (e.epilogue == EPI_DEQUANT) {
       __nv_bfloat162 y;
       y.x = dequant_value(v0, scale[c]);

@@ -361,7 +361,7 @@ extern "C" int qconv_launch(const void* x, const void* w, const void* stages,
                              static_cast<const int*>(lam),
                              static_cast<const int*>(mmul),
                              static_cast<const float*>(scale_vec),
-                             scale, d, hi, epilogue};
+                             scale, d, hi, epilogue, /*out_f32=*/0};
   const ConvArgs a{static_cast<const int8_t*>(x),
                    static_cast<const int8_t*>(w),
                    static_cast<const int*>(stages),

@@ -132,14 +132,16 @@ cudaError_t launch_n(int nt, int min_blocks, const GemmArgs& a, int splits,
 // Returns the launch's error, else cudaGetLastError() after it (0 on
 // success); an unsupported (a_bits, w_bits, stages, nt, min_blocks) or
 // shape returns cudaErrorInvalidValue. nt: the column tile (16, 32, 64 or
-// 128); splits in [1, 8] blocks share each tile's K stages.
+// 128); splits in [1, 8] blocks share each tile's K stages. out_f32: the
+// 'dequant' epilogue writes float32 (else bfloat16).
 extern "C" int qmatmul_launch(const void* x, const void* w, const void* kappa,
                               const void* lam, const void* mmul,
                               const void* scale_vec, float scale, void* out,
                               int splits, int nt, int min_blocks, int M,
                               int N, int k_pad, int k_logical, int a_bits,
                               int w_bits, int a_signed, int d, int hi,
-                              int epilogue, int stages, void* stream) {
+                              int epilogue, int out_f32, int stages,
+                              void* stream) {
   if (M < 1 || N < 1 || k_pad % rq::CHUNK != 0 || k_logical <= 0 ||
       k_logical > k_pad || splits < 1 || splits > rq::tc::MAX_SPLITS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -147,7 +149,7 @@ extern "C" int qmatmul_launch(const void* x, const void* w, const void* kappa,
                              static_cast<const int*>(lam),
                              static_cast<const int*>(mmul),
                              static_cast<const float*>(scale_vec),
-                             scale, d, hi, epilogue};
+                             scale, d, hi, epilogue, out_f32};
   const GemmArgs a{static_cast<const int8_t*>(x),
                    static_cast<const int8_t*>(w),
                    out,

@@ -158,14 +158,14 @@ cudaError_t launch(const int8_t* x, const int8_t* w, const int* codes,
 // Returns the launch's error, else cudaGetLastError() after it (0 on
 // success); an unsupported a_bits, stages, width or shape returns
 // cudaErrorInvalidValue. splits in [1, 8] blocks share each tile's K
-// stages.
+// stages. out_f32: the 'dequant' epilogue writes float32 (else bfloat16).
 extern "C" int qmatmul_segmented_launch(
     const void* x, const void* w_flat, const void* codes,
     const void* offsets, int w0, int w1, int w2, const void* kappa,
     const void* lam, const void* mmul, const void* scale_vec, float scale,
     void* out, int splits, int M, int N, int k_pad, int k_logical,
-    int a_bits, int a_signed, int d, int hi, int epilogue, int stages,
-    void* stream) {
+    int a_bits, int a_signed, int d, int hi, int epilogue, int out_f32,
+    int stages, void* stream) {
   const WidthTable widths{{w0, w1, w2}};
   for (int c = 0; c < 3; ++c)
     if (widths.bits[c] != 8 && widths.bits[c] != 4 && widths.bits[c] != 2)
@@ -177,7 +177,7 @@ extern "C" int qmatmul_segmented_launch(
                              static_cast<const int*>(lam),
                              static_cast<const int*>(mmul),
                              static_cast<const float*>(scale_vec),
-                             scale, d, hi, epilogue};
+                             scale, d, hi, epilogue, out_f32};
   const auto* xp = static_cast<const int8_t*>(x);
   const auto* wp = static_cast<const int8_t*>(w_flat);
   const auto* cp = static_cast<const int*>(codes);

@@ -24,6 +24,11 @@ against the device the net is placed on.
   only, keyed by its widest segment width; its K split and the conv's
   tile are not runtime knobs.
 
+**The dense layer's GEMM** (`int_gemm`, the reference's
+``xla_int_gemm``) bypasses the op registry as the reference's does: no
+tune-cache probe, no dispatch event, no op counter. Its pipeline is
+explicit -> ``REPRO_QPIPELINE`` -> 'off'; its launch the planned one.
+
 **Observability.** With ``REPRO_OBS=1`` (`repro_torch.obs`), every call
 records one dispatch event (the choice and where each field came from,
 queryable via `repro_torch.obs.dispatch_log()`), bumps the per-(op,
@@ -182,12 +187,14 @@ def qdot_run(params, x_packed: torch.Tensor, *, epilogue: str, scale,
         k_logical=params.k_logical, launch=launch)
 
 
-def _pad_channels(v: torch.Tensor, n_pad: int) -> torch.Tensor:
+def _pad_channels(v: Optional[torch.Tensor], n_pad: int):
+    if v is None:
+        return None
     return torch.nn.functional.pad(v, (0, n_pad - v.shape[-1]))
 
 
 def _qdot_mixed(params: SegmentedLinearParams, x_packed, *, epilogue,
-                scale, pipeline: str) -> torch.Tensor:
+                scale, pipeline: str, out_dtype=None) -> torch.Tensor:
     """Mixed-operand GEMM: zero-pad the ragged tail panel of the
     segmented container to a full CHUNK (`pad_segmented`; the artifact
     itself stays exact-bytes) and the per-channel vectors with it, run
@@ -206,8 +213,41 @@ def _qdot_mixed(params: SegmentedLinearParams, x_packed, *, epilogue,
         x_packed, w_flat, segmap, kappa, lam, m_mul,
         k_logical=params.k_logical, a_bits=params.a_bits,
         a_signed=params.a_signed, d=params.d, out_bits=params.out_bits,
-        epilogue=epilogue, scale=scale, pipeline=pipeline)
+        epilogue=epilogue, scale=scale, pipeline=pipeline,
+        out_dtype=out_dtype)
     return out if n_pad == n else out[:, :n]
+
+
+def int_gemm(x_q: torch.Tensor, w, *, a_bits: int,
+             w_bits: Optional[int] = None, scale, out_dtype=None,
+             pipeline: Optional[str] = None,
+             k_logical: Optional[int] = None) -> torch.Tensor:
+    """The dense layer's integer GEMM with the dequant epilogue (the
+    reference's ``xla_int_gemm(..., epilogue='dequant')``).
+
+    ``x_q``: (..., K_pad) int8 codes on the *signed* ``a_bits`` grid, K
+    zero-padded to CHUNK; they are packed at ``a_bits`` with
+    ``a_signed=True``. ``w``: a packed (K_pad/pf_w, N) int8 tensor at
+    ``w_bits``, contracted over the first ``k_logical`` values of K
+    (default all), or a `SegmentedLinearParams` (its own widths and K;
+    no epilogue vectors needed), which runs the mixed-operand GEMM in
+    one launch. ``scale``: scalar or per-channel (N,) float32; the
+    output is ``out_dtype`` (bfloat16 by default, or float32). Leading
+    dims are flattened for the GEMM and restored.
+    """
+    lead = x_q.shape[:-1]
+    xp = packing.pack(x_q.reshape(-1, x_q.shape[-1]), a_bits, axis=-1)
+    pipeline = resolve_pipeline(pipeline)
+    if isinstance(w, SegmentedLinearParams):
+        out = _qdot_mixed(w, xp, epilogue="dequant", scale=scale,
+                          pipeline=pipeline, out_dtype=out_dtype)
+    else:
+        out = qmatmul_packed(
+            xp, w, None, None, None, a_bits=a_bits, a_signed=True,
+            w_bits=w_bits, d=0, out_bits=8, epilogue="dequant",
+            scale=scale, pipeline=pipeline, k_logical=k_logical,
+            out_dtype=out_dtype)
+    return out.reshape(*lead, out.shape[-1])
 
 
 def qconv(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,

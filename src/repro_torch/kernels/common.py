@@ -31,6 +31,9 @@ from repro_torch.core.quantize import requantize_shift, wrap_int32
 EPILOGUES = ("int", "dequant", "raw")
 EPILOGUE_DTYPES = {"int": torch.int8, "dequant": torch.bfloat16,
                    "raw": torch.int32}
+# what 'dequant' may write: bfloat16 (the default) or float32, as the
+# reference's dense path asks for its input's dtype
+DEQUANT_DTYPES = (torch.bfloat16, torch.float32)
 
 # Software-pipeline modes — the Mac&Load knob. 'off' copies each K tile
 # (qdot) or receptive-field tap (qconv) and then contracts it; with
@@ -46,6 +49,20 @@ def check_pipeline(mode: str) -> str:
             f"unknown pipeline mode {mode!r}; expected one of "
             f"{PIPELINE_MODES}")
     return mode
+
+
+def epilogue_dtype(epilogue: str, out_dtype=None) -> torch.dtype:
+    """The output dtype of ``epilogue``: its own (`EPILOGUE_DTYPES`), or
+    for 'dequant' an ``out_dtype`` of `DEQUANT_DTYPES`."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; expected "
+                         f"{EPILOGUES}")
+    if out_dtype is None:
+        return EPILOGUE_DTYPES[epilogue]
+    if epilogue != "dequant" or out_dtype not in DEQUANT_DTYPES:
+        raise ValueError(f"out_dtype={out_dtype} with epilogue {epilogue!r}:"
+                         f" only 'dequant' takes one, of {DEQUANT_DTYPES}")
+    return out_dtype
 
 
 def round_up(x: int, mult: int) -> int:
@@ -71,16 +88,19 @@ def matmul_planes(x_block: torch.Tensor, w_block: torch.Tensor,
     return int_matmul(x, w)
 
 
-def apply_epilogue(acc: torch.Tensor, kappa: torch.Tensor, lam: torch.Tensor,
-                   m_mul: torch.Tensor, *, d: int, out_bits: int,
-                   epilogue: str, scale) -> torch.Tensor:
+def apply_epilogue(acc: torch.Tensor, kappa, lam, m_mul, *, d: int,
+                   out_bits: int, epilogue: str, scale,
+                   out_dtype=None) -> torch.Tensor:
     """Epilogue on an int32 accumulator; per-channel vectors broadcast
-    along the last (output-channel) axis.
+    along the last (output-channel) axis (only 'int' reads kappa, lam
+    and m, which may be None otherwise).
 
     'int':     eq. 3 with int32 wrap, then eq. 4 requant + clip -> int8.
-    'dequant': float32 rescale (scalar or (N,) scale) -> bfloat16 (RNE).
+    'dequant': float32 rescale (scalar or (N,) scale) -> bfloat16 (RNE),
+               or the float32 product itself for ``out_dtype=float32``.
     'raw':     the int32 accumulators.
     """
+    dtype = epilogue_dtype(epilogue, out_dtype)
     if epilogue == "int":
         phi = wrap_int32(acc.to(torch.int64) * kappa.to(torch.int64)
                          + lam.to(torch.int64))
@@ -89,7 +109,5 @@ def apply_epilogue(acc: torch.Tensor, kappa: torch.Tensor, lam: torch.Tensor,
         return torch.clamp(y, 0, hi).to(torch.int8)
     if epilogue == "dequant":
         s = torch.as_tensor(scale, dtype=torch.float32, device=acc.device)
-        return (acc.to(torch.float32) * s).to(torch.bfloat16)
-    if epilogue == "raw":
-        return acc.to(torch.int32)
-    raise ValueError(f"unknown epilogue {epilogue!r}; expected {EPILOGUES}")
+        return (acc.to(torch.float32) * s).to(dtype)
+    return acc.to(torch.int32)

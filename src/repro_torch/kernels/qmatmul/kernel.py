@@ -30,18 +30,18 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels.build import CudaKernel
-from repro_torch.kernels.common import (EPILOGUE_DTYPES, EPILOGUES,
-                                        PIPELINE_STAGES, apply_epilogue,
-                                        check_pipeline, int_matmul)
+from repro_torch.kernels.common import (EPILOGUES, PIPELINE_STAGES,
+                                        apply_epilogue, check_pipeline,
+                                        epilogue_dtype, int_matmul)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "qmatmul", "qmatmul.cu", "qmatmul_launch",
-    [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P] + [_I] * 14 + [_P])
+    [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P] + [_I] * 15 + [_P])
 SEGMENTED_KERNEL = CudaKernel(
     "qmatmul_segmented", "qmatmul_segmented.cu", "qmatmul_segmented_launch",
     [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, ctypes.c_float, _P]
-    + [_I] * 11 + [_P])
+    + [_I] * 12 + [_P])
 
 
 def _packed_shape(x, w_packed, a_bits: int, w_bits: int,
@@ -64,7 +64,8 @@ def _packed_shape(x, w_packed, a_bits: int, w_bits: int,
 def qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
                          a_signed: bool, w_bits: int, d: int, out_bits: int,
                          epilogue: str = "int", scale=1.0,
-                         k_logical: Optional[int] = None) -> torch.Tensor:
+                         k_logical: Optional[int] = None,
+                         out_dtype=None) -> torch.Tensor:
     """Plain version: x (M, K_pad/pf_a) @ w (K_pad/pf_w, N), both packed
     along K, summed over the first ``k_logical`` values of K (default: all
     of K_pad; the artifact's padding is zero, so both give the same
@@ -74,7 +75,8 @@ def qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
     acc = int_matmul(packing.unpack(x, a_bits, a_signed, axis=-1)[:, :k],
                      packing.unpack(w_packed, w_bits, True, axis=0)[:k])
     return apply_epilogue(acc, kappa, lam, m_mul, d=d, out_bits=out_bits,
-                          epilogue=epilogue, scale=scale)
+                          epilogue=epilogue, scale=scale,
+                          out_dtype=out_dtype)
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
@@ -92,14 +94,23 @@ def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
         raise ValueError(f"{name} must start 16-byte aligned for cp.async")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def epilogue_launch_args(kappa, lam, m_mul, *, n: int, d: int,
                          out_bits: int, epilogue: str, scale, device):
     """Checked epilogue operands of a kernel launch: (kappa, lam, m,
-    per-channel scale tensor or None, scalar scale, d, hi, code)."""
+    per-channel scale tensor or None, scalar scale, d, hi, code). Only
+    'int' reads kappa, lam and m; the others take None for them."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; expected "
                          f"{EPILOGUES}")
     for t, name in ((kappa, "kappa"), (lam, "lam"), (m_mul, "m")):
+        if t is None:
+            if epilogue == "int":
+                raise ValueError(f"epilogue 'int' needs {name}")
+            continue
         _check(t, name, torch.int32, device, 1)
         if t.shape[0] != n:
             raise ValueError(f"{name} has {t.shape[0]} channels, "
@@ -126,7 +137,8 @@ def qmatmul_packed_cuda(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
                         epilogue: str = "int", scale=1.0,
                         pipeline: str = "off",
                         k_logical: Optional[int] = None,
-                        launch: Optional[dict] = None) -> torch.Tensor:
+                        launch: Optional[dict] = None,
+                        out_dtype=None) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors as `gemm_launch_plan`
     plans it, or with ``launch`` ({"splits", "min_blocks"}, a tuned
     launch, which `gemm_launch_plan` refuses unless it fits the shape);
@@ -141,14 +153,14 @@ def qmatmul_packed_cuda(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
                           a_bits=a_bits, a_signed=a_signed, w_bits=w_bits,
                           d=d, out_bits=out_bits, epilogue=epilogue,
                           scale=scale, pipeline=pipeline,
-                          k_logical=k_logical)
+                          k_logical=k_logical, out_dtype=out_dtype)
 
 
 def _launch_packed(x, w_packed, kappa, lam, m_mul,
                    plan: Optional["GemmLaunch"], *, a_bits: int,
                    a_signed: bool, w_bits: int, d: int, out_bits: int,
                    epilogue: str, scale, pipeline: str,
-                   k_logical: Optional[int]) -> torch.Tensor:
+                   k_logical: Optional[int], out_dtype=None) -> torch.Tensor:
     """`qmatmul_packed_cuda` at a given launch ``plan`` (None: the planned
     one). Tests and measurements pass the launches the plan did not
     choose; the result does not depend on the plan."""
@@ -161,7 +173,8 @@ def _launch_packed(x, w_packed, kappa, lam, m_mul,
     kappa, lam, m_mul, svec, sf, d, hi, code = epilogue_launch_args(
         kappa, lam, m_mul, n=n, d=d, out_bits=out_bits, epilogue=epilogue,
         scale=scale, device=dev)
-    out = torch.empty((m, n), dtype=EPILOGUE_DTYPES[epilogue], device=dev)
+    dtype = epilogue_dtype(epilogue, out_dtype)
+    out = torch.empty((m, n), dtype=dtype, device=dev)
     if m == 0 or n == 0:
         return out
     sms = sm_count(dev)
@@ -175,11 +188,11 @@ def _launch_packed(x, w_packed, kappa, lam, m_mul,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL.launch(
-            stages, x.data_ptr(), w_packed.data_ptr(), kappa.data_ptr(),
-            lam.data_ptr(), m_mul.data_ptr(),
-            None if svec is None else svec.data_ptr(), sf, out.data_ptr(),
+            stages, x.data_ptr(), w_packed.data_ptr(), _ptr(kappa),
+            _ptr(lam), _ptr(m_mul), _ptr(svec), sf, out.data_ptr(),
             plan.splits, plan.nt, plan.min_blocks, m, n, k_pad, k_logical,
-            a_bits, w_bits, int(a_signed), d, hi, code, stages, stream)
+            a_bits, w_bits, int(a_signed), d, hi, code,
+            int(dtype == torch.float32), stages, stream)
     return out
 
 
@@ -187,15 +200,18 @@ def qmatmul_packed(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
                    a_signed: bool, w_bits: int, d: int, out_bits: int,
                    epilogue: str = "int", scale=1.0, pipeline: str = "off",
                    k_logical: Optional[int] = None,
-                   launch: Optional[dict] = None) -> torch.Tensor:
+                   launch: Optional[dict] = None,
+                   out_dtype=None) -> torch.Tensor:
     """Packed GEMM: x (M, K_pad/pf_a) @ w (K_pad/pf_w, N) over the first
-    ``k_logical`` values of K, with the fused epilogue. CUDA tensors
-    launch the kernel (at ``launch`` when given, else as planned); CPU
-    tensors run the plain version, which has no launch to choose."""
+    ``k_logical`` values of K, with the fused epilogue ('dequant' writes
+    ``out_dtype``: bfloat16 by default, or float32; 'int' alone reads
+    kappa, lam and m, which may be None otherwise). CUDA tensors launch
+    the kernel (at ``launch`` when given, else as planned); CPU tensors
+    run the plain version, which has no launch to choose."""
     check_pipeline(pipeline)
     kw = dict(a_bits=a_bits, a_signed=a_signed, w_bits=w_bits, d=d,
               out_bits=out_bits, epilogue=epilogue, scale=scale,
-              k_logical=k_logical)
+              k_logical=k_logical, out_dtype=out_dtype)
     if x.is_cuda:
         return qmatmul_packed_cuda(x, w_packed, kappa, lam, m_mul,
                                    pipeline=pipeline, launch=launch, **kw)
@@ -315,7 +331,7 @@ def _check_segmented(x, w_flat, segmap, k_logical: int, a_bits: int):
 def qmatmul_segmented_torch(x, w_flat, segmap, kappa, lam, m_mul, *,
                             k_logical: int, a_bits: int, a_signed: bool,
                             d: int, out_bits: int, epilogue: str = "int",
-                            scale=1.0) -> torch.Tensor:
+                            scale=1.0, out_dtype=None) -> torch.Tensor:
     """Plain version: x (M, K_pad/pf_a) against the flat panel-major
     buffer, read panel by panel through `SegmentMap.tile_table`'s
     (width code, byte offset) descriptors as the kernel reads it, then
@@ -333,7 +349,8 @@ def qmatmul_segmented_torch(x, w_flat, segmap, kappa, lam, m_mul, *,
         acc[:, j * packing.CHUNK:(j + 1) * packing.CHUNK] = int_matmul(
             xu, packing.unpack(panel, bits, True, axis=0))
     return apply_epilogue(acc, kappa, lam, m_mul, d=d, out_bits=out_bits,
-                          epilogue=epilogue, scale=scale)
+                          epilogue=epilogue, scale=scale,
+                          out_dtype=out_dtype)
 
 
 @functools.lru_cache(maxsize=64)
@@ -352,7 +369,8 @@ def segment_descriptors(segmap, k_logical: int, device: torch.device):
 def qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul, *,
                            k_logical: int, a_bits: int, a_signed: bool,
                            d: int, out_bits: int, epilogue: str = "int",
-                           scale=1.0, pipeline: str = "off") -> torch.Tensor:
+                           scale=1.0, pipeline: str = "off",
+                           out_dtype=None) -> torch.Tensor:
     """Launch the mixed-operand Hopper kernel on CUDA tensors (raises on
     anything it does not take)."""
     stages = PIPELINE_STAGES[check_pipeline(pipeline)]
@@ -366,7 +384,8 @@ def qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul, *,
     codes, offs = segment_descriptors(segmap, k_logical, dev)
     widths = segmap.widths()
     widths = widths + (widths[0],) * (3 - len(widths))
-    out = torch.empty((m, n), dtype=EPILOGUE_DTYPES[epilogue], device=dev)
+    dtype = epilogue_dtype(epilogue, out_dtype)
+    out = torch.empty((m, n), dtype=dtype, device=dev)
     if m == 0:
         return out
     # one block per 128 rows x one 128-wide panel, K in stages of 128
@@ -376,24 +395,25 @@ def qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         SEGMENTED_KERNEL.launch(
             stages, x.data_ptr(), w_flat.data_ptr(), codes.data_ptr(),
-            offs.data_ptr(), *widths, kappa.data_ptr(), lam.data_ptr(),
-            m_mul.data_ptr(), None if svec is None else svec.data_ptr(), sf,
-            out.data_ptr(), splits, m, n, k_pad, k_logical, a_bits,
-            int(a_signed), d, hi, code, stages, stream)
+            offs.data_ptr(), *widths, _ptr(kappa), _ptr(lam), _ptr(m_mul),
+            _ptr(svec), sf, out.data_ptr(), splits, m, n, k_pad, k_logical,
+            a_bits, int(a_signed), d, hi, code,
+            int(dtype == torch.float32), stages, stream)
     return out
 
 
 def qmatmul_segmented(x, w_flat, segmap, kappa, lam, m_mul, *,
                       k_logical: int, a_bits: int, a_signed: bool, d: int,
                       out_bits: int, epilogue: str = "int", scale=1.0,
-                      pipeline: str = "off") -> torch.Tensor:
+                      pipeline: str = "off", out_dtype=None) -> torch.Tensor:
     """Mixed-operand packed GEMM: x (M, K_pad/pf_a) against a flat
     panel-major segmented buffer whose N is a CHUNK multiple, with the
-    fused epilogue. CUDA tensors launch the kernel; CPU tensors run the
-    plain version."""
+    fused epilogue (``out_dtype`` as in `qmatmul_packed`). CUDA tensors
+    launch the kernel; CPU tensors run the plain version."""
     check_pipeline(pipeline)
     kw = dict(k_logical=k_logical, a_bits=a_bits, a_signed=a_signed, d=d,
-              out_bits=out_bits, epilogue=epilogue, scale=scale)
+              out_bits=out_bits, epilogue=epilogue, scale=scale,
+              out_dtype=out_dtype)
     if x.is_cuda:
         return qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul,
                                       pipeline=pipeline, **kw)

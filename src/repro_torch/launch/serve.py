@@ -1,0 +1,122 @@
+"""LM serving launcher: init seeded params, convert them to the packed
+sub-byte deployment artifact, and serve a batch of synthetic requests
+through `Engine` on ``--device`` (default ``cuda``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --quant w4a8 --requests 8 --max-new 16
+
+``--smoke`` takes the arch's reduced same-family config; ``--device
+cpu`` runs every dense layer through the kernels' plain versions.
+Mixed-precision serving: pass a deployment plan (one saved by
+``repro.launch.deploy`` loads too) and each dense layer is packed at its
+plan-resolved bit-width instead of one uniform ``--quant``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --smoke --plan plan.json --requests 8 --device cpu
+
+With ``REPRO_OBS=1`` the run records a ``serve.generate`` span and
+exports a Chrome trace on exit to ``REPRO_OBS_TRACE`` (default
+``serve_trace.json``); render it with ``python -m
+repro_torch.obs.report``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--quant", default="off", help="off | w8a8 | w4a8 ...")
+    ap.add_argument("--plan", default=None,
+                    help="mixed-precision plan JSON; overrides --quant")
+    ap.add_argument("--kv-bits", type=int, default=16, choices=[16, 8])
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.policy import load_plan
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.models.api import build, get_config, get_smoke_config
+    from repro_torch.nn.layers import QuantConfig
+    from repro_torch.nn.module import param_bytes
+    from repro_torch.obs import trace as obs
+    from repro_torch.serve.engine import Engine, Request
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(
+        args.arch)
+    cfg = dataclasses.replace(cfg, kv_quant_bits=args.kv_bits)
+    fp_model = build(cfg)
+    fp_params = fp_model.init(args.seed, device=device)
+
+    plan = None
+    if args.plan:
+        plan = load_plan(args.plan)
+        qcfg = QuantConfig(mode="int", w_bits=plan.default_w_bits,
+                           a_bits=plan.default_a_bits)
+        model = build(dataclasses.replace(cfg, quant=qcfg, quant_plan=plan))
+        params = apply_plan(model.init(0, device=device), fp_params, plan,
+                            plan.default_w_bits)
+        mode = f"plan:{args.plan} w_bits={plan.distinct_w_bits()}"
+    elif args.quant != "off":
+        qcfg = QuantConfig(mode="int", w_bits=int(args.quant[1]),
+                           a_bits=int(args.quant[3]))
+        model = build(dataclasses.replace(cfg, quant=qcfg))
+        params = convert_params(model.init(0, device=device), fp_params,
+                                qcfg.w_bits)
+        mode = args.quant
+    else:
+        model, params = fp_model, fp_params
+        mode = "off"
+    del fp_params
+    pbytes = param_bytes(params)
+    print(f"{cfg.name} [{mode}] params {pbytes / 2**20:.1f} MiB "
+          f"({pbytes:,} bytes)")
+
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(prompt=rng.integers(2, cfg.vocab, size=(
+        int(rng.integers(2, 8)),)).astype(np.int32),
+        max_new_tokens=args.max_new) for _ in range(args.requests)]
+    eng = Engine(model, params, batch_size=args.batch, max_len=args.max_len,
+                 plan=plan, device=device)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "CPU, the kernels' plain versions")
+    t0 = time.perf_counter()
+    with obs.span("serve.generate", cat="serve", requests=len(reqs),
+                  batch=args.batch):
+        out = eng.generate(reqs)
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.out) for r in out)
+    print(f"{toks} tokens / {dt:.2f}s = {toks / dt:.1f} tok/s ({where})")
+    rep = eng.utilization_report()
+    lat = rep["latency_us"]
+    if lat is not None:
+        qd = rep["queue_depth"]
+        print(f"wave latency: p50={lat['p50'] / 1e3:.1f}ms "
+              f"p95={lat['p95'] / 1e3:.1f}ms p99={lat['p99'] / 1e3:.1f}ms "
+              f"over {lat['waves']} wave(s); queue depth mean "
+              f"{qd['mean']:.1f} max {qd['max']}")
+    for r in out[:3]:
+        print("  prompt", r.prompt.tolist(), "->", r.out.tolist())
+    trace_path = obs.export_if_configured("serve_trace.json")
+    if trace_path:
+        print(f"trace -> {trace_path} (render: python -m "
+              "repro_torch.obs.report)")
+    return out
+
+
+if __name__ == "__main__":
+    main()

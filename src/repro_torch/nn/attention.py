@@ -1,0 +1,182 @@
+"""Grouped-query attention with causal/local masks and an (optionally
+int8) KV cache for decode.
+
+GQA keeps an explicit group dim (no KV head is ever replicated). Every
+projection is a quantization-aware dense layer, so the packed sub-byte
+GEMM serves all four. The score and value contractions are plain torch
+einsums with a float32 softmax, as the reference leaves them to XLA
+outside any kernel. There is no mesh, so there is no sharding strategy.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.deploy.policy import PrecisionPlan, resolve_qcfg
+from repro_torch.nn.layers import (QOFF, QuantConfig, const, dense_apply,
+                                   dense_def, rope_apply, rope_single)
+
+NEG_INF = -2.0e38
+# the cross-attention and ring-cache paths arrive with these models
+_LATER = {"cross_kv": "ROADMAP Queue 1 item 4 (cross attention, "
+                      "llama-3.2-vision and the enc-dec models)",
+          "ring": "ROADMAP Queue 1 item 4 (the ring KV cache of the "
+                  "Griffin models)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False        # qwen2.5
+    kv_quant_bits: int = 16       # 16 (cache in the compute dtype) | 8
+    qcfg: QuantConfig = QOFF
+    # mixed-precision deployment: per-projection override of qcfg resolved
+    # by this block's param path + projection name (wq/wk/wv/wo)
+    plan: Optional[PrecisionPlan] = None
+    path: str = "layers/attn"
+
+    @property
+    def groups(self):
+        return self.n_heads // self.kv_heads
+
+    def q(self, name: str) -> QuantConfig:
+        return resolve_qcfg(self.plan, f"{self.path}/{name}", self.qcfg)
+
+
+def attn_def(cfg: AttnConfig, dtype=torch.float32):
+    d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    return {
+        "wq": dense_def(d, h * dh, ("embed", "heads"), bias=cfg.qkv_bias,
+                        qcfg=cfg.q("wq"), dtype=dtype),
+        "wk": dense_def(d, hk * dh, ("embed", "kv_heads"), bias=cfg.qkv_bias,
+                        qcfg=cfg.q("wk"), dtype=dtype),
+        "wv": dense_def(d, hk * dh, ("embed", "kv_heads"), bias=cfg.qkv_bias,
+                        qcfg=cfg.q("wv"), dtype=dtype),
+        "wo": dense_def(h * dh, d, ("heads", "embed"), qcfg=cfg.q("wo"),
+                        dtype=dtype),
+    }
+
+
+def _split_heads(x, n, dh):
+    return x.reshape(*x.shape[:-1], n, dh)
+
+
+def _mask_full(q_len, k_len, mode, window, device, q_offset=0):
+    """(q_len, k_len) bool allow-mask. mode: causal|local|bidir."""
+    if mode == "bidir":
+        return torch.ones((q_len, k_len), dtype=torch.bool, device=device)
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    k_pos = torch.arange(k_len, device=device)[None, :]
+    allow = k_pos <= q_pos
+    if mode == "local":
+        allow = allow & (q_pos - k_pos < window)
+    return allow
+
+
+def _sdpa(q, k, v, mask):
+    """q: (B,S,Hk,G,Dh), k/v: (B,T,Hk,Dh), mask broadcastable to
+    (B,Hk,G,S,T). Scores in float32 (the reference's
+    preferred_element_type; a bf16 product is exact in float32), float32
+    softmax, values in v's dtype."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bshgd,bthd->bhgst", q.to(torch.float32),
+                          k.to(torch.float32))
+    scores = torch.where(mask, scores * (dh ** -0.5), NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgst,bthd->bshgd", probs.to(v.dtype), v)
+
+
+def _kv_store(x, bits):
+    if bits == 8:
+        # static symmetric grid for normalized k/v
+        scale = const(8.0 / 127.0, torch.float32, x.device)
+        return torch.clamp(torch.round(x.to(torch.float32) / scale),
+                           -127, 127).to(torch.int8)
+    return x
+
+
+def _kv_load(x, bits, dtype):
+    if bits == 8:
+        return (x.to(torch.float32)
+                * const(8.0 / 127.0, torch.float32, x.device)).to(dtype)
+    return x
+
+
+def attn_apply(p, x, cfg: AttnConfig, *, cos, sin, mode="causal",
+               window=None, cross_kv=None):
+    """Full-sequence attention (prefill). Returns (out, (k, v)) so callers
+    can build decode caches from prefill."""
+    if cross_kv is not None:
+        raise NotImplementedError(f"cross_kv: {_LATER['cross_kv']}")
+    b, s, _ = x.shape
+    h, hk, dh, g = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.groups
+    q = _split_heads(dense_apply(p["wq"], x, qcfg=cfg.q("wq")), h, dh)
+    k = _split_heads(dense_apply(p["wk"], x, qcfg=cfg.q("wk")), hk, dh)
+    v = _split_heads(dense_apply(p["wv"], x, qcfg=cfg.q("wv")), hk, dh)
+    q = rope_apply(q, cos, sin)
+    k = rope_apply(k, cos, sin)
+    q = q.reshape(b, s, hk, g, dh)
+    mask = _mask_full(s, k.shape[1], mode, window, x.device)
+    out = _sdpa(q, k, v, mask[None, None, None]).reshape(b, s, h * dh)
+    return dense_apply(p["wo"], out, qcfg=cfg.q("wo")), (k, v)
+
+
+def init_cache(cfg: AttnConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cpu"):
+    shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+    store_t = torch.int8 if cfg.kv_quant_bits == 8 else dtype
+    return {"k": torch.zeros(shape, dtype=store_t, device=device),
+            "v": torch.zeros(shape, dtype=store_t, device=device)}
+
+
+def attn_decode(p, x, cache, index, cfg: AttnConfig, *, theta=10000.0,
+                mode="causal", window=None, cross_kv=None,
+                ring: bool = False):
+    """One-token decode. x: (B,1,d); index: the true position, a scalar
+    (wave decode: every row at the same step) or a (B,) vector (each slot
+    at its own position); cache: dict(k, v) of (B,T,Hk,Dh), written in
+    place at the position (the returned cache is the same dict). The
+    vector form runs the scalar form's per-element math, so an all-equal
+    vector gives the scalar's result bit for bit. Returns (out, cache).
+    """
+    if cross_kv is not None:
+        raise NotImplementedError(f"cross_kv: {_LATER['cross_kv']}")
+    if ring:
+        raise NotImplementedError(f"ring=True: {_LATER['ring']}")
+    b = x.shape[0]
+    h, hk, dh, g = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.groups
+    per_slot = torch.is_tensor(index) and index.dim() == 1
+    index = index.to(x.device) if per_slot else int(index)
+    q = _split_heads(dense_apply(p["wq"], x, qcfg=cfg.q("wq")), h, dh)
+    k_new = _split_heads(dense_apply(p["wk"], x, qcfg=cfg.q("wk")), hk, dh)
+    v_new = _split_heads(dense_apply(p["wv"], x, qcfg=cfg.q("wv")), hk, dh)
+    q = rope_single(q, index, theta)
+    k_new = rope_single(k_new, index, theta)
+    kq = _kv_store(k_new, cfg.kv_quant_bits)[:, 0]
+    vq = _kv_store(v_new, cfg.kv_quant_bits)[:, 0]
+    t = cache["k"].shape[1]
+    if per_slot:
+        # one write position per row; only the address is batched
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, index.long()] = kq.to(cache["k"].dtype)
+        cache["v"][rows, index.long()] = vq.to(cache["v"].dtype)
+        idx = index[:, None]                       # (B, 1)
+    else:
+        cache["k"][:, index] = kq.to(cache["k"].dtype)
+        cache["v"][:, index] = vq.to(cache["v"].dtype)
+        idx = index
+    k = _kv_load(cache["k"], cfg.kv_quant_bits, x.dtype)
+    v = _kv_load(cache["v"], cfg.kv_quant_bits, x.dtype)
+    k_pos = torch.arange(t, device=x.device)[None, :]
+    allow = k_pos <= idx
+    if mode == "local":
+        allow = allow & (idx - k_pos < window)
+    q = q.reshape(b, 1, hk, g, dh)
+    out = _sdpa(q, k, v, allow[:, None, None, None, :])
+    out = out.reshape(b, 1, h * dh)
+    return dense_apply(p["wo"], out, qcfg=cfg.q("wo")), cache

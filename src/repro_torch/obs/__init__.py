@@ -4,7 +4,7 @@ counters, dispatch decision log, Chrome-trace export.
 The software analogue of the paper's hardware performance-counter
 methodology (Sec. V). Disabled by default; ``REPRO_OBS=1`` (or
 `enable()`) turns recording on, ``REPRO_OBS_TRACE=path.json`` makes the
-vision CLI export a Chrome trace-event artifact that
+vision and serve CLIs export a Chrome trace-event artifact that
 ``python -m repro_torch.obs.report`` renders as MAC/µs-per-bit-width,
 dispatch-summary, and top-span tables.
 

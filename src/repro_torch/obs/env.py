@@ -53,8 +53,9 @@ KNOBS = {k.name: k for k in (
          "disabled mode records nothing and adds one predicate per call.",
          kind="bool"),
     Knob("REPRO_OBS_TRACE",
-         "Path where the vision CLI exports the Chrome trace-event JSON "
-         "artifact on exit (implies nothing unless REPRO_OBS is on).",
+         "Path where the vision and serve CLIs export the Chrome "
+         "trace-event JSON artifact on exit (implies nothing unless "
+         "REPRO_OBS is on).",
          kind="path"),
     Knob("REPRO_TORCH_BUILD_DIR",
          "Directory for the CUDA kernels nvcc builds (default: "

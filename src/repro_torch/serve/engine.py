@@ -1,9 +1,12 @@
-"""Batched quantized-CNN serving over fixed-size image waves.
+"""Batched serving engines over fixed-size waves.
 
-`VisionEngine` is a `Scheduler` over a `VisionAdapter` pinned to
-``policy="wave"`` (admit only when every slot is free): requests are
-images, a wave is a ``batch_size`` slab of them, and a ragged last wave
-runs with empty slots that never reach the results.
+`Engine` (LM) and `VisionEngine` (quantized CNN) are each a `Scheduler`
+over the matching adapter pinned to ``policy="wave"`` (admit only when
+every slot is free). `Engine`'s requests are prompts, served by prefill
+plus streaming decode; `VisionEngine`'s are images. A ragged last wave
+runs with empty slots that never reach the results. A `Scheduler` with
+the default ``policy="continuous"`` over the same adapter re-admits
+mid-wave and gives the same per-request outputs.
 """
 from __future__ import annotations
 
@@ -12,13 +15,66 @@ from typing import List
 import numpy as np
 
 from repro_torch.device import resolve_device
-from repro_torch.serve.runtime.adapters import VisionAdapter
+from repro_torch.serve.runtime.adapters import (LMDecodeAdapter, Request,
+                                                VisionAdapter)
 from repro_torch.serve.runtime.scheduler import Scheduler
 
-__all__ = ["VisionEngine"]
+__all__ = ["Engine", "Request", "VisionEngine"]
 
 
-class VisionEngine:
+class _WaveShim:
+    """The scheduler's wave-granular stats under the engines' names."""
+
+    _sched: Scheduler
+
+    @property
+    def wave_stats(self) -> List[dict]:
+        return self._sched.wave_stats
+
+    def utilization_report(self) -> dict:
+        return self._sched.utilization_report()
+
+    def serving_report(self) -> dict:
+        return self._sched.serving_report()
+
+
+class Engine(_WaveShim):
+    """Batched LM serving on ``device`` (default ``"cuda"``): prefill +
+    streaming decode over the Model API in synchronous waves of
+    ``batch_size``. Weights may be packed sub-byte (QuantConfig
+    mode='int'); the KV cache may be int8 (kv_quant_bits=8). The params
+    must already live on ``device``. ``plan``: the `PrecisionPlan` the
+    params were packed with, kept for introspection."""
+
+    def __init__(self, model, params, batch_size: int, max_len: int,
+                 eos_id: int = 1, plan=None, *, device="cuda"):
+        dev = resolve_device(device)
+        self._adapter = LMDecodeAdapter(model, params, max_len,
+                                        eos_id=eos_id, plan=plan)
+        if self._adapter.device.type != dev.type:
+            raise ValueError(
+                f"the params live on {self._adapter.device}, the engine "
+                f"was asked to serve on {dev}")
+        self.model = model
+        self.params = params
+        self.batch = batch_size
+        self.max_len = max_len
+        self.eos = eos_id
+        self.plan = plan
+        self._sched = Scheduler(self._adapter, batch_size, policy="wave")
+
+    def artifact_bytes(self) -> int:
+        from repro_torch.nn.module import param_bytes
+        return param_bytes(self.params)
+
+    def generate(self, requests: List[Request], greedy: bool = True,
+                 seed: int = 0) -> List[Request]:
+        """Serve the requests in waves; returns the same `Request`
+        objects, in order, with ``.out`` set."""
+        return self._sched.serve(requests, greedy=greedy, seed=seed)
+
+
+class VisionEngine(_WaveShim):
     """Serve a `QuantizedVisionNet` in waves of ``batch_size`` images on
     ``device`` (default ``"cuda"``); the net must already live there."""
 
@@ -32,16 +88,6 @@ class VisionEngine:
         self.batch = batch_size
         self._adapter = VisionAdapter(qnet)
         self._sched = Scheduler(self._adapter, batch_size, policy="wave")
-
-    @property
-    def wave_stats(self) -> List[dict]:
-        return self._sched.wave_stats
-
-    def utilization_report(self) -> dict:
-        return self._sched.utilization_report()
-
-    def serving_report(self) -> dict:
-        return self._sched.serving_report()
 
     def artifact_bytes(self) -> int:
         from repro_torch.vision.models import vision_artifact_bytes

@@ -11,7 +11,7 @@ makes per-request outputs independent of batching and admission order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +64,131 @@ class WorkloadAdapter:
     def tokens_out(self, cursor) -> int:
         return 0
 
+
+# ------------------------------------------------------------- LM decode ---
+
+@dataclasses.dataclass
+class Request:
+    """One LM generation request."""
+    prompt: np.ndarray          # (S,) int32
+    max_new_tokens: int = 32
+    out: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class _LMCursor:
+    payload: Request
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    greedy: bool
+    rng: Optional[np.random.Generator]
+    next_pos: int = 0               # next cache position to feed
+    pending: int = 0                # last sampled token, fed next
+    out: Optional[List[int]] = None
+    done: bool = False
+
+
+def _tree_device(tree) -> torch.device:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.device
+
+
+class LMDecodeAdapter(WorkloadAdapter):
+    """Token-synchronous LM decode over the Model API, on the device the
+    params live on.
+
+    Prefill and decode are the same ``model.decode`` call with a per-slot
+    position vector: a slot working through its prompt is fed prompt
+    tokens (outputs ignored until the last prompt position), then its
+    generated tokens. Output k exists iff ``k < max_new_tokens`` and
+    ``prompt_len + k < max_len`` and no earlier EOS; the EOS token itself
+    is emitted. Non-greedy sampling draws from a per-request generator
+    seeded ``(seed, rid)``, so outputs do not depend on admission order.
+    """
+
+    name = "lm"
+
+    def __init__(self, model, params, max_len: int, *, eos_id: int = 1,
+                 plan=None):
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.eos = eos_id
+        self.plan = plan
+        self.device = _tree_device(params)
+
+    def init_state(self, slots: int):
+        return self.model.init_cache(slots, self.max_len,
+                                     device=self.device)
+
+    def input_spec(self):
+        return ((1,), np.int32)
+
+    def step(self, cache, feed, positions):
+        tok = torch.from_numpy(feed).to(self.device)
+        pos = torch.from_numpy(positions.astype(np.int64)).to(self.device)
+        logits, cache = self.model.decode(self.params, cache, tok, pos)
+        return logits[:, -1].to(torch.float32).cpu().numpy(), cache
+
+    def begin(self, payload: Request, *, rid: int, greedy: bool = True,
+              seed: int = 0):
+        prompt = np.asarray(payload.prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            prompt = np.zeros((1,), np.int32)   # a single BOS(=0) token
+        max_new = int(payload.max_new_tokens)
+        cur = _LMCursor(
+            payload=payload, rid=rid, prompt=prompt, max_new=max_new,
+            greedy=greedy,
+            rng=None if greedy else np.random.default_rng((seed, rid)),
+            out=[])
+        if max_new <= 0:
+            cur.done = True        # completes without occupying a slot
+        return cur
+
+    def reserve_tokens(self, cur: _LMCursor) -> int:
+        return len(cur.prompt) + cur.max_new
+
+    def prompt_len(self, cur: _LMCursor) -> int:
+        return len(cur.prompt)
+
+    def feed(self, cur: _LMCursor):
+        p = cur.next_pos
+        tok = cur.prompt[p] if p < len(cur.prompt) else cur.pending
+        return np.asarray([tok], np.int32), p
+
+    def _sample(self, cur: _LMCursor, row: np.ndarray) -> int:
+        if cur.greedy:
+            return int(row.argmax(-1))
+        p = np.exp(row - row.max(-1, keepdims=True))
+        p /= p.sum(-1, keepdims=True)
+        return int(cur.rng.choice(row.shape[-1], p=p))
+
+    def consume(self, cur: _LMCursor, row: np.ndarray) -> bool:
+        q = cur.next_pos            # the position just fed
+        cur.next_pos = q + 1
+        if q < len(cur.prompt) - 1:
+            return False            # still prefilling: output ignored
+        if len(cur.out) < cur.max_new and cur.next_pos < self.max_len:
+            nxt = self._sample(cur, row)
+            cur.out.append(nxt)
+            cur.pending = nxt
+            if (nxt == self.eos or len(cur.out) >= cur.max_new
+                    or cur.next_pos + 1 >= self.max_len):
+                cur.done = True
+        else:
+            cur.done = True         # no room left for another token
+        return cur.done
+
+    def finish(self, cur: _LMCursor):
+        cur.payload.out = np.array(cur.out, np.int32)
+
+    def tokens_out(self, cur: _LMCursor) -> int:
+        return len(cur.out)
+
+
+# ---------------------------------------------------------------- vision ---
 
 @dataclasses.dataclass
 class _VisionCursor:

@@ -389,3 +389,123 @@ def test_tuned_launch_matches_planned_and_tune_times_the_device(dev):
     finally:
         tune.clear()
         obs_pkg.reset()
+
+
+# The LM dense path's operands: signed activation codes, a per-channel
+# dequant scale and both output dtypes, at qwen2.5-3b's K x N shapes
+# (narrowed where N is wide) and M of a decode step, a batch and a
+# ragged prefill
+DENSE_SHAPES = ((1, 2048, 256), (4, 2048, 384), (64, 11008, 128),
+                (37, 200, 100))
+
+
+def _dense_vectors(rng, n, dev):
+    return torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(
+        np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qmatmul_signed_vector_scale_f32_matches_plain(dev, a_bits, w_bits,
+                                                       pipeline):
+    rng = np.random.default_rng(a_bits * 10 + w_bits + 5)
+    for m, k, n in DENSE_SHAPES:
+        x = packing.pack(packing.pad_to_chunk(
+            _ints(rng, a_bits, True, (m, k), dev)), a_bits)
+        w = packing.pack(packing.pad_to_chunk(
+            _ints(rng, w_bits, True, (k, n), dev), axis=0), w_bits, axis=0)
+        vecs = [v.to(dev) for v in _epilogue_vectors(rng, n, dev)]
+        scale = _dense_vectors(rng, n, dev)
+        cases = [("int", None, vecs), ("raw", None, [None] * 3)] + [
+            ("dequant", dt, [None] * 3)
+            for dt in (torch.bfloat16, torch.float32)]
+        for epi, out_dtype, v in cases:
+            kw = dict(a_bits=a_bits, a_signed=True, w_bits=w_bits, d=23,
+                      out_bits=a_bits, epilogue=epi, scale=scale,
+                      k_logical=k, out_dtype=out_dtype)
+            want = gemm_k.qmatmul_packed_torch(x, w, *v, **kw)
+            got = gemm_k.qmatmul_packed_cuda(x, w, *v, pipeline=pipeline,
+                                             **kw)
+            assert got.dtype == want.dtype
+            assert _same(got, want), ((m, k, n), epi, out_dtype)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits", [8, 4, 2])
+def test_qmatmul_segmented_signed_f32_matches_plain(dev, a_bits, pipeline):
+    rng = np.random.default_rng(a_bits + 7)
+    for (m, k, n), segmap in (
+            ((4, 2048, 512), packing.SegmentMap(((0, 256, 8),
+                                                 (256, 512, 4)))),
+            ((37, 200, 320), _mix_runs((8, 4, 2), 320))):
+        w = torch.cat([_ints(rng, b, True, (k, e - s), dev)
+                       for s, e, b in segmap.runs], dim=1)
+        w_flat, padded = packing.pad_segmented(
+            packing.pack_segmented(w, segmap), segmap, k)
+        xp = packing.pack(packing.pad_to_chunk(
+            _ints(rng, a_bits, True, (m, k), dev)), a_bits)
+        scale = _dense_vectors(rng, padded.n, dev)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            kw = dict(k_logical=k, a_bits=a_bits, a_signed=True, d=0,
+                      out_bits=8, epilogue="dequant", scale=scale,
+                      out_dtype=out_dtype)
+            want = gemm_k.qmatmul_segmented_torch(xp, w_flat, padded,
+                                                  None, None, None, **kw)
+            got = gemm_k.qmatmul_segmented_cuda(xp, w_flat, padded, None,
+                                                None, None,
+                                                pipeline=pipeline, **kw)
+            assert got.dtype == out_dtype
+            assert _same(got, want), ((m, k, n), out_dtype)
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_layer_on_the_card_matches_cpu(dev, dtype, segmented):
+    from repro_torch.nn import layers
+
+    rng = np.random.default_rng(11)
+    segments = ((0, 128, 8), (128, 300, 4)) if segmented else None
+    w = torch.from_numpy((rng.normal(size=(200, 300)) * 0.1).astype(
+        np.float32))
+    for a_bits in (8, 4, 2):
+        qcfg = layers.QuantConfig(mode="int", w_bits=8 if segmented else 4,
+                                  a_bits=a_bits, segments=segments)
+        pk, sc = (layers.pack_dense_weights_segmented(w, segments)
+                  if segmented else layers.pack_dense_weights(w, 4))
+        p = {"w_packed": pk, "w_scale": sc,
+             "b": torch.from_numpy(rng.normal(size=300).astype(np.float32))}
+        x = torch.from_numpy((rng.normal(size=(3, 5, 200)) * 2).astype(
+            np.float32)).to(dtype)
+        want = layers.dense_apply(p, x, qcfg=qcfg)
+        got = layers.dense_apply({k: v.to(dev) for k, v in p.items()},
+                                 x.to(dev), qcfg=qcfg)
+        assert got.dtype == dtype and _same(got.cpu(), want)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qconv_signed_vector_scale_matches_plain(dev, a_bits, w_bits,
+                                                 pipeline):
+    # the conv's sign-extending activation unpack and a per-channel
+    # dequant scale, which no served net reaches
+    rng = np.random.default_rng(a_bits * 10 + w_bits + 9)
+    for n, h, w_, cin, cout, f, s, p in WALL[:4]:
+        cin_pad = packing.padded_size(cin)
+        x = _ints(rng, a_bits, True, (n, h, w_, cin), dev)
+        wt = torch.nn.functional.pad(
+            _ints(rng, w_bits, True, (f * f, cin, cout), dev),
+            (0, 0, 0, cin_pad - cin))
+        wpf = packing.pack(wt.reshape(-1, cout), w_bits, axis=0)
+        vecs = [v.to(dev) for v in _epilogue_vectors(rng, cout, dev)]
+        ho, wo = conv_k.conv_out_hw(h, w_, f, f, s, p)
+        xp = conv_k.pad_and_pack(x, padding=p, cin_pad=cin_pad,
+                                 a_bits=a_bits)
+        for epi in ("int", "raw", "dequant"):
+            kw = dict(fh=f, fw=f, stride=s, ho=ho, wo=wo, cin_pad=cin_pad,
+                      cout=cout, a_bits=a_bits, a_signed=True,
+                      w_bits=w_bits, d=23, out_bits=a_bits, epilogue=epi,
+                      scale=_dense_vectors(rng, cout, dev))
+            want = conv_k.qconv_packed_torch(xp, wpf, *vecs, **kw)
+            got = conv_k.qconv_packed_cuda(xp, wpf, *vecs,
+                                           pipeline=pipeline, cin=cin, **kw)
+            assert _same(got, want), ((n, h, w_, cin, cout, f, s, p), epi)

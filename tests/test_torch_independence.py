@@ -37,10 +37,22 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
+def test_port_covers_the_lm_modules_and_configs():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES}
+    assert {"configs/base.py", "configs/qwen2p5_3b.py", "models/lm.py",
+            "models/api.py", "nn/attention.py", "nn/mlp.py",
+            "nn/module.py", "deploy/apply.py", "launch/convert.py",
+            "launch/serve.py"} <= names
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.vision, "
             "repro_torch.convert, repro_torch.serve.engine, "
-            "repro_torch.deploy.planner, repro_torch.deploy.calibrate; "
+            "repro_torch.deploy.planner, repro_torch.deploy.calibrate, "
+            "repro_torch.launch.serve, repro_torch.launch.convert, "
+            "repro_torch.deploy.apply, repro_torch.models.api as api; "
+            "api.list_archs(); "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run(
@@ -72,6 +84,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         launch.main(["--net", "resnet8", "--smoke"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.fp_params_from_numpy({"w": np.zeros(3, np.float32)})
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Engine
+    model = api.build(api.get_smoke_config("qwen2.5-3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(model, model.init(0, device="cpu"), 2, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen2.5-3b", "--smoke"])
 
 
 def test_engine_refuses_a_net_on_another_device(monkeypatch):

@@ -50,6 +50,13 @@ def np_tree(tree):
     return np.asarray(tree)
 
 
+def jax_tree(tree):
+    """Nested dict of port tensors -> nested dict of jax arrays."""
+    if isinstance(tree, dict):
+        return {k: jax_tree(v) for k, v in tree.items()}
+    return jax.numpy.asarray(tree.numpy())
+
+
 def to_np(t) -> np.ndarray:
     """A port tensor (bf16 as its bit pattern) or reference array -> numpy
     for exact comparison."""
@@ -91,3 +98,20 @@ def assert_artifacts_equal(port, ref, path="net"):
             assert_artifacts_equal(p, r, f"{path}[{i}]")
     else:
         assert port == ref, (path, port, ref)
+
+
+def fp_numpy(defs, seed=1):
+    """fp weights for a ParamDef tree (the port's or the reference's: the
+    same keys and shapes) from a numpy generator: fan-in scaled normals;
+    norms and biases random too, so every leaf matters."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k in sorted(defs):
+        d = defs[k]
+        if isinstance(d, dict):
+            out[k] = fp_numpy(d, int(rng.integers(2 ** 31)))
+            continue
+        fan = d.shape[-2] if len(d.shape) >= 2 and d.init == "normal" else 1
+        out[k] = (rng.normal(size=d.shape) * 0.5 / fan ** 0.5
+                  + (1.0 if d.init == "ones" else 0.0)).astype(np.float32)
+    return out
