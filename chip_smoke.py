@@ -97,7 +97,33 @@
    prefill plus 8 decode steps stay within 1e-3 of the largest logit of
    the CPU run, with greedy tokens equal wherever the CPU's top-1 margin
    exceeds that.
-9. Times each kernel (CUDA events and profiler device time) beside its
+9. [rec]: the recurrent LM families, mamba2-370m (Mamba-2 SSD) and
+   recurrentgemma-9b (Griffin: RG-LRU + local attention on a ring KV
+   cache). Kernels 1-2 at their six new K x N shapes (1024x4384,
+   2048x1024, 4096x4096, 4096x256, 4096x12288, 12288x4096; M = 4, A8 x
+   W{8,4,2}) and kernel 3 on 4096x12288 under a two-run plan (A{8,4,2}),
+   signed activations, a per-channel scale, both output dtypes, both
+   STAGES, identical to the plain version. Then each model at full width
+   from seeded weights made and quantized on the card one width at a
+   time (the fp tree stays; each artifact is freed before the next),
+   served by `Engine` like qwen2.5-3b at W8A8, W4A8, W4A8
+   double-buffered (the same tokens) and W2A8, with the peak device
+   memory on each serve line; qmatmul must have launched at both STAGES.
+   At W4A8: every dense call of one decode step at per-slot positions
+   (`dense_tap`: 48 x 2 and 26 x 8 + 12 x 7) identical to the CPU's, one
+   profiled decode step, and the last requests of the two waves (all 8
+   for mamba, 3 for rgemma), which ran on reused slots, each equal to
+   the same request served alone by a one-slot `Engine` (the carried
+   SSM / RG-LRU state is cleared on admission). rgemma serves one more
+   plan, every rec_layers/mlp/wi split W8 | W4 (kernel 3 must launch),
+   and each model runs the CLI at W4A8. At reduced depth (mamba 2
+   layers, rgemma 3: one rec, rec, attn group, its window cut from 2048
+   to 16 so the ring of 16 slots wraps), float32 compute: the W4A8
+   artifact packed on the card equals the CPU's byte for byte, and 8
+   prompt tokens plus 16 greedy decode steps stay within 1e-3 of the
+   largest CPU logit, with greedy tokens equal where the margin exceeds
+   that.
+10. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -111,8 +137,9 @@
    W8A8 under both lowerings beside cuDNN's bf16 channels-last
    ``conv2d(groups=C)`` on its integer input, with the MACs each
    lowering contracts against the real ones. Each of qwen2.5-3b's four
-   dense shapes at M = 4, A8 x W{8,4,2}, beside its bound and
-   `torch.matmul` in bf16 on dequantized weights.
+   dense shapes and the recurrent families' six at M = 4, A8 x
+   W{8,4,2}, beside its bound and `torch.matmul` in bf16 on dequantized
+   weights.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
@@ -1664,15 +1691,43 @@ class DenseCase:
         return nbytes / PEAK_BYTES * 1e3, 2 * m * k * n / PEAK_INT8_OPS * 1e3
 
 
+def compare_dense_cases(phase, cases, worst, n_cmp):
+    """Each `DenseCase` at both output dtypes and both STAGES, identical
+    to its plain version on the card; tallies into ``worst`` and
+    ``n_cmp``."""
+    import torch
+    for c in cases:
+        kind = c.kind
+        for out_dtype in (torch.bfloat16, torch.float32):
+            want = c.plain(out_dtype)
+            for stages in (1, 2):
+                got = c.kernel(stages, out_dtype)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                if got.dtype != out_dtype or err != 0.0:
+                    raise AssertionError(
+                        f"[{phase}] {kind} STAGES={stages} A{c.a_bits}W"
+                        f"{c.w_bits} {c.runs} {out_dtype} at {c.shape}: "
+                        f"dtype {got.dtype}, max abs err {err}")
+                worst[(kind, stages)] = max(worst[(kind, stages)], err)
+                n_cmp[kind] += 1
+    say(phase, kernels="qmatmul,qmatmul_segmented", a_signed=True,
+        scale="per-channel", out_dtypes="bfloat16,float32",
+        compared=json.dumps(n_cmp), all_exact=True)
+
+
+def _no_errors():
+    return ({(k, s): 0.0 for k in ("qmatmul", "qmatmul_segmented")
+             for s in (1, 2)}, {"qmatmul": 0, "qmatmul_segmented": 0})
+
+
 def lm_kernel_phase(dev, report):
     """Kernels 1-3 at qwen2.5-3b's four dense shapes, M 1/4/64, signed
     activations, a per-channel scale, both output dtypes, both STAGES:
     identical to the plain version on the card."""
     import torch
     gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
-    worst = {("qmatmul", s): 0.0 for s in (1, 2)}
-    worst.update({("qmatmul_segmented", s): 0.0 for s in (1, 2)})
-    n_cmp = {"qmatmul": 0, "qmatmul_segmented": 0}
+    worst, n_cmp = _no_errors()
     cases = []
     for k, n in LM_SHAPES:
         for w_bits in WIDTHS:
@@ -1690,24 +1745,7 @@ def lm_kernel_phase(dev, report):
                           w=seg_w)
             seg_w = c.weights()
             cases.append(c)
-    for c in cases:
-        kind = c.kind
-        for out_dtype in (torch.bfloat16, torch.float32):
-            want = c.plain(out_dtype)
-            for stages in (1, 2):
-                got = c.kernel(stages, out_dtype)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want)
-                if got.dtype != out_dtype or err != 0.0:
-                    raise AssertionError(
-                        f"[lm] {kind} STAGES={stages} A{c.a_bits}W"
-                        f"{c.w_bits} {c.runs} {out_dtype} at {c.shape}: "
-                        f"dtype {got.dtype}, max abs err {err}")
-                worst[(kind, stages)] = max(worst[(kind, stages)], err)
-                n_cmp[kind] += 1
-    say("lm", kernels="qmatmul,qmatmul_segmented", a_signed=True,
-        scale="per-channel", out_dtypes="bfloat16,float32",
-        compared=json.dumps(n_cmp), all_exact=True)
+    compare_dense_cases("lm", cases, worst, n_cmp)
     report["lm_kernel_phase"] = {"comparisons": n_cmp,
                                  "shapes": [list(s) for s in LM_SHAPES],
                                  "m": list(LM_M), "runs": LM_RUNS}
@@ -1740,9 +1778,10 @@ def _dense_bytes(params):
     return 0
 
 
-def serve_lm(name, model, params, report):
+def serve_lm(name, model, params, report, phase="lm"):
     """Serve the LM requests through `Engine`; print and record the
-    [lm] serve line; return the outputs."""
+    [phase] serve line (peak device memory since the path's last
+    `torch.cuda.reset_peak_memory_stats`); return the outputs."""
     import torch
     from repro_torch.nn.module import param_bytes
     from repro_torch.serve.engine import Engine
@@ -1757,7 +1796,7 @@ def serve_lm(name, model, params, report):
                                               and r.out[-1] == eng.eos))
            or (r.out < 0).any() or (r.out >= model.cfg.vocab).any()
            for r in out):
-        raise AssertionError(f"[lm] {name}: bad outputs "
+        raise AssertionError(f"[{phase}] {name}: bad outputs "
                              f"{[r.out.tolist() for r in out]}")
     lat = eng.utilization_report()["latency_us"]
     row = {"tok_per_s": toks / wall, "tokens": toks, "wall_s": wall,
@@ -1765,14 +1804,29 @@ def serve_lm(name, model, params, report):
            "waves": lat["waves"], "dense_bytes": _dense_bytes(params),
            "param_bytes": param_bytes(params),
            "embed_bytes": param_bytes(params["embed"]),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "device": torch.cuda.get_device_name(0)}
-    say("lm", serve=name, **{k: (round(v, 3) if isinstance(v, float) else v)
-                             for k, v in row.items()})
-    report.setdefault("lm_serve", {})[name] = row
+    say(phase, serve=name, **{k: (round(v, 3) if isinstance(v, float)
+                                  else v) for k, v in row.items()})
+    report.setdefault(f"{phase}_serve", {})[name] = row
     return [r.out.tolist() for r in out]
 
 
-def _check_dense_calls(dev, model, params):
+def dense_calls_per_step(model) -> int:
+    """Dense calls of one decode step: each quantized dense path of the
+    model (`quantized_dense_paths`) once per stacked layer."""
+    from repro_torch.deploy.apply import quantized_dense_paths
+    defs = model.defs()
+    total = 0
+    for path in quantized_dense_paths(defs):
+        node = defs
+        for part in path.split("/"):
+            node = node[part]
+        total += node["w_packed"].shape[0]      # every dense is stacked
+    return total
+
+
+def _check_dense_calls(dev, model, params, phase="lm"):
     """One decode step of the served W4A8 model with `dense_tap` on: every
     one of its dense calls, run again on the card, is identical to the
     same call on the CPU (the kernels' plain versions)."""
@@ -1791,23 +1845,25 @@ def _check_dense_calls(dev, model, params):
         model.decode(params, cache, toks[:, 4:5],
                      torch.tensor([4, 3, 4, 2], device=dev))
     torch.cuda.synchronize()
-    if len(calls) != 7 * cfg.n_layers:
-        raise AssertionError(f"[lm] tapped {len(calls)} dense calls, "
-                             f"expected {7 * cfg.n_layers}")
+    expected = dense_calls_per_step(model)
+    if len(calls) != expected:
+        raise AssertionError(f"[{phase}] tapped {len(calls)} dense calls, "
+                             f"expected {expected}")
     for i, (p, x) in enumerate(calls):
         got = dense_apply(p, x, qcfg=cfg.quant)
         want = dense_apply(to_device(p, "cpu"), x.cpu(), qcfg=cfg.quant)
         err = max_abs_err(got.cpu(), want)
         if err != 0.0:
-            raise AssertionError(f"[lm] dense call {i} ({tuple(x.shape)} x "
+            raise AssertionError(f"[{phase}] dense call {i} "
+                                 f"({tuple(x.shape)} x "
                                  f"{tuple(p['w_packed'].shape)}): max abs "
                                  f"err {err} against the CPU plain path")
-    say("lm", check="dense_tap", arch=cfg.name, w_bits=cfg.quant.w_bits,
+    say(phase, check="dense_tap", arch=cfg.name, w_bits=cfg.quant.w_bits,
         dense_calls=len(calls), all_equal_cpu_plain=True)
     return len(calls)
 
 
-def profile_decode_step(dev, model, params, report):
+def profile_decode_step(dev, model, params, report, phase="lm"):
     """One decode step (batch 4) under torch.profiler: wall, device busy
     and idle share, the qmatmul kernels' device ms; and the logits head
     (tied embedding matmul and its mask) profiled alone at the step's
@@ -1837,22 +1893,22 @@ def profile_decode_step(dev, model, params, report):
            else max(0.0, 1.0 - busy / wall_us),
            "qmatmul_device_ms": ours / 1e3 if ours else None,
            "logits_head_device_ms": head_ms}
-    say("lm", profile="decode step", arch=cfg.name, batch=LM_BATCH,
+    say(phase, profile="decode step", arch=cfg.name, batch=LM_BATCH,
         w_bits=cfg.quant.w_bits, **row)
-    report["lm_profile_decode_step"] = row
+    report.setdefault(f"{phase}_profile_decode_step", {})[cfg.name] = row
 
 
-def lm_timing_phase(dev, report):
-    """Each dense shape of qwen2.5-3b at M = 4 (a decode step of the
-    served batch), A8 x W8/W4/W2, bf16 output: the kernel's device ms at
-    both STAGES beside its bound, its plain version and `torch.matmul`
-    in bf16 on the dequantized weights (`torch._int_mm` does not take
-    M = 4)."""
+def lm_timing_phase(dev, report, shapes=LM_SHAPES, label="lm_shape",
+                    seed=SEED + 7):
+    """Each dense shape (K, N) at M = 4 (a decode step of the served
+    batch), A8 x W8/W4/W2, bf16 output: the kernel's device ms at both
+    STAGES beside its bound, its plain version and `torch.matmul` in bf16
+    on the dequantized weights (`torch._int_mm` does not take M = 4)."""
     import torch
     from repro_torch.core import packing
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
     rows = {}
-    for k, n in LM_SHAPES:
+    for k, n in shapes:
         library = None
         for w_bits in WIDTHS:
             c = DenseCase(4, k, n, 8, w_bits, gen, dev)
@@ -1877,10 +1933,10 @@ def lm_timing_phase(dev, report):
                     lambda: c.kernel(stages, torch.bfloat16), 3, 20)
                 row[f"device_ms_s{stages}"] = kernel_device_ms([c], stages)
             rows[f"{k}x{n} W{w_bits}"] = row
-            say("time", kernel="qmatmul", lm_shape=f"4x{k}x{n}", **{
+            say("time", kernel="qmatmul", **{label: f"4x{k}x{n}"}, **{
                 k_: (round(v, 6) if isinstance(v, float) else v)
                 for k_, v in row.items() if k_ != "shape"})
-    report["timing_lm"] = rows
+    report[f"timing_{label}"] = rows
     return rows
 
 
@@ -1962,6 +2018,7 @@ def lm_path(dev, report):
     from repro_torch.models.api import build, get_config
 
     cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
     fp = build(cfg).init(SEED, device=dev)
     models = {w: _lm_model(cfg, w) for w in WIDTHS}
     params = {w: convert_params(m.init(0, device=dev), fp, w)
@@ -2008,6 +2065,238 @@ def lm_path(dev, report):
                 for k in first}
     report.setdefault("launches", {})[LM_ARCH] = launches
     return launches
+
+
+# ------------------------------------------------------------ [rec] ---
+
+REC_ARCHS = ("mamba2-370m", "recurrentgemma-9b")
+# (K, N) the recurrent families give kernels 1-2 and no earlier path
+# does: mamba2-370m's in_proj (34 x 128 + 32 = 4384 columns) and
+# out_proj; recurrentgemma-9b's in_x, in_gate, w_a, w_i, out, wq, attn wo
+# (4096 x 4096), wk and wv, wi and wg, mlp wo
+REC_SHAPES = ((1024, 4384), (2048, 1024), (4096, 4096), (4096, 256),
+              (4096, 12288), (12288, 4096))
+# kernel 3's two-run plan on 4096 x 12288 (rgemma's rec_layers/mlp/wi
+# under the [rec] plan): half W8, half W4
+REC_RUNS = ((0, 6144, 8), (6144, 12288, 4))
+# requests of the served W4A8 run each checked against the same request
+# served alone: the last ones, which the second wave puts on reused slots
+REC_ALONE = {"mamba2-370m": 8, "recurrentgemma-9b": 3}
+# the CPU cross-check: the full widths at a reduced depth (rgemma: one
+# rec, rec, attn group), float32 compute; rgemma's window cut from 2048 to
+# 16 so that its ring of min(24, 16) slots wraps within the 8 prompt
+# tokens and 16 decode steps
+REC_CPU_LAYERS = {"mamba2-370m": 2, "recurrentgemma-9b": 3}
+REC_CPU_WINDOW = 16
+REC_CPU_PROMPT, REC_CPU_STEPS = 8, 16
+
+
+def rec_kernel_phase(dev, report):
+    """Kernels 1-2 at the six (K, N) shapes of the recurrent families,
+    M = 4, A8 x W{8,4,2}; kernel 3 on 4096 x 12288 under a two-run plan,
+    A{8,4,2}: signed activations, a per-channel scale, both output
+    dtypes, both STAGES, identical to the plain version on the card."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    worst, n_cmp = _no_errors()
+    cases = [DenseCase(4, k, n, 8, w_bits, gen, dev)
+             for k, n in REC_SHAPES for w_bits in WIDTHS]
+    seg_w = None
+    for a_bits in WIDTHS:
+        c = DenseCase(4, 4096, 12288, a_bits, 8, gen, dev, runs=REC_RUNS,
+                      w=seg_w)
+        seg_w = c.weights()
+        cases.append(c)
+    compare_dense_cases("rec", cases, worst, n_cmp)
+    report["rec_kernel_phase"] = {"comparisons": n_cmp,
+                                  "shapes": [list(s) for s in REC_SHAPES],
+                                  "m": 4, "runs": REC_RUNS}
+    return worst
+
+
+def _int_skeleton(defs):
+    """The int-mode tree `apply_plan` fills, at no device memory: it reads
+    only the shape of each dense's ``w_packed`` (a meta tensor here) and
+    takes every other leaf from the fp tree."""
+    import torch
+    if isinstance(defs, dict):
+        return {k: _int_skeleton(v) for k, v in defs.items()}
+    return torch.empty(defs.shape, dtype=defs.dtype, device="meta")
+
+
+def _decode_once(dev, model, params):
+    """One decode step at the served batch (torch loads its own CUDA
+    kernels lazily: the first served step would pay for it)."""
+    import torch
+    cache = model.init_cache(LM_BATCH, LM_MAX_LEN, device=dev)
+    model.decode(params, cache, torch.full((LM_BATCH, 1), 7, device=dev), 0)
+    torch.cuda.synchronize()
+
+
+def rec_reset_check(dev, model, params, served, n, report):
+    """The last ``n`` requests of the served 8 (4 slots, two waves: these
+    ran on slots the first wave left), each served alone by a fresh
+    one-slot `Engine`: the same tokens, so the re-admitted slots started
+    from cleared SSM / RG-LRU state."""
+    from repro_torch.serve.engine import Engine
+    cfg = model.cfg
+    reqs = _lm_requests(cfg)
+    for i in range(LM_REQUESTS - n, LM_REQUESTS):
+        alone = Engine(model, params, batch_size=1, max_len=LM_MAX_LEN,
+                       device=dev).generate([reqs[i]])[0].out.tolist()
+        if alone != served[i]:
+            raise AssertionError(f"[rec] {cfg.name} request {i}: served on a "
+                                 f"reused slot {served[i]}, alone {alone}")
+    say("rec", check="state_reset", arch=cfg.name, w_bits=4,
+        requests_alone=n, two_wave_equal_alone=True)
+    report.setdefault("rec_state_reset", {})[cfg.name] = n
+
+
+def rec_path(dev, arch, report):
+    """Serve one recurrent family at full width from seeded weights made
+    and quantized on the card, one width at a time: W8A8, W4A8, W4A8
+    double-buffered (the same tokens) and W2A8 through `Engine`; then at
+    W4A8 every dense call of one decode step against the CPU plain path,
+    one profiled decode step and the state-reset check; for rgemma a plan
+    with every rec_layers/mlp/wi split W8 | W4; then the CLI at W4A8.
+    Returns the kernels' launch counts over the two serving windows."""
+    import torch
+    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.policy import PlanRule, PrecisionPlan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.api import build, get_config
+
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fp = build(cfg).init(SEED, device=dev)
+
+    def pack(model, w_bits, plan=None):
+        return apply_plan(_int_skeleton(model.defs()), fp, plan, w_bits)
+
+    models = {w: _lm_model(cfg, w) for w in WIDTHS}
+    db = _lm_model(cfg, 4, pipeline="double_buffer")
+    params = pack(models[8], 8)
+    _decode_once(dev, models[8], params)
+    reset_launches()
+    outs = {8: serve_lm(f"{arch} W8A8", models[8], params, report, "rec")}
+    del params
+    p4 = pack(models[4], 4)
+    outs[4] = serve_lm(f"{arch} W4A8", models[4], p4, report, "rec")
+    out_db = serve_lm(f"{arch} W4A8 double_buffer", db, p4, report, "rec")
+    params = pack(models[2], 2)
+    outs[2] = serve_lm(f"{arch} W2A8", models[2], params, report, "rec")
+    del params
+    torch.cuda.synchronize()
+    first = read_launches()
+    if out_db != outs[4]:
+        raise AssertionError(f"[rec] {arch}: double_buffer tokens differ "
+                             "from 'off'")
+    require_launches(arch, first, ("qmatmul",))
+    _check_dense_calls(dev, models[4], p4, "rec")
+    profile_decode_step(dev, models[4], p4, report, "rec")
+    rec_reset_check(dev, models[4], p4, outs[4], REC_ALONE[arch], report)
+    del p4
+
+    reset_launches()
+    needed = ("qmatmul",)
+    if cfg.family == "griffin":
+        plan = PrecisionPlan(rules=(PlanRule("rec_layers/mlp/wi", 8,
+                                             segments=REC_RUNS),),
+                             default_w_bits=4)
+        pm = _lm_model(cfg, 4, plan=plan)
+        pp = pack(pm, 4, plan)
+        serve_lm(f"{arch} plan rec wi W8|W4", pm, pp, report, "rec")
+        del pp
+        needed = ("qmatmul_segmented", "qmatmul")
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = serve_cli.main(["--arch", arch, "--quant", "w4a8", "--requests",
+                          str(LM_REQUESTS), "--batch", str(LM_BATCH),
+                          "--max-new", str(LM_MAX_NEW)])
+    torch.cuda.synchronize()
+    second = read_launches()
+    if len(cli) != LM_REQUESTS or not all(len(r.out) for r in cli):
+        raise AssertionError(f"[rec] the serve CLI returned no tokens for "
+                             f"{arch}")
+    say("rec", cli=f"python -m repro_torch.launch.serve --arch {arch} "
+        "--quant w4a8", seconds=round(time.perf_counter() - t0, 1))
+    require_launches(f"{arch} plan + CLI" if len(needed) > 1
+                     else f"{arch} CLI", second, needed, stages_needed=(1,))
+    del cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: {s: first[k][s] + second[k][s] for s in (1, 2)}
+                for k in first}
+    report.setdefault("launches", {})[arch] = launches
+    return launches
+
+
+def rec_cpu_check(dev, arch, report):
+    """One recurrent family at its full widths and REC_CPU_LAYERS layers,
+    float32 compute, fp weights from a CPU generator: the W4A8 artifact
+    packed on the card is byte-identical to the CPU's; REC_CPU_PROMPT
+    prompt tokens and REC_CPU_STEPS greedy steps, each one decode step on
+    both devices, stay within LM_CPU_RTOL of the largest CPU logit, and
+    greedy tokens agree wherever the CPU's top-1 margin exceeds that."""
+    import dataclasses
+    import torch
+    from repro_torch.convert import to_device
+    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.models.api import build, get_config
+    cut = {"n_layers": REC_CPU_LAYERS[arch], "compute_dtype": "float32"}
+    if arch == "recurrentgemma-9b":
+        cut["window"] = REC_CPU_WINDOW
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    fp_cpu = build(cfg).init(SEED, device="cpu")
+    model = _lm_model(cfg, 4)
+    q = {d: apply_plan(_int_skeleton(model.defs()), to_device(fp_cpu, d),
+                       None, 4) for d in ("cpu", dev)}
+    diff = first_difference(to_device(q[dev], "cpu"), q["cpu"])
+    if diff is not None:
+        raise AssertionError(f"[rec] {arch}: the W4A8 artifact packed on "
+                             f"the card differs from the CPU's at {diff}")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    prompt = torch.randint(2, cfg.vocab, (2, REC_CPU_PROMPT), generator=gen)
+    total = REC_CPU_PROMPT + REC_CPU_STEPS
+    caches = {d: model.init_cache(2, total, torch.float32, device=d)
+              for d in ("cpu", dev)}
+    tol, worst, agreed, compared = None, 0.0, 0, 0
+    tok = prompt[:, :1]
+    for t in range(total):
+        lg = {d: model.decode(q[d], caches[d], tok.to(d), t)[0][:, -1]
+              .cpu()[:, :cfg.vocab] for d in ("cpu", dev)}
+        ref, got = lg["cpu"], lg[dev]
+        if tol is None:
+            tol = LM_CPU_RTOL * float(ref.abs().max())
+        worst = max(worst, float((got - ref).abs().max()))
+        if t >= REC_CPU_PROMPT - 1:
+            top2 = ref.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > tol
+            same = got.argmax(-1) == ref.argmax(-1)
+            compared += int(sure.sum())
+            agreed += int((same & sure).sum())
+        # the next prompt token, then the CPU's greedy token
+        tok = (prompt[:, t + 1:t + 2] if t + 1 < REC_CPU_PROMPT
+               else ref.argmax(-1, keepdim=True))
+    if worst > tol or agreed != compared:
+        raise AssertionError(f"[rec] {arch} card vs CPU at {cfg.n_layers} "
+                             f"layers: max |dlogit| {worst} (tol {tol}), "
+                             f"greedy tokens {agreed}/{compared} where the "
+                             "margin exceeds tol")
+    row = {"layers": cfg.n_layers, "artifact_equal_cpu": True,
+           "max_abs_logit_err": worst, "tol": tol,
+           "greedy_agree": f"{agreed}/{compared}"}
+    if "window" in cut:
+        row.update(window=f"{REC_CPU_WINDOW} (cut from 2048)",
+                   ring_slots=caches["cpu"]["kv"]["k"].shape[2],
+                   positions=total)
+    say("rec", check="card_vs_cpu", arch=arch, w_bits=4, compute="float32",
+        **row)
+    report.setdefault("rec_cpu_check", {})[arch] = row
 
 
 def write_report(report, name: str):
@@ -2065,7 +2354,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_cpu_check(dev, report)
+    for key, err in rec_kernel_phase(dev, report).items():
+        worst[key] = max(worst[key], err)
+    for arch in REC_ARCHS:
+        by_path[arch] = rec_path(dev, arch, report)
+    for arch in REC_ARCHS:
+        rec_cpu_check(dev, arch, report)
     lm_timing_phase(dev, report)
+    lm_timing_phase(dev, report, REC_SHAPES, "rec_shape", SEED + 10)
     gemm_rows = gemm_timing_phase(dev, head, report)
     conv_rows = timing_phase(dev, convs, report)
     seg_rows = segmented_timing_phase(dev, report)

@@ -4,9 +4,8 @@ Every architecture file (``repro_torch/configs/<id>.py``) builds a
 `ModelConfig` with its exact published numbers plus a reduced
 ``smoke_config()`` of the same family for CPU tests. The fields are the
 reference's, so a reference config and the port's describe the same
-model; fields of families the port does not serve yet (MoE, cross
-attention, enc-dec, Mamba, Griffin) are carried but refused by
-`repro_torch.models.api`.
+model; fields of the parts the port does not serve yet (MoE, cross
+attention, enc-dec) are carried but refused by `repro_torch.models`.
 """
 from __future__ import annotations
 

@@ -65,45 +65,41 @@ def check_range(x: torch.Tensor, bits: int, signed: bool = True):
             "quantize/clip first")
 
 
-def _to_int8(v: torch.Tensor) -> torch.Tensor:
-    """int32 byte patterns in [0, 256) -> int8 with two's-complement wrap."""
-    return torch.where(v > 127, v - 256, v).to(torch.int8)
-
-
 def pack(x: torch.Tensor, bits: int, axis: int = -1, *,
          assert_range: bool = False, signed: bool = True) -> torch.Tensor:
-    """Pack sub-byte integer values (int8 tensor) into int8 containers,
-    chunk-planar along ``axis`` (a CHUNK multiple)."""
+    """Pack sub-byte integer values (int8 tensor) into contiguous int8
+    containers, chunk-planar along ``axis`` (a CHUNK multiple)."""
     if assert_range:
         check_range(x, bits, signed)
     if bits == 8:
-        return x.to(torch.int8)
+        return x.to(torch.int8).contiguous()
     pf = pack_factor(bits)
-    x = torch.movedim(x, axis, -1)
-    *lead, k = x.shape
+    ax = axis % x.dim()
+    lead, k, trail = x.shape[:ax], x.shape[ax], x.shape[ax + 1:]
     if k % CHUNK:
         raise ValueError(
             f"packing axis ({k}) must be a multiple of CHUNK={CHUNK}")
     sub = CHUNK // pf
-    planes = x.reshape(*lead, k // CHUNK, pf, sub).to(torch.int32)
+    # split the axis in place, (k // CHUNK, pf, sub), and OR the planes'
+    # two's-complement low bits into bytes: no transpose, no int32 copy
+    planes = x.to(torch.int8).reshape(*lead, k // CHUNK, pf, sub,
+                                      *trail).view(torch.uint8)
     mask = (1 << bits) - 1
-    out = torch.zeros((*lead, k // CHUNK, sub), dtype=torch.int32,
-                      device=x.device)
-    for p in range(pf):
-        out = out | ((planes[..., p, :] & mask) << (bits * p))
-    out = _to_int8(out.reshape(*lead, k // pf))
-    return torch.movedim(out, -1, axis).contiguous()
+    out = planes.select(ax + 1, 0) & mask
+    for p in range(1, pf):
+        out |= (planes.select(ax + 1, p) & mask) << (bits * p)
+    return out.view(torch.int8).reshape(*lead, k // pf, *trail).contiguous()
 
 
 def _extract_field(container: torch.Tensor, bits: int, plane: int,
                    signed: bool) -> torch.Tensor:
     """Bit-field ``plane`` of int8 containers, sign- or zero-extended."""
-    byte = container.to(torch.int32) & 0xFF
-    field = (byte >> (bits * plane)) & ((1 << bits) - 1)
+    byte = container.view(torch.uint8)
+    field = ((byte >> (bits * plane)) & ((1 << bits) - 1)).to(torch.int8)
     if signed:
         field = torch.where(field >= (1 << (bits - 1)),
                             field - (1 << bits), field)
-    return field.to(torch.int8)
+    return field
 
 
 def unpack_planes(p_block: torch.Tensor, bits: int, signed: bool):
@@ -122,15 +118,16 @@ def unpack(p: torch.Tensor, bits: int, signed: bool,
     if bits == 8:
         return p.to(torch.int8)
     pf = pack_factor(bits)
-    p = torch.movedim(p, axis, -1)
-    *lead, kp = p.shape
+    ax = axis % p.dim()
+    lead, kp, trail = p.shape[:ax], p.shape[ax], p.shape[ax + 1:]
     sub = CHUNK // pf
     if kp % sub:
         raise ValueError(f"packed axis ({kp}) not a multiple of {sub}")
-    chunks = p.reshape(*lead, kp // sub, sub)
-    out = torch.stack(unpack_planes(chunks, bits, signed), dim=-2)
-    out = out.reshape(*lead, kp * pf)
-    return torch.movedim(out, -1, axis).contiguous()
+    # split the packed axis in place, (kp // sub, sub), and put the planes
+    # between the two: no transpose of the container
+    chunks = p.reshape(*lead, kp // sub, sub, *trail)
+    out = torch.stack(unpack_planes(chunks, bits, signed), dim=ax + 1)
+    return out.reshape(*lead, kp * pf, *trail)
 
 
 def planar_perm(k: int, bits: int) -> np.ndarray:

@@ -2,8 +2,8 @@
 
 `Model` exposes init / specs / loss / forward / prefill / decode /
 init_cache; the server and the tests talk only to it. The port serves
-the dense ``lm`` family; a config of another family (enc-dec, Mamba,
-Griffin) raises, naming the ROADMAP item that brings it.
+the dense ``lm`` family, Mamba-2 and Griffin; an enc-dec config raises,
+naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -12,14 +12,18 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import griffin, lm, mamba
 from repro_torch.nn.module import init_params, logical_specs
 
 _FAMILIES = {
     "lm": (lm.lm_def, lm.forward, lm.decode_step, lm.lm_init_cache),
+    "mamba": (mamba.mamba_lm_def, mamba.forward, mamba.decode_step,
+              mamba.mamba_lm_init_cache),
+    "griffin": (griffin.griffin_def, griffin.forward, griffin.decode_step,
+                griffin.griffin_init_cache),
 }
-_LATER = {"encdec": "models/encdec.py", "mamba": "models/mamba.py and "
-          "nn/ssm.py", "griffin": "models/griffin.py and nn/rglru.py"}
+_LATER = {"encdec": "cross attention: models/encdec.py and "
+          "seamless-m4t-large-v2"}
 
 
 def _family(cfg: ModelConfig):
@@ -76,7 +80,8 @@ class Model:
 
     def prefill(self, params, batch):
         """Full forward over the prompt; returns last-position logits and
-        the stacked (k, v) of every layer."""
+        the stacked (k, v) of every layer (None for the recurrent
+        families)."""
         logits, _, kvs = self._fns[1](params, batch["tokens"], self.cfg,
                                       collect_kv=True)
         return logits[:, -1:], kvs

@@ -1,5 +1,6 @@
 """Grouped-query attention with causal/local masks and an (optionally
-int8) KV cache for decode.
+int8) KV cache for decode: positional, or a ring of window slots for
+local attention.
 
 GQA keeps an explicit group dim (no KV head is ever replicated). Every
 projection is a quantization-aware dense layer, so the packed sub-byte
@@ -19,11 +20,9 @@ from repro_torch.nn.layers import (QOFF, QuantConfig, const, dense_apply,
                                    dense_def, rope_apply, rope_single)
 
 NEG_INF = -2.0e38
-# the cross-attention and ring-cache paths arrive with these models
+# the cross-attention path arrives with these models
 _LATER = {"cross_kv": "ROADMAP Queue 1 item 4 (cross attention, "
-                      "llama-3.2-vision and the enc-dec models)",
-          "ring": "ROADMAP Queue 1 item 4 (the ring KV cache of the "
-                  "Griffin models)"}
+                      "llama-3.2-vision and the enc-dec models)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,11 +142,15 @@ def attn_decode(p, x, cache, index, cfg: AttnConfig, *, theta=10000.0,
     place at the position (the returned cache is the same dict). The
     vector form runs the scalar form's per-element math, so an all-equal
     vector gives the scalar's result bit for bit. Returns (out, cache).
+
+    ring=True treats the cache as a ring of T slots (local attention):
+    the write slot is index % T, slot j holds true position index -
+    ((index - j) mod T) (floor modulo: index - j is negative in slots
+    not yet wrapped), and RoPE uses true positions, so relative phases
+    stay exact across wraps.
     """
     if cross_kv is not None:
         raise NotImplementedError(f"cross_kv: {_LATER['cross_kv']}")
-    if ring:
-        raise NotImplementedError(f"ring=True: {_LATER['ring']}")
     b = x.shape[0]
     h, hk, dh, g = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.groups
     per_slot = torch.is_tensor(index) and index.dim() == 1
@@ -163,19 +166,27 @@ def attn_decode(p, x, cache, index, cfg: AttnConfig, *, theta=10000.0,
     if per_slot:
         # one write position per row; only the address is batched
         rows = torch.arange(b, device=x.device)
-        cache["k"][rows, index.long()] = kq.to(cache["k"].dtype)
-        cache["v"][rows, index.long()] = vq.to(cache["v"].dtype)
+        slot = (torch.remainder(index, t) if ring else index).long()
+        cache["k"][rows, slot] = kq.to(cache["k"].dtype)
+        cache["v"][rows, slot] = vq.to(cache["v"].dtype)
         idx = index[:, None]                       # (B, 1)
     else:
-        cache["k"][:, index] = kq.to(cache["k"].dtype)
-        cache["v"][:, index] = vq.to(cache["v"].dtype)
+        slot = index % t if ring else index
+        cache["k"][:, slot] = kq.to(cache["k"].dtype)
+        cache["v"][:, slot] = vq.to(cache["v"].dtype)
         idx = index
     k = _kv_load(cache["k"], cfg.kv_quant_bits, x.dtype)
     v = _kv_load(cache["v"], cfg.kv_quant_bits, x.dtype)
     k_pos = torch.arange(t, device=x.device)[None, :]
-    allow = k_pos <= idx
-    if mode == "local":
-        allow = allow & (idx - k_pos < window)
+    if ring:
+        true_pos = idx - torch.remainder(idx - k_pos, t)
+        allow = true_pos >= 0
+        if window is not None:
+            allow = allow & (idx - true_pos < window)
+    else:
+        allow = k_pos <= idx
+        if mode == "local":
+            allow = allow & (idx - k_pos < window)
     q = q.reshape(b, 1, hk, g, dh)
     out = _sdpa(q, k, v, allow[:, None, None, None, :])
     out = out.reshape(b, 1, h * dh)

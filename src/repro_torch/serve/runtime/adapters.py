@@ -16,6 +16,10 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+# per-slot carried state that must be cleared on slot reuse, keyed by the
+# cache subtree name: leaves are (layers, slots, ...) with zero init
+STATE_RESET_KEYS = ("ssm", "rec")
+
 
 class WorkloadAdapter:
     """Base contract; subclasses set ``name`` and ``max_len`` and
@@ -122,6 +126,27 @@ class LMDecodeAdapter(WorkloadAdapter):
     def init_state(self, slots: int):
         return self.model.init_cache(slots, self.max_len,
                                      device=self.device)
+
+    def reset_state(self, cache, slot_mask: np.ndarray):
+        """Zero the carried recurrent rows (SSM / RG-LRU) of re-admitted
+        slots, in place in the tensors the scheduler holds; positional
+        KV is left alone (the mask admits only positions the new request
+        has itself written)."""
+        keys = [k for k in STATE_RESET_KEYS if k in cache]
+        if not keys or not slot_mask.any():
+            return cache
+        mask = torch.from_numpy(np.asarray(slot_mask, bool)).to(self.device)
+
+        def clear(tree):
+            for leaf in tree.values():
+                if isinstance(leaf, dict):
+                    clear(leaf)
+                else:
+                    leaf[:, mask] = 0
+
+        for k in keys:
+            clear(cache[k])
+        return cache
 
     def input_spec(self):
         return ((1,), np.int32)

@@ -509,3 +509,92 @@ def test_qconv_signed_vector_scale_matches_plain(dev, a_bits, w_bits,
             got = conv_k.qconv_packed_cuda(xp, wpf, *vecs,
                                            pipeline=pipeline, cin=cin, **kw)
             assert _same(got, want), ((n, h, w_, cin, cout, f, s, p), epi)
+
+
+def _recurrent_smoke(arch, dev):
+    """(model, params on the CPU, params on ``dev``) of an arch's smoke
+    config at W4A8, packed on the CPU from seeded fp weights."""
+    import dataclasses
+
+    from repro_torch.convert import to_device
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.models import api
+    from repro_torch.nn import layers
+
+    cfg = api.get_smoke_config(arch)
+    fp = api.build(cfg).init(0, device="cpu")
+    model = api.build(dataclasses.replace(cfg, quant=layers.QuantConfig(
+        mode="int", w_bits=4, a_bits=8)))
+    q = convert_params(model.init(0, device="cpu"), fp, 4)
+    return model, q, to_device(q, dev)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_decode_dense_calls_on_the_card_match_cpu(dev, arch):
+    # one W4A8 decode step at per-slot positions, past the rgemma-smoke
+    # ring's wrap (window 8): every dense call on the card is identical
+    # to the same call on the CPU
+    from repro_torch.convert import to_device
+    from repro_torch.nn import layers
+
+    model, _, q = _recurrent_smoke(arch, dev)
+    cache = model.init_cache(3, 32, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        2, 128, (3, 12))).to(dev)
+    for t in range(11):
+        model.decode(q, cache, toks[:, t:t + 1], t)
+    calls = []
+    with layers.dense_tap(lambda p, x: calls.append((p, x))):
+        model.decode(q, cache, toks[:, 11:], torch.tensor([11, 9, 10],
+                                                          device=dev))
+    # smoke depth: 2 mamba layers x 2; 6 rec layers x 8 + 2 attention x 7
+    assert len(calls) == {"mamba2-370m": 2 * 2,
+                          "recurrentgemma-9b": 6 * 8 + 2 * 7}[arch]
+    for p, x in calls:
+        got = layers.dense_apply(p, x, qcfg=model.cfg.quant)
+        want = layers.dense_apply(to_device(p, "cpu"), x.cpu(),
+                                  qcfg=model.cfg.quant)
+        assert _same(got.cpu(), want)
+
+
+@pytest.mark.parametrize("vector", [False, True], ids=["scalar", "vector"])
+def test_ring_cache_decode_on_the_card_matches_cpu(dev, vector):
+    # rgemma-smoke W4A8 over 20 steps on an 8-slot ring, float32 compute:
+    # the card's logits within 1e-3 of the largest of the CPU's
+    import dataclasses
+
+    model, q_cpu, q = _recurrent_smoke("recurrentgemma-9b", dev)
+    model = dataclasses.replace(model, cfg=dataclasses.replace(
+        model.cfg, compute_dtype="float32"))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        2, 128, (2, 20)))
+    caches = {d: model.init_cache(2, 64, torch.float32, device=d)
+              for d in ("cpu", dev)}
+    assert caches["cpu"]["kv"]["k"].shape[2] == 8
+    for t in range(20):
+        idx = torch.tensor([t, max(t - 3, 0)]) if vector else t
+        want, _ = model.decode(q_cpu, caches["cpu"], toks[:, t:t + 1], idx)
+        got, _ = model.decode(q, caches[dev], toks[:, t:t + 1].to(dev),
+                              idx.to(dev) if vector else idx)
+        tol = 1e-3 * float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= tol, t
+
+
+def test_reset_state_zeroes_only_the_masked_slots_on_the_card(dev):
+    from repro_torch.serve.runtime.adapters import LMDecodeAdapter
+
+    for arch in ("mamba2-370m", "recurrentgemma-9b"):
+        model, _, q = _recurrent_smoke(arch, dev)
+        adapter = LMDecodeAdapter(model, q, 16)
+        cache = adapter.init_state(4)
+        for tree in cache.values():
+            for leaf in tree.values():
+                leaf.fill_(1)
+        assert adapter.reset_state(
+            cache, np.array([True, False, False, True])) is cache
+        for name, tree in cache.items():
+            for leaf in tree.values():
+                assert leaf.device.type == "cuda"
+                cleared = name in ("ssm", "rec")
+                assert bool((leaf[:, [0, 3]] == 0).all()) == cleared
+                assert bool((leaf[:, [1, 2]] == 1).all())

@@ -43,7 +43,9 @@ def test_port_covers_the_lm_modules_and_configs():
     assert {"configs/base.py", "configs/qwen2p5_3b.py", "models/lm.py",
             "models/api.py", "nn/attention.py", "nn/mlp.py",
             "nn/module.py", "deploy/apply.py", "launch/convert.py",
-            "launch/serve.py"} <= names
+            "launch/serve.py", "configs/mamba2_370m.py",
+            "configs/recurrentgemma_9b.py", "nn/ssm.py", "nn/rglru.py",
+            "models/mamba.py", "models/griffin.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():
@@ -51,7 +53,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.convert, repro_torch.serve.engine, "
             "repro_torch.deploy.planner, repro_torch.deploy.calibrate, "
             "repro_torch.launch.serve, repro_torch.launch.convert, "
-            "repro_torch.deploy.apply, repro_torch.models.api as api; "
+            "repro_torch.deploy.apply, repro_torch.models.api as api, "
+            "repro_torch.models.mamba, repro_torch.models.griffin, "
+            "repro_torch.nn.ssm, repro_torch.nn.rglru; "
             "api.list_archs(); "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")

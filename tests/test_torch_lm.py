@@ -155,7 +155,7 @@ def test_attention_prefill_and_decode_close(kv_bits):
             assert_same(pcache["k"], rcache["k"], "int8 k cache")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         p_attn.attn_decode(pp, torch.from_numpy(xt), pcache, 0, pc,
-                           ring=True)
+                           cross_kv=(None, None))
 
 
 @pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
@@ -278,13 +278,14 @@ def test_packed_trees_identical_and_serve_exact(plan):
 def test_other_families_raise_naming_the_roadmap():
     cfg = p_api.get_smoke_config("qwen2.5-3b")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        p_api.build(dataclasses.replace(cfg, family="mamba"))
+        p_api.build(dataclasses.replace(cfg, family="encdec"))
     with pytest.raises(NotImplementedError, match="Mixture-of-Experts"):
         p_api.build(dataclasses.replace(
             cfg, moe=importlib.import_module(
                 "repro_torch.configs.base").MoeSpec(4, 2, 64))).defs()
-    assert p_api.list_archs() == ["gemma3-1b", "olmo-1b", "phi3-mini-3.8b",
-                                  "qwen2.5-3b"]
+    assert p_api.list_archs() == ["gemma3-1b", "mamba2-370m", "olmo-1b",
+                                  "phi3-mini-3.8b", "qwen2.5-3b",
+                                  "recurrentgemma-9b"]
     # the published numbers and the smoke configs, copied unchanged
     for name in p_api.list_archs():
         for r, p in ((r_api.get_config(name), p_api.get_config(name)),

@@ -45,6 +45,18 @@ def test_pack_unpack_byte_identical(bits, signed, axis, rng):
         unpack_np(np.asarray(ref), bits, signed, axis=axis), v)
 
 
+@pytest.mark.parametrize("axis", [0, -1])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_pack_of_a_strided_view_is_contiguous_and_identical(bits, axis, rng):
+    # the kernels take contiguous containers; activations can reach the
+    # packer as a transposed view (an einsum's output layout)
+    shape = (256, 6) if axis == 0 else (6, 256)
+    v = _values(rng, bits, True, shape[::-1]).T
+    port = p_pack.pack(torch.from_numpy(v), bits, axis=axis)
+    assert port.is_contiguous()
+    assert_same(port, r_pack.pack(jnp.asarray(v), bits, axis=axis), "pack")
+
+
 @pytest.mark.parametrize("bits", [8, 4, 2])
 def test_planes_perm_and_padding_match(bits, rng):
     v = _values(rng, bits, True, (2 * p_pack.CHUNK // p_pack.pack_factor(
