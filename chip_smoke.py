@@ -123,7 +123,33 @@
    prompt tokens plus 16 greedy decode steps stay within 1e-3 of the
    largest CPU logit, with greedy tokens equal where the margin exceeds
    that.
-10. Times each kernel (CUDA events and profiler device time) beside its
+10. [xattn]: cross attention, seamless-m4t-large-v2 (enc-dec: 24 encoder
+   + 24 decoder layers) and llama-3.2-vision-90b (full width, its depth
+   cut from 100 layers to 10: two groups of four self layers and a cross
+   layer; the W8 artifact of 100 layers outgrows the card). Kernels 1-2
+   at the eleven (M, K, N) shapes these give (seamless's 1024x1024,
+   1024x8192, 8192x1024 at M = 4 and over the encoder's 4 x 4096 frames,
+   M = 16,384; vision's 8192x8192, 8192x1024, 8192x28672, 28672x8192 at
+   M = 4 and 8192x1024 at M = 4096), A8 x W{8,4,2}, and kernel 3 on
+   1024x8192 split W8 | W4 (A{8,4,2} at M = 4, A8 at M = 16,384), both
+   output dtypes and STAGES, identical to the plain version. Each model
+   served like qwen2.5-3b at W8A8, W4A8, W4A8 double-buffered and W2A8
+   (the cross cache at zero, as the reference's `Engine` leaves it), with
+   peak memory; at W4A8 every int dense call of one decode step (24 x 8,
+   and 8 x 7 + 2 x 5) and, for seamless, of one encoder layer at M =
+   16,384 and one cross_kv_project (6 + 2) identical to the CPU's; a
+   profiled decode step; `Model.prefill` of seamless at 4 x 4096 source
+   frames and 256 tokens, profiled, beside the bound of its int GEMMs;
+   decode against the teacher-forced forward over the cross cache
+   `fill_cross_kv` fills (float32, quantization off, within 1e-3 of the
+   largest |logit|; W4A8 reported beside it); seamless's plan with every
+   dec_layers/mlp/wi split W8 | W4 (kernel 3 must launch) and each CLI at
+   W4A8 (vision with ``--layers 10``). At 2 + 2 layers and 64 source
+   frames (cut from 4096), float32: seamless's W4A8 artifact packed on
+   the card equals the CPU's byte for byte; the forward and 16 decode
+   steps over each device's filled cross cache stay within 1e-3 of the
+   largest CPU logit, greedy tokens equal where the margin exceeds it.
+11. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -138,8 +164,8 @@
    ``conv2d(groups=C)`` on its integer input, with the MACs each
    lowering contracts against the real ones. Each of qwen2.5-3b's four
    dense shapes and the recurrent families' six at M = 4, A8 x
-   W{8,4,2}, beside its bound and `torch.matmul` in bf16 on dequantized
-   weights.
+   W{8,4,2}, and the [xattn] shapes (M = 16,384 among them), beside
+   its bound and `torch.matmul` in bf16 on dequantized weights.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
@@ -1630,8 +1656,8 @@ class DenseCase:
         def ints(bits, size):
             lo, hi = packing.int_range(bits, True)
             return torch.randint(-hi if bits == 8 else lo, hi + 1, size,
-                                 generator=gen, dtype=torch.int32).to(
-                torch.int8).to(dev)
+                                 generator=gen, device=gen.device,
+                                 dtype=torch.int32).to(torch.int8).to(dev)
 
         self.shape, self.a_bits, self.w_bits, self.runs = (m, k, n), \
             a_bits, w_bits, runs
@@ -1649,7 +1675,8 @@ class DenseCase:
             wv = torch.cat([ints(b, (k, e - s)) for s, e, b in runs], dim=1)
             self.w, self.segmap = packing.pad_segmented(
                 packing.pack_segmented(wv, segmap), segmap, k)
-        self.scale = (torch.rand(n, generator=gen) * 1e-3 + 1e-5).to(dev)
+        self.scale = (torch.rand(n, generator=gen, device=gen.device)
+                      * 1e-3 + 1e-5).to(dev)
 
     def weights(self):
         return self.w, self.segmap
@@ -1814,11 +1841,16 @@ def serve_lm(name, model, params, report, phase="lm"):
 
 def dense_calls_per_step(model) -> int:
     """Dense calls of one decode step: each quantized dense path of the
-    model (`quantized_dense_paths`) once per stacked layer."""
+    model (`quantized_dense_paths`) once per stacked layer, but for the
+    encoder's and the cross K/V projections (run once per source, not per
+    step)."""
     from repro_torch.deploy.apply import quantized_dense_paths
     defs = model.defs()
     total = 0
     for path in quantized_dense_paths(defs):
+        if path.startswith("enc_layers/") or path.endswith(
+                ("xattn/wk", "xattn/wv")):
+            continue
         node = defs
         for part in path.split("/"):
             node = node[part]
@@ -1828,19 +1860,25 @@ def dense_calls_per_step(model) -> int:
 
 def _check_dense_calls(dev, model, params, phase="lm"):
     """One decode step of the served W4A8 model with `dense_tap` on: every
-    one of its dense calls, run again on the card, is identical to the
-    same call on the CPU (the kernels' plain versions)."""
+    one of its int dense calls, run again on the card, is identical to the
+    same call on the CPU (the kernels' plain versions). A cross cache is
+    filled with seeded normals first, so the cross layers' wo sees real
+    inputs."""
     import torch
-    from repro_torch.convert import to_device
-    from repro_torch.nn.layers import dense_apply, dense_tap
+    from repro_torch.nn.layers import dense_tap
     cfg = model.cfg
     cache = model.init_cache(LM_BATCH, LM_MAX_LEN, device=dev)
+    if "cross_kv" in cache:
+        cache["cross_kv"].normal_(generator=torch.Generator(
+            device=dev).manual_seed(SEED + 6))
     gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
     toks = torch.randint(2, cfg.vocab, (LM_BATCH, 5), generator=gen).to(dev)
     for t in range(4):
         model.decode(params, cache, toks[:, t:t + 1], t)
     calls = []
-    with dense_tap(lambda p, x: calls.append((p, x))):
+    # a float dense (an untied head) is outside the int path
+    with dense_tap(lambda p, x: calls.append((p, x)) if "w_packed" in p
+                   else None):
         # each slot at its own position, as the serving adapter feeds them
         model.decode(params, cache, toks[:, 4:5],
                      torch.tensor([4, 3, 4, 2], device=dev))
@@ -1849,28 +1887,37 @@ def _check_dense_calls(dev, model, params, phase="lm"):
     if len(calls) != expected:
         raise AssertionError(f"[{phase}] tapped {len(calls)} dense calls, "
                              f"expected {expected}")
+    _calls_equal_cpu(calls, cfg.quant, phase)
+    say(phase, check="dense_tap", arch=cfg.name, w_bits=cfg.quant.w_bits,
+        dense_calls=len(calls), all_equal_cpu_plain=True)
+    return len(calls)
+
+
+def _calls_equal_cpu(calls, qcfg, phase):
+    """Each tapped (params, input) dense call, run again on the card, is
+    identical to the same call on the CPU (the kernels' plain
+    versions)."""
+    from repro_torch.convert import to_device
+    from repro_torch.nn.layers import dense_apply
     for i, (p, x) in enumerate(calls):
-        got = dense_apply(p, x, qcfg=cfg.quant)
-        want = dense_apply(to_device(p, "cpu"), x.cpu(), qcfg=cfg.quant)
+        got = dense_apply(p, x, qcfg=qcfg)
+        want = dense_apply(to_device(p, "cpu"), x.cpu(), qcfg=qcfg)
         err = max_abs_err(got.cpu(), want)
         if err != 0.0:
             raise AssertionError(f"[{phase}] dense call {i} "
                                  f"({tuple(x.shape)} x "
                                  f"{tuple(p['w_packed'].shape)}): max abs "
                                  f"err {err} against the CPU plain path")
-    say(phase, check="dense_tap", arch=cfg.name, w_bits=cfg.quant.w_bits,
-        dense_calls=len(calls), all_equal_cpu_plain=True)
-    return len(calls)
 
 
 def profile_decode_step(dev, model, params, report, phase="lm"):
     """One decode step (batch 4) under torch.profiler: wall, device busy
     and idle share, the qmatmul kernels' device ms; and the logits head
-    (tied embedding matmul and its mask) profiled alone at the step's
-    shapes."""
+    (the tied embedding matmul or the untied head, and the mask)
+    profiled alone at the step's shapes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.nn.layers import embedding_logits
+    from repro_torch.models.lm import _logits
     cfg = model.cfg
     cache = model.init_cache(LM_BATCH, LM_MAX_LEN, device=dev)
     tok = torch.full((LM_BATCH, 1), 7, device=dev)
@@ -1885,8 +1932,7 @@ def profile_decode_step(dev, model, params, report, phase="lm"):
     busy = _device_us(prof) or None
     ours = _device_us(prof, ("qmatmul_kernel", "qmatmul_segmented_kernel"))
     x = torch.randn(LM_BATCH, 1, cfg.d_model, device=dev).to(torch.bfloat16)
-    head_ms = library_device_ms(
-        lambda: embedding_logits(params["embed"], x, cfg.vocab))
+    head_ms = library_device_ms(lambda: _logits(params, x, cfg))
     row = {"wall_ms": wall_us / 1e3,
            "device_busy_ms": None if busy is None else busy / 1e3,
            "device_idle_share": None if busy is None
@@ -1898,9 +1944,8 @@ def profile_decode_step(dev, model, params, report, phase="lm"):
     report.setdefault(f"{phase}_profile_decode_step", {})[cfg.name] = row
 
 
-def lm_timing_phase(dev, report, shapes=LM_SHAPES, label="lm_shape",
-                    seed=SEED + 7):
-    """Each dense shape (K, N) at M = 4 (a decode step of the served
+def lm_timing_phase(dev, report, shapes, label, seed):
+    """Each dense shape (M, K, N) (M = 4: a decode step of the served
     batch), A8 x W8/W4/W2, bf16 output: the kernel's device ms at both
     STAGES beside its bound, its plain version and `torch.matmul` in bf16
     on the dequantized weights (`torch._int_mm` does not take M = 4)."""
@@ -1908,10 +1953,10 @@ def lm_timing_phase(dev, report, shapes=LM_SHAPES, label="lm_shape",
     from repro_torch.core import packing
     gen = torch.Generator(device="cpu").manual_seed(seed)
     rows = {}
-    for k, n in shapes:
+    for m, k, n in shapes:
         library = None
         for w_bits in WIDTHS:
-            c = DenseCase(4, k, n, 8, w_bits, gen, dev)
+            c = DenseCase(m, k, n, 8, w_bits, gen, dev)
             if library is None:
                 # the W8 case's codes and weights, dequantized to bf16
                 xb = packing.unpack(c.x, 8, True)[:, :k].to(torch.bfloat16)
@@ -1922,7 +1967,7 @@ def lm_timing_phase(dev, report, shapes=LM_SHAPES, label="lm_shape",
                            "library_ms": time_ms(lib, 3, 20),
                            "library_device_ms": library_device_ms(lib)}
             bytes_ms, ops_ms = c.bound(torch.bfloat16)
-            row = {"shape": [4, k, n], "a_bits": 8, "w_bits": w_bits,
+            row = {"shape": [m, k, n], "a_bits": 8, "w_bits": w_bits,
                    "plain_ms": time_ms(lambda: c.plain(torch.bfloat16), 1,
                                        5),
                    "bound_ms": max(bytes_ms, ops_ms),
@@ -1932,8 +1977,8 @@ def lm_timing_phase(dev, report, shapes=LM_SHAPES, label="lm_shape",
                 row[f"ms_s{stages}"] = time_ms(
                     lambda: c.kernel(stages, torch.bfloat16), 3, 20)
                 row[f"device_ms_s{stages}"] = kernel_device_ms([c], stages)
-            rows[f"{k}x{n} W{w_bits}"] = row
-            say("time", kernel="qmatmul", **{label: f"4x{k}x{n}"}, **{
+            rows[f"{m}x{k}x{n} W{w_bits}"] = row
+            say("time", kernel="qmatmul", **{label: f"{m}x{k}x{n}"}, **{
                 k_: (round(v, 6) if isinstance(v, float) else v)
                 for k_, v in row.items() if k_ != "shape"})
     report[f"timing_{label}"] = rows
@@ -2299,6 +2344,380 @@ def rec_cpu_check(dev, arch, report):
     report.setdefault("rec_cpu_check", {})[arch] = row
 
 
+# ---------------------------------------------------------- [xattn] ---
+
+XATTN_ARCHS = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
+# llama-3.2-vision-90b keeps its widths with its depth cut from 100 layers
+# to 10 (two groups of four self layers and a cross layer): at 100 layers
+# its W8 artifact alone (85.6 GB) is larger than the card
+XATTN_LAYERS = {"llama-3.2-vision-90b": 10}
+# (M, K, N) the cross-attention archs give kernels 1-2: seamless's wq / wk
+# / wv / wo (1024x1024), mlp wi (1024x8192) and wo (8192x1024) at a decode
+# step of the served batch (M = 4) and over the encoder's batch of 4 x
+# 4096 frames (M = 16,384); vision's wq / wo (8192x8192), wk / wv
+# (8192x1024), wi / wg (8192x28672) and mlp wo (28672x8192) at M = 4, and
+# its cross_kv_project over 4096 source positions (8192x1024, M = 4096)
+XATTN_SHAPES = tuple(
+    (m, k, n) for m in (4, 16384)
+    for k, n in ((1024, 1024), (1024, 8192), (8192, 1024))) + tuple(
+    (4, k, n) for k, n in ((8192, 8192), (8192, 1024), (8192, 28672),
+                           (28672, 8192))) + ((4096, 8192, 1024),)
+# kernel 3's two-run plan on seamless's dec_layers/mlp/wi (1024 x 8192):
+# half W8, half W4; (M, A bits) of its cases
+XATTN_RUNS = ((0, 4096, 8), (4096, 8192, 4))
+XATTN_SEG_CASES = ((4, 8), (4, 4), (4, 2), (16384, 8))
+# the reference's enc-dec prefill: the config's 4096 source frames at
+# batch 4 and 256 decoder tokens
+XATTN_SRC_BATCH, XATTN_PREFILL_TOKENS = 4, 256
+# decode against the teacher-forced forward (tests/test_decode_agreement.py
+# on the card): batch 2, 12 positions, float32, quantization off, within
+# this share of the largest |logit|
+XATTN_DVF_STEPS, XATTN_DVF_RTOL = 12, 1e-3
+# the CPU cross-check: seamless's widths at 2 encoder + 2 decoder layers,
+# its 4096 source frames cut to 64
+XATTN_CPU_LAYERS, XATTN_CPU_SRC = 2, 64
+
+
+def xattn_kernel_phase(dev, report):
+    """Kernels 1-2 at XATTN_SHAPES, A8 x W{8,4,2} (each weight shared by
+    the shape's M values); kernel 3 on 1024 x 8192 under XATTN_RUNS at
+    XATTN_SEG_CASES: signed activations, a per-channel scale, both output
+    dtypes, both STAGES, identical to the plain version on the card. The
+    operands are drawn on the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    worst, n_cmp = _no_errors()
+    by_kn = {}
+    for m, k, n in XATTN_SHAPES:
+        by_kn.setdefault((k, n), []).append(m)
+    cases = []
+    for (k, n), ms in by_kn.items():
+        for w_bits in WIDTHS:
+            w = None
+            for m in ms:
+                c = DenseCase(m, k, n, 8, w_bits, gen, dev, w=w)
+                w = c.weights()
+                cases.append(c)
+    seg_w = None
+    for m, a_bits in XATTN_SEG_CASES:
+        c = DenseCase(m, 1024, 8192, a_bits, 8, gen, dev, runs=XATTN_RUNS,
+                      w=seg_w)
+        seg_w = c.weights()
+        cases.append(c)
+    compare_dense_cases("xattn", cases, worst, n_cmp)
+    report["xattn_kernel_phase"] = {
+        "comparisons": n_cmp, "shapes": [list(s) for s in XATTN_SHAPES],
+        "runs": XATTN_RUNS, "seg_cases": XATTN_SEG_CASES}
+    return worst
+
+
+def _xattn_config(arch, **over):
+    import dataclasses
+    from repro_torch.models.api import get_config
+    if arch in XATTN_LAYERS:
+        over = {"n_layers": XATTN_LAYERS[arch], **over}
+    return dataclasses.replace(get_config(arch), **over)
+
+
+def _label(cfg):
+    """The arch's name, with the depth where it was cut."""
+    cut = XATTN_LAYERS.get(cfg.name)
+    return cfg.name if cut is None else f"{cfg.name} ({cut} of 100 layers)"
+
+
+def _check_encoder_calls(dev, model, params):
+    """One encoder layer over XATTN_SRC_BATCH x src_len seeded frames (M =
+    16,384 at seamless's 4096) and the first decoder layer's
+    `cross_kv_project` of its output, at the served width with `dense_tap`
+    on: each of the 6 + 2 int dense calls, run again on the card, is
+    identical to the same call on the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.models import encdec
+    from repro_torch.models.lm import _attn_cfg, layer_params
+    from repro_torch.nn.attention import cross_kv_project
+    from repro_torch.nn.layers import dense_tap
+    cfg = dataclasses.replace(model.cfg, enc_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    src = torch.randn(XATTN_SRC_BATCH, cfg.src_len, cfg.d_model,
+                      generator=gen, device=dev)
+    calls = []
+    with dense_tap(lambda p, x: calls.append((p, x))):
+        enc = encdec.encode(params, src, cfg)
+        cross_kv_project(layer_params(params["dec_layers"], 0)["xattn"], enc,
+                         _attn_cfg(cfg, "dec_layers/xattn"))
+    torch.cuda.synchronize()
+    if len(calls) != 8:
+        raise AssertionError(f"[xattn] tapped {len(calls)} encoder and "
+                             "cross K/V calls, expected 6 + 2")
+    _calls_equal_cpu(calls, cfg.quant, "xattn")
+    say("xattn", check="dense_tap", arch=cfg.name, w_bits=cfg.quant.w_bits,
+        part="encoder layer + cross_kv_project",
+        rows=XATTN_SRC_BATCH * cfg.src_len, dense_calls=len(calls),
+        all_equal_cpu_plain=True)
+
+
+def profile_prefill(dev, model, params, report):
+    """`Model.prefill` at the reference's enc-dec prefill shape
+    (XATTN_SRC_BATCH x src_len seeded source frames, XATTN_PREFILL_TOKENS
+    decoder tokens) under torch.profiler: wall, device busy and idle
+    share, kernel 1's device ms and launches against the bound of the
+    prefill's int GEMMs (2 x MACs at the int8 peak; MACs from the shapes
+    of its tapped dense calls), and the peak device memory of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.nn.layers import dense_tap
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    batch = {"src_embed": torch.randn(
+        XATTN_SRC_BATCH, cfg.src_len, cfg.d_model, generator=gen,
+        device=dev).to(torch.bfloat16),
+        "tokens": torch.randint(2, cfg.vocab, (XATTN_SRC_BATCH,
+                                               XATTN_PREFILL_TOKENS),
+                                generator=gen, device=dev)}
+    macs = []
+    with dense_tap(lambda p, x: macs.append(
+            x.numel() * p["w_scale"].numel()) if "w_packed" in p else None):
+        model.prefill(params, batch)              # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    launches = read_launches()["qmatmul"]
+    if (logits.shape != (XATTN_SRC_BATCH, 1, logits.shape[-1])
+            or not bool(torch.isfinite(logits[..., :cfg.vocab]).all())):
+        raise AssertionError(f"[xattn] prefill logits {tuple(logits.shape)}"
+                             " not finite or of the wrong shape")
+    busy = _device_us(prof) or None
+    ours = _device_us(prof, ("qmatmul_kernel",))
+    row = {"src_frames": cfg.src_len, "batch": XATTN_SRC_BATCH,
+           "tokens": XATTN_PREFILL_TOKENS, "wall_ms": wall_us / 1e3,
+           "device_busy_ms": None if busy is None else busy / 1e3,
+           "device_idle_share": None if busy is None
+           else max(0.0, 1.0 - busy / wall_us),
+           "qmatmul_device_ms": ours / 1e3 if ours else None,
+           "qmatmul_launches": launches[1] + launches[2],
+           "gemm_macs": sum(macs),
+           "gemm_bound_ms": 2 * sum(macs) / PEAK_INT8_OPS * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    say("xattn", profile="prefill", arch=cfg.name, w_bits=cfg.quant.w_bits,
+        **row)
+    report.setdefault("xattn_profile_prefill", {})[cfg.name] = row
+
+
+def decode_vs_forward(dev, cfg, fp, p4, report):
+    """tests/test_decode_agreement.py on the card: the cross cache filled
+    by `Model.fill_cross_kv` (seamless: `encode` over the source; vision:
+    the source embeddings), XATTN_DVF_STEPS positions decoded one by one
+    against the teacher-forced forward, float32 compute, batch 2, the
+    config's src_len: within XATTN_DVF_RTOL of the largest |logit| with
+    quantization off. The W4A8 artifact's error and greedy agreement are
+    reported beside it."""
+    import dataclasses
+    import torch
+    from repro_torch.models.api import build
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    b, s, v = 2, XATTN_DVF_STEPS, cfg.vocab
+    toks = torch.randint(2, v, (b, s), generator=gen, device=dev)
+    src = torch.randn(b, cfg.src_len, cfg.d_model, generator=gen,
+                      device=dev) * 0.05
+    row = {}
+    for name, model, params in (("fp", build(f32), fp),
+                                ("w4a8", _lm_model(f32, 4), p4)):
+        lf = model.forward(params, {"tokens": toks, "src_embed": src})[0][
+            ..., :v]
+        cache = model.fill_cross_kv(params, model.init_cache(
+            b, s, torch.float32, device=dev), src)
+        err, agree = 0.0, 0
+        for t in range(s):
+            lg, cache = model.decode(params, cache, toks[:, t:t + 1], t)
+            lg = lg[:, 0, :v]
+            err = max(err, float((lg - lf[:, t]).abs().max()))
+            agree += int((lg.argmax(-1) == lf[:, t].argmax(-1)).sum())
+        row[name] = {"max_abs_err": err,
+                     "tol": XATTN_DVF_RTOL * float(lf.abs().max()),
+                     "greedy_agree": f"{agree}/{b * s}"}
+        del lf, cache
+    if row["fp"]["max_abs_err"] > row["fp"]["tol"]:
+        raise AssertionError(f"[xattn] {cfg.name}: decode against forward "
+                             f"{row['fp']}")
+    say("xattn", check="decode_vs_forward", arch=_label(cfg),
+        src_len=cfg.src_len, positions=s, compute="float32",
+        **{f"{k}_{f}": x for k, r in row.items() for f, x in r.items()})
+    report.setdefault("xattn_decode_vs_forward", {})[cfg.name] = row
+
+
+def xattn_path(dev, arch, report):
+    """Serve one cross-attention arch from seeded weights made and
+    quantized on the card, one width at a time: W8A8, W4A8, W4A8
+    double-buffered (the same tokens) and W2A8 through `Engine`, the cross
+    cache at zero as the reference's `Engine` leaves it; then at W4A8
+    every int dense call of one decode step against the CPU plain path
+    and one profiled decode step; for seamless one full-length encoder
+    layer and one cross_kv_project against the CPU, the profiled prefill,
+    and a plan with every dec_layers/mlp/wi split W8 | W4; decode against
+    forward on the card; then the CLI at W4A8. Returns the kernels' launch
+    counts over the two serving windows."""
+    import torch
+    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.policy import PlanRule, PrecisionPlan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.api import build
+
+    cfg = _xattn_config(arch)
+    label = _label(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fp = build(cfg).init(SEED, device=dev)
+
+    def pack(model, w_bits, plan=None):
+        return apply_plan(_int_skeleton(model.defs()), fp, plan, w_bits)
+
+    models = {w: _lm_model(cfg, w) for w in WIDTHS}
+    db = _lm_model(cfg, 4, pipeline="double_buffer")
+    params = pack(models[8], 8)
+    _decode_once(dev, models[8], params)
+    reset_launches()
+    outs = {8: serve_lm(f"{label} W8A8", models[8], params, report, "xattn")}
+    del params
+    p4 = pack(models[4], 4)
+    outs[4] = serve_lm(f"{label} W4A8", models[4], p4, report, "xattn")
+    out_db = serve_lm(f"{label} W4A8 double_buffer", db, p4, report,
+                      "xattn")
+    params = pack(models[2], 2)
+    outs[2] = serve_lm(f"{label} W2A8", models[2], params, report, "xattn")
+    del params
+    torch.cuda.synchronize()
+    first = read_launches()
+    if out_db != outs[4]:
+        raise AssertionError(f"[xattn] {arch}: double_buffer tokens differ "
+                             "from 'off'")
+    require_launches(label, first, ("qmatmul",))
+    _check_dense_calls(dev, models[4], p4, "xattn")
+    profile_decode_step(dev, models[4], p4, report, "xattn")
+    if cfg.family == "encdec":
+        _check_encoder_calls(dev, models[4], p4)
+        profile_prefill(dev, models[4], p4, report)
+    decode_vs_forward(dev, cfg, fp, p4, report)
+    del p4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    needed = ("qmatmul",)
+    if cfg.family == "encdec":
+        plan = PrecisionPlan(rules=(PlanRule("dec_layers/mlp/wi", 8,
+                                             segments=XATTN_RUNS),),
+                             default_w_bits=4)
+        pm = _lm_model(cfg, 4, plan=plan)
+        pp = pack(pm, 4, plan)
+        serve_lm(f"{label} plan dec wi W8|W4", pm, pp, report, "xattn")
+        del pp
+        needed = ("qmatmul_segmented", "qmatmul")
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = (["--layers", str(XATTN_LAYERS[arch])] if arch in XATTN_LAYERS
+           else [])
+    t0 = time.perf_counter()
+    cli = serve_cli.main(["--arch", arch, "--quant", "w4a8", "--requests",
+                          str(LM_REQUESTS), "--batch", str(LM_BATCH),
+                          "--max-new", str(LM_MAX_NEW)] + cut)
+    torch.cuda.synchronize()
+    second = read_launches()
+    if len(cli) != LM_REQUESTS or not all(len(r.out) for r in cli):
+        raise AssertionError(f"[xattn] the serve CLI returned no tokens for "
+                             f"{arch}")
+    say("xattn", cli=" ".join(["python -m repro_torch.launch.serve --arch",
+                               arch, "--quant w4a8"] + cut),
+        seconds=round(time.perf_counter() - t0, 1))
+    require_launches(f"{label} plan + CLI" if len(needed) > 1
+                     else f"{label} CLI", second, needed, stages_needed=(1,))
+    del cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: {s: first[k][s] + second[k][s] for s in (1, 2)}
+                for k in first}
+    report.setdefault("launches", {})[arch] = launches
+    return launches
+
+
+def xattn_cpu_check(dev, report):
+    """seamless-m4t-large-v2's widths at XATTN_CPU_LAYERS encoder and
+    decoder layers, its source cut from 4096 to XATTN_CPU_SRC frames,
+    float32 compute, fp weights from a CPU generator: the W4A8 artifact
+    packed on the card is byte-identical to the CPU's; the teacher-forced
+    forward over the prompt, then LM_CPU_PROMPT prompt tokens and
+    LM_CPU_STEPS greedy steps decoded over the cross cache each device
+    fills from `encode`, stay within LM_CPU_RTOL of the largest CPU logit,
+    and greedy tokens agree wherever the CPU's top-1 margin exceeds
+    that."""
+    import dataclasses
+    import torch
+    from repro_torch.convert import to_device
+    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.models.api import build
+    arch = XATTN_ARCHS[0]
+    cfg = _xattn_config(arch, enc_layers=XATTN_CPU_LAYERS,
+                        dec_layers=XATTN_CPU_LAYERS,
+                        n_layers=2 * XATTN_CPU_LAYERS, src_len=XATTN_CPU_SRC,
+                        compute_dtype="float32")
+    fp_cpu = build(cfg).init(SEED, device="cpu")
+    model = _lm_model(cfg, 4)
+    q = {d: apply_plan(_int_skeleton(model.defs()), to_device(fp_cpu, d),
+                       None, 4) for d in ("cpu", dev)}
+    diff = first_difference(to_device(q[dev], "cpu"), q["cpu"])
+    if diff is not None:
+        raise AssertionError(f"[xattn] {arch}: the W4A8 artifact packed on "
+                             f"the card differs from the CPU's at {diff}")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    prompt = torch.randint(2, cfg.vocab, (2, LM_CPU_PROMPT), generator=gen)
+    src = torch.randn(2, cfg.src_len, cfg.d_model, generator=gen)
+    v = cfg.vocab
+    fwd = {d: model.forward(q[d], {"tokens": prompt.to(d),
+                                   "src_embed": src.to(d)})[0][..., :v].cpu()
+           for d in ("cpu", dev)}
+    tol = LM_CPU_RTOL * float(fwd["cpu"].abs().max())
+    worst = float((fwd[dev] - fwd["cpu"]).abs().max())
+    total = LM_CPU_PROMPT + LM_CPU_STEPS
+    caches = {d: model.fill_cross_kv(q[d], model.init_cache(
+        2, total, torch.float32, device=d), src.to(d)) for d in ("cpu", dev)}
+    agreed, compared = 0, 0
+    tok = prompt[:, :1]
+    for t in range(total):
+        lg = {d: model.decode(q[d], caches[d], tok.to(d), t)[0][:, -1]
+              .cpu()[:, :v] for d in ("cpu", dev)}
+        ref, got = lg["cpu"], lg[dev]
+        worst = max(worst, float((got - ref).abs().max()))
+        if t >= LM_CPU_PROMPT - 1:
+            top2 = ref.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > tol
+            same = got.argmax(-1) == ref.argmax(-1)
+            compared += int(sure.sum())
+            agreed += int((same & sure).sum())
+        tok = (prompt[:, t + 1:t + 2] if t + 1 < LM_CPU_PROMPT
+               else ref.argmax(-1, keepdim=True))
+    if worst > tol or agreed != compared:
+        raise AssertionError(f"[xattn] {arch} card vs CPU: max |dlogit| "
+                             f"{worst} (tol {tol}), greedy tokens "
+                             f"{agreed}/{compared} where the margin exceeds "
+                             "tol")
+    row = {"layers": f"{XATTN_CPU_LAYERS}+{XATTN_CPU_LAYERS}",
+           "src_len": f"{XATTN_CPU_SRC} (cut from 4096)",
+           "artifact_equal_cpu": True, "max_abs_logit_err": worst,
+           "tol": tol, "greedy_agree": f"{agreed}/{compared}"}
+    say("xattn", check="card_vs_cpu", arch=arch, w_bits=4,
+        compute="float32", **row)
+    report["xattn_cpu_check"] = row
+
+
 def write_report(report, name: str):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2360,8 +2779,16 @@ def main() -> int:
         by_path[arch] = rec_path(dev, arch, report)
     for arch in REC_ARCHS:
         rec_cpu_check(dev, arch, report)
-    lm_timing_phase(dev, report)
-    lm_timing_phase(dev, report, REC_SHAPES, "rec_shape", SEED + 10)
+    for key, err in xattn_kernel_phase(dev, report).items():
+        worst[key] = max(worst[key], err)
+    for arch in XATTN_ARCHS:
+        by_path[arch] = xattn_path(dev, arch, report)
+    xattn_cpu_check(dev, report)
+    lm_timing_phase(dev, report, [(4, k, n) for k, n in LM_SHAPES],
+                    "lm_shape", SEED + 7)
+    lm_timing_phase(dev, report, [(4, k, n) for k, n in REC_SHAPES],
+                    "rec_shape", SEED + 10)
+    lm_timing_phase(dev, report, XATTN_SHAPES, "xattn_shape", SEED + 15)
     gemm_rows = gemm_timing_phase(dev, head, report)
     conv_rows = timing_phase(dev, convs, report)
     seg_rows = segmented_timing_phase(dev, report)

@@ -4,8 +4,8 @@ Every architecture file (``repro_torch/configs/<id>.py``) builds a
 `ModelConfig` with its exact published numbers plus a reduced
 ``smoke_config()`` of the same family for CPU tests. The fields are the
 reference's, so a reference config and the port's describe the same
-model; fields of the parts the port does not serve yet (MoE, cross
-attention, enc-dec) are carried but refused by `repro_torch.models`.
+model; the fields of MoE, which the port does not serve yet, are
+carried but refused by `repro_torch.models`.
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ class ModelConfig:
     # MoE
     moe: Optional[MoeSpec] = None
     # vision cross-attn: one cross layer after every `cross_every` self
-    # layers
+    # layers; n_layers counts both kinds (llama-3.2-vision: 80 self + 20
+    # cross)
     cross_every: int = 0
     # enc-dec
     enc_layers: int = 0

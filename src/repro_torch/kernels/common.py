@@ -72,8 +72,12 @@ def round_up(x: int, mult: int) -> int:
 # --------------------------------------------------------- plain versions ---
 
 def int_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact."""
-    if x.is_cuda:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact. Float64 holds
+    every product and sum of int8 values exactly (|acc| < 2^53 for any K
+    under 2^38), and BLAS runs it far faster than an integer matmul; on
+    the CPU a product with M or N under 64 stays in int32, where the
+    float64 copies of the operands cost more than they save."""
+    if x.is_cuda or min(x.shape[0], w.shape[1]) >= 64:
         acc = torch.mm(x.to(torch.float64), w.to(torch.float64))
         return wrap_int32(acc.to(torch.int64)).to(torch.int32)
     return torch.mm(x.to(torch.int32), w.to(torch.int32))

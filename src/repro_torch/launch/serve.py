@@ -5,8 +5,13 @@ through `Engine` on ``--device`` (default ``cuda``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --quant w4a8 --requests 8 --max-new 16
 
-``--smoke`` takes the arch's reduced same-family config; ``--device
-cpu`` runs every dense layer through the kernels' plain versions.
+``--smoke`` takes the arch's reduced same-family config; ``--layers N``
+keeps the widths and cuts the depth (llama-3.2-vision-90b's 100 layers
+do not fit one card: ``--layers 10`` serves two groups of four self
+layers and a cross layer); ``--device cpu`` runs every dense layer
+through the kernels' plain versions. The enc-dec and vision archs serve
+with their cross cache at zero, as the reference's `Engine` does: no
+request carries source embeddings.
 Mixed-precision serving: pass a deployment plan (one saved by
 ``repro.launch.deploy`` loads too) and each dense layer is packed at its
 plan-resolved bit-width instead of one uniform ``--quant``:
@@ -30,6 +35,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth, widths kept: n_layers, or this "
+                    "many encoder and decoder layers for an enc-dec arch")
     ap.add_argument("--quant", default="off", help="off | w8a8 | w4a8 ...")
     ap.add_argument("--plan", default=None,
                     help="mixed-precision plan JSON; overrides --quant")
@@ -59,6 +67,12 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
     cfg = dataclasses.replace(cfg, kv_quant_bits=args.kv_bits)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, **(
+            {"enc_layers": args.layers, "dec_layers": args.layers,
+             "n_layers": 2 * args.layers} if cfg.family == "encdec"
+            else {"n_layers": args.layers}))
+        print(f"{cfg.name}: depth cut to layers={args.layers}, widths kept")
     fp_model = build(cfg)
     fp_params = fp_model.init(args.seed, device=device)
 

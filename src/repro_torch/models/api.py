@@ -2,8 +2,10 @@
 
 `Model` exposes init / specs / loss / forward / prefill / decode /
 init_cache; the server and the tests talk only to it. The port serves
-the dense ``lm`` family, Mamba-2 and Griffin; an enc-dec config raises,
-naming the ROADMAP item that brings it.
+the dense ``lm`` family (with llama-3.2-vision's cross layers), the
+enc-dec family, Mamba-2 and Griffin. A batch may carry ``src_embed``
+(B, S_src, d), the stubbed frontend's output that the enc-dec encoder
+and the vision cross layers read.
 """
 from __future__ import annotations
 
@@ -12,26 +14,25 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import griffin, lm, mamba
+from repro_torch.models import encdec, griffin, lm, mamba
 from repro_torch.nn.module import init_params, logical_specs
 
 _FAMILIES = {
     "lm": (lm.lm_def, lm.forward, lm.decode_step, lm.lm_init_cache),
+    "encdec": (encdec.encdec_def, encdec.forward, encdec.decode_step,
+               encdec.encdec_init_cache),
     "mamba": (mamba.mamba_lm_def, mamba.forward, mamba.decode_step,
               mamba.mamba_lm_init_cache),
     "griffin": (griffin.griffin_def, griffin.forward, griffin.decode_step,
                 griffin.griffin_init_cache),
 }
-_LATER = {"encdec": "cross attention: models/encdec.py and "
-          "seamless-m4t-large-v2"}
 
 
 def _family(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is ROADMAP Queue 1 "
-            f"item 4 ({_LATER.get(cfg.family, 'not in the reference')}); "
-            f"the port serves {sorted(_FAMILIES)}")
+            f"{cfg.name}: the {cfg.family!r} family is not in the "
+            f"reference; the port serves {sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 
@@ -61,7 +62,8 @@ class Model:
 
     # ---- training loss (teacher-forced) ----
     def loss(self, params, batch, aux_weight: float = 0.01):
-        logits, aux, _ = self._fns[1](params, batch["tokens"], self.cfg)
+        logits, aux, _ = self._fns[1](params, batch["tokens"], self.cfg,
+                                      src_embed=batch.get("src_embed"))
         logits = logits.to(torch.float32)
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[
@@ -71,7 +73,8 @@ class Model:
         return nll.mean() + zl.mean() + aux_weight * aux
 
     def forward(self, params, batch):
-        return self._fns[1](params, batch["tokens"], self.cfg)
+        return self._fns[1](params, batch["tokens"], self.cfg,
+                            src_embed=batch.get("src_embed"))
 
     # ---- serving ----
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -80,14 +83,35 @@ class Model:
 
     def prefill(self, params, batch):
         """Full forward over the prompt; returns last-position logits and
-        the stacked (k, v) of every layer (None for the recurrent
-        families)."""
+        the stacked (k, v) of every layer (None for the recurrent, the
+        enc-dec and the vision families)."""
         logits, _, kvs = self._fns[1](params, batch["tokens"], self.cfg,
+                                      src_embed=batch.get("src_embed"),
                                       collect_kv=True)
         return logits[:, -1:], kvs
 
-    def decode(self, params, cache, token, index):
-        return self._fns[2](params, cache, token, index, self.cfg)
+    def fill_cross_kv(self, params, cache, src_embed):
+        """Set ``cache["cross_kv"]`` to the cross K/V of ``src_embed`` (B,
+        S_src, d), in the cache's dtype (S_src may differ from the
+        config's src_len); returns the cache. An enc-dec model projects
+        its encoder's states, a vision arch the embeddings themselves."""
+        if not _needs_src(self.cfg):
+            raise ValueError(f"{self.cfg.name} has no cross attention")
+        fam = encdec if self.cfg.family == "encdec" else lm
+        cache["cross_kv"] = fam.source_kv(params, src_embed, self.cfg).to(
+            cache["cross_kv"].dtype)
+        return cache
+
+    def decode(self, params, cache, token, index, src_embed=None):
+        """One step; ``src_embed`` is read by no family (the cache
+        carries the cross K/V)."""
+        return self._fns[2](params, cache, token, index, self.cfg,
+                            src_embed=src_embed)
+
+
+def _needs_src(cfg: ModelConfig) -> bool:
+    """Whether the model's forward reads ``src_embed``."""
+    return cfg.family == "encdec" or cfg.cross_every > 0
 
 
 _REGISTRY: dict = {}

@@ -1,11 +1,15 @@
-"""Decoder LM of the dense family (olmo, phi3, qwen2.5, gemma3).
+"""Decoder LM of the dense family (olmo, phi3, qwen2.5, gemma3) and the
+vision cross-attention LM (llama-3.2-vision).
 
 The layer parameters stay stacked, with (L, ...) leaves, so a converted
 reference tree maps onto the port's one to one; a Python loop over the
 layers takes the place of the reference's ``lax.scan``, and the
 per-layer window and rope theta of a pattern schedule (gemma3's 5 local
-: 1 global) are Python values. Mixture-of-Experts and cross-attention
-layers arrive with those models (ROADMAP Queue 1 item 4).
+: 1 global) are Python values. A vision arch runs groups of
+``cross_every`` self layers then one cross layer that attends into the
+projected source embeddings: self layer j of group g is stacked row
+``g * cross_every + j``. Mixture-of-Experts layers arrive with those
+models (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import (AttnConfig, attn_apply, attn_decode,
-                                      attn_def, init_cache)
+                                      attn_def, cross_kv_project,
+                                      init_cache)
 from repro_torch.nn.layers import (const, dense_apply, dense_def,
                                    embedding_apply, embedding_def,
                                    embedding_logits, norm_apply, norm_def,
@@ -27,10 +32,6 @@ def _check_dense(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: Mixture-of-Experts layers are ROADMAP Queue 1 "
             "item 4 (nn/mlp.py::moe_*, kimi-k2 and llama4)")
-    if cfg.cross_every:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention layers are ROADMAP Queue 1 item 4 "
-            "(llama-3.2-vision)")
 
 
 def _attn_cfg(cfg: ModelConfig, path: str = "layers/attn") -> AttnConfig:
@@ -53,11 +54,30 @@ def _layer_def(cfg: ModelConfig, dtype):
             "mlp": mlp_def(_mlp_cfg(cfg), dtype)}
 
 
+def _cross_layer_def(cfg: ModelConfig, dtype):
+    return {"ln1": norm_def(cfg.d_model, cfg.norm, dtype),
+            "xattn": attn_def(_attn_cfg(cfg, "cross_layers/xattn"), dtype),
+            "ln2": norm_def(cfg.d_model, cfg.norm, dtype),
+            "mlp": mlp_def(_mlp_cfg(cfg, "cross_layers/mlp"), dtype)}
+
+
+def _layer_split(cfg: ModelConfig):
+    """(self layers, cross layers): n_layers counts both kinds, one cross
+    layer after every ``cross_every`` self layers (100 -> (80, 20))."""
+    if cfg.cross_every:
+        n_cross = cfg.n_layers // (cfg.cross_every + 1)
+        return cfg.n_layers - n_cross, n_cross
+    return cfg.n_layers, 0
+
+
 def lm_def(cfg: ModelConfig, dtype=torch.float32):
     _check_dense(cfg)
+    n_self, n_cross = _layer_split(cfg)
     p = {"embed": embedding_def(cfg.vocab, cfg.d_model, dtype),
-         "layers": stack_defs(_layer_def(cfg, dtype), cfg.n_layers),
+         "layers": stack_defs(_layer_def(cfg, dtype), n_self),
          "final_norm": norm_def(cfg.d_model, cfg.norm, dtype)}
+    if n_cross:
+        p["cross_layers"] = stack_defs(_cross_layer_def(cfg, dtype), n_cross)
     if not cfg.tie_embeddings:
         p["head"] = dense_def(cfg.d_model, padded_vocab(cfg.vocab),
                               ("embed", "vocab"), dtype=dtype)
@@ -91,10 +111,35 @@ def _embed(params, tokens, cfg: ModelConfig, dtype):
     return x
 
 
+def _cross_mlp(cfg, xp, x, h):
+    """A cross layer's residual add of its attention output ``h``, then
+    its MLP block."""
+    x = x + h
+    return x + mlp_apply(xp["mlp"],
+                         norm_apply(xp.get("ln2", {}), x, cfg.norm),
+                         _mlp_cfg(cfg, "cross_layers/mlp"))
+
+
+def _order(cfg: ModelConfig):
+    """The layer order: ("self", i) | ("cross", g) over the stacked
+    indices; a vision arch's group g is self rows g*ce .. g*ce + ce - 1,
+    then cross layer g."""
+    n_self, n_cross = _layer_split(cfg)
+    if not n_cross:
+        return [("self", i) for i in range(n_self)]
+    ce = cfg.cross_every
+    out = []
+    for g in range(n_cross):
+        out += [("self", g * ce + j) for j in range(ce)] + [("cross", g)]
+    return out
+
+
 def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
             collect_kv: bool = False):
-    """Prefill forward. tokens (B,S) -> logits (B,S,V). Returns (logits,
-    aux_loss, (k, v) stacked (L,B,S,Hk,Dh) or None)."""
+    """Prefill forward. tokens (B,S) -> logits (B,S,V). ``src_embed``
+    (B, S_src, d): the frontend's embeddings a vision arch attends into.
+    Returns (logits, aux_loss, (k, v) stacked (L,B,S,Hk,Dh), or None when
+    not collected or for a vision arch)."""
     _check_dense(cfg)
     dtype = _compute_dtype(cfg)
     s = tokens.shape[1]
@@ -104,8 +149,25 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
     loc = (rope_tables(s, cfg.head_dim_, cfg.rope_theta_local, dtype, dev)
            if cfg.rope_theta_local else glob)
     acfg, mcfg = _attn_cfg(cfg), _mlp_cfg(cfg)
+    acfg_x = _attn_cfg(cfg, "cross_layers/xattn")
+    cross = _layer_split(cfg)[1] > 0
+    if cross:
+        if src_embed is None:
+            raise ValueError(f"{cfg.name} needs src_embed input")
+        src = src_embed.to(dtype)
+    sched = _schedule(cfg, s)
     ks, vs = [], []
-    for i, (window, local_rope) in enumerate(_schedule(cfg, s)):
+    for kind, i in _order(cfg):
+        if kind == "cross":
+            xp = layer_params(params["cross_layers"], i)
+            h, _ = attn_apply(xp["xattn"],
+                              norm_apply(xp.get("ln1", {}), x, cfg.norm),
+                              acfg_x, cos=None, sin=None, mode="bidir",
+                              cross_kv=cross_kv_project(xp["xattn"], src,
+                                                        acfg_x))
+            x = _cross_mlp(cfg, xp, x, h)
+            continue
+        window, local_rope = sched[i]
         lp = layer_params(params["layers"], i)
         cos, sin = loc if local_rope else glob
         h, (k, v) = attn_apply(lp["attn"],
@@ -119,7 +181,8 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
             ks.append(k)
             vs.append(v)
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
-    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv and not cross \
+        else None
     return _logits(params, x, cfg), torch.zeros((), device=dev), kvs
 
 
@@ -138,18 +201,42 @@ def _logits(params, x, cfg: ModelConfig):
 
 def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device="cpu"):
+    """{"kv": {k, v} of (n_self, B, max_len, Hk, Dh)}, and for a vision
+    arch "cross_kv" (n_cross, 2, B, src_len, Hk, Dh): the source K/V each
+    cross layer attends into (filled by `cross_kv_project`; zero
+    otherwise)."""
     _check_dense(cfg)
-    one = init_cache(_attn_cfg(cfg), batch, max_len, dtype, device)
-    return {"kv": {k: torch.zeros((cfg.n_layers,) + a.shape, dtype=a.dtype,
-                                  device=a.device)
-                   for k, a in one.items()}}
+    n_self, n_cross = _layer_split(cfg)
+    acfg = _attn_cfg(cfg)
+    one = init_cache(acfg, batch, max_len, dtype, device)
+    cache = {"kv": {k: torch.zeros((n_self,) + a.shape, dtype=a.dtype,
+                                   device=a.device)
+                    for k, a in one.items()}}
+    if n_cross:
+        cache["cross_kv"] = torch.zeros(
+            (n_cross, 2, batch, cfg.src_len, acfg.kv_heads, acfg.head_dim),
+            dtype=dtype, device=device)
+    return cache
+
+
+def source_kv(params, src_embed, cfg: ModelConfig):
+    """The cross cache of a vision arch for ``src_embed`` (B, S_src, d):
+    each cross layer's ``cross_layers/xattn`` K/V projection, stacked
+    (n_cross, 2, B, S_src, Hk, Dh) in the compute dtype."""
+    src = src_embed.to(_compute_dtype(cfg))
+    acfg_x = _attn_cfg(cfg, "cross_layers/xattn")
+    return torch.stack([torch.stack(cross_kv_project(
+        layer_params(params["cross_layers"], g)["xattn"], src, acfg_x))
+        for g in range(_layer_split(cfg)[1])])
 
 
 def decode_step(params, cache, token, index, cfg: ModelConfig, *,
                 src_embed=None):
     """One decode step. token (B,1) int; index a scalar or a (B,) vector
-    of true positions. The cache is written in place. Returns (logits
-    (B,1,V), cache)."""
+    of true positions. The self-attention cache is written in place; the
+    cross layers read ``cache["cross_kv"]`` as it is (``src_embed`` is
+    not read: the cache carries the source). Returns (logits (B,1,V),
+    cache)."""
     _check_dense(cfg)
     dtype = _compute_dtype(cfg)
     max_len = cache["kv"]["k"].shape[2]
@@ -157,12 +244,24 @@ def decode_step(params, cache, token, index, cfg: ModelConfig, *,
     th_g = cfg.rope_theta
     th_l = cfg.rope_theta_local or cfg.rope_theta
     acfg, mcfg = _attn_cfg(cfg), _mlp_cfg(cfg)
-    for i, (window, local_rope) in enumerate(_schedule(cfg, max_len)):
+    acfg_x = _attn_cfg(cfg, "cross_layers/xattn")
+    sched = _schedule(cfg, max_len)
+    for kind, i in _order(cfg):
+        if kind == "cross":
+            xp = layer_params(params["cross_layers"], i)
+            xkv = cache["cross_kv"][i]
+            h, _ = attn_decode(xp["xattn"],
+                               norm_apply(xp.get("ln1", {}), x, cfg.norm),
+                               None, index, acfg_x, mode="bidir",
+                               cross_kv=(xkv[0], xkv[1]))
+            x = _cross_mlp(cfg, xp, x, h)
+            continue
+        window, local_rope = sched[i]
         lp = layer_params(params["layers"], i)
-        kv = layer_params(cache["kv"], i)
         h, _ = attn_decode(lp["attn"],
-                           norm_apply(lp.get("ln1", {}), x, cfg.norm), kv,
-                           index, acfg, theta=th_l if local_rope else th_g,
+                           norm_apply(lp.get("ln1", {}), x, cfg.norm),
+                           layer_params(cache["kv"], i), index, acfg,
+                           theta=th_l if local_rope else th_g,
                            mode="local", window=window)
         x = x + h
         x = x + mlp_apply(lp["mlp"],

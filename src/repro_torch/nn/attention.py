@@ -1,6 +1,6 @@
-"""Grouped-query attention with causal/local masks and an (optionally
-int8) KV cache for decode: positional, or a ring of window slots for
-local attention.
+"""Grouped-query attention with causal/local/bidirectional masks, cross
+attention, and an (optionally int8) KV cache for decode: positional, or
+a ring of window slots for local attention.
 
 GQA keeps an explicit group dim (no KV head is ever replicated). Every
 projection is a quantization-aware dense layer, so the packed sub-byte
@@ -20,9 +20,6 @@ from repro_torch.nn.layers import (QOFF, QuantConfig, const, dense_apply,
                                    dense_def, rope_apply, rope_single)
 
 NEG_INF = -2.0e38
-# the cross-attention path arrives with these models
-_LATER = {"cross_kv": "ROADMAP Queue 1 item 4 (cross attention, "
-                      "llama-3.2-vision and the enc-dec models)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,21 +105,35 @@ def _kv_load(x, bits, dtype):
 
 def attn_apply(p, x, cfg: AttnConfig, *, cos, sin, mode="causal",
                window=None, cross_kv=None):
-    """Full-sequence attention (prefill). Returns (out, (k, v)) so callers
-    can build decode caches from prefill."""
-    if cross_kv is not None:
-        raise NotImplementedError(f"cross_kv: {_LATER['cross_kv']}")
+    """Full-sequence attention (prefill).
+
+    cross_kv: (k_src, v_src), source K/V projected once by
+    `cross_kv_project`, for cross attention (mode 'bidir'; RoPE skipped;
+    the keys are the source's positions). Returns (out, (k, v)) so
+    callers can build decode caches from prefill."""
     b, s, _ = x.shape
     h, hk, dh, g = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.groups
     q = _split_heads(dense_apply(p["wq"], x, qcfg=cfg.q("wq")), h, dh)
-    k = _split_heads(dense_apply(p["wk"], x, qcfg=cfg.q("wk")), hk, dh)
-    v = _split_heads(dense_apply(p["wv"], x, qcfg=cfg.q("wv")), hk, dh)
-    q = rope_apply(q, cos, sin)
-    k = rope_apply(k, cos, sin)
+    if cross_kv is None:
+        k = _split_heads(dense_apply(p["wk"], x, qcfg=cfg.q("wk")), hk, dh)
+        v = _split_heads(dense_apply(p["wv"], x, qcfg=cfg.q("wv")), hk, dh)
+        q = rope_apply(q, cos, sin)
+        k = rope_apply(k, cos, sin)
+    else:
+        k, v = cross_kv
     q = q.reshape(b, s, hk, g, dh)
     mask = _mask_full(s, k.shape[1], mode, window, x.device)
     out = _sdpa(q, k, v, mask[None, None, None]).reshape(b, s, h * dh)
     return dense_apply(p["wo"], out, qcfg=cfg.q("wo")), (k, v)
+
+
+def cross_kv_project(p, src, cfg: AttnConfig):
+    """Project the source states (encoder output or frontend embeddings)
+    to K/V once; every decode step reuses them."""
+    hk, dh = cfg.kv_heads, cfg.head_dim
+    k = _split_heads(dense_apply(p["wk"], src, qcfg=cfg.q("wk")), hk, dh)
+    v = _split_heads(dense_apply(p["wv"], src, qcfg=cfg.q("wv")), hk, dh)
+    return k, v
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,
@@ -148,14 +159,21 @@ def attn_decode(p, x, cache, index, cfg: AttnConfig, *, theta=10000.0,
     ((index - j) mod T) (floor modulo: index - j is negative in slots
     not yet wrapped), and RoPE uses true positions, so relative phases
     stay exact across wraps.
+
+    cross_kv: (k_src, v_src) of (B,T,Hk,Dh), for cross attention: no
+    RoPE, every source position attended whatever the index, and no
+    cache written (``cache`` is returned as it came, None included).
     """
-    if cross_kv is not None:
-        raise NotImplementedError(f"cross_kv: {_LATER['cross_kv']}")
     b = x.shape[0]
-    h, hk, dh, g = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.groups
+    h, hk, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = _split_heads(dense_apply(p["wq"], x, qcfg=cfg.q("wq")), h, dh)
+    if cross_kv is not None:
+        k, v = cross_kv
+        allow = torch.ones((1, k.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        return _attend_one(p, q, k, v, allow, cfg), cache
     per_slot = torch.is_tensor(index) and index.dim() == 1
     index = index.to(x.device) if per_slot else int(index)
-    q = _split_heads(dense_apply(p["wq"], x, qcfg=cfg.q("wq")), h, dh)
     k_new = _split_heads(dense_apply(p["wk"], x, qcfg=cfg.q("wk")), hk, dh)
     v_new = _split_heads(dense_apply(p["wv"], x, qcfg=cfg.q("wv")), hk, dh)
     q = rope_single(q, index, theta)
@@ -187,7 +205,14 @@ def attn_decode(p, x, cache, index, cfg: AttnConfig, *, theta=10000.0,
         allow = k_pos <= idx
         if mode == "local":
             allow = allow & (idx - k_pos < window)
-    q = q.reshape(b, 1, hk, g, dh)
+    return _attend_one(p, q, k, v, allow, cfg), cache
+
+
+def _attend_one(p, q, k, v, allow, cfg: AttnConfig):
+    """One query position over keys k/v (B,T,Hk,Dh); ``allow`` (B|1, T)
+    broadcasts to (B,1,1,1,T). Returns wo's output (B,1,d)."""
+    b = q.shape[0]
+    q = q.reshape(b, 1, cfg.kv_heads, cfg.groups, cfg.head_dim)
     out = _sdpa(q, k, v, allow[:, None, None, None, :])
-    out = out.reshape(b, 1, h * dh)
-    return dense_apply(p["wo"], out, qcfg=cfg.q("wo")), cache
+    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return dense_apply(p["wo"], out, qcfg=cfg.q("wo"))

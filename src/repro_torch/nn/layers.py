@@ -130,6 +130,12 @@ def const(v: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(v, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` (held exactly by a Python float)."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
 def _int_matmul(p, x, qcfg: QuantConfig):
     """W{8,4,2}A{8,4,2} integer GEMM with the per-channel dequant
     epilogue, written in x's dtype.
@@ -137,9 +143,12 @@ def _int_matmul(p, x, qcfg: QuantConfig):
     Activations are quantized onto the signed a_bits grid (A8 caps at
     ±127) with the static scale absmax / a_max; the divisor is a float32
     tensor on x's device (a Python-scalar divisor would let CUDA multiply
-    by its reciprocal and move codes that land on .5). A segmented
-    container runs the mixed-operand GEMM in one launch, equal to the
-    reference's per-run concatenation.
+    by its reciprocal and move codes that land on .5). The dequant scale
+    is w_scale x a_scale in float32, with a_scale first rounded to
+    w_scale's dtype: the reference's compiled rounding (a bfloat16 tree's
+    w_scale meets a_scale as bfloat16, and XLA drops the product's round
+    trip through bfloat16). A segmented container runs the mixed-operand GEMM in one launch, equal
+    to the reference's per-run concatenation.
     """
     from repro_torch.core.quantize import SegmentedLinearParams
     from repro_torch.kernels.api import int_gemm
@@ -151,7 +160,9 @@ def _int_matmul(p, x, qcfg: QuantConfig):
     x_q = torch.clamp(torch.round(x.to(torch.float32) / a_scale), -a_max,
                       a_max).to(torch.int8)
     x_q = packing.pad_to_chunk(x_q, axis=-1)
-    scale = (p["w_scale"] * a_scale).to(torch.float32)
+    scale = p["w_scale"].to(torch.float32) * const(
+        _rounded(absmax / a_max, p["w_scale"].dtype), torch.float32,
+        x.device)
     if qcfg.segments is not None:
         w = SegmentedLinearParams(
             w_flat=p["w_packed"], segmap=SegmentMap(qcfg.segments),

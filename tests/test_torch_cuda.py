@@ -482,6 +482,25 @@ def test_dense_layer_on_the_card_matches_cpu(dev, dtype, segmented):
         assert got.dtype == dtype and _same(got.cpu(), want)
 
 
+def test_bfloat16_weight_scale_dense_on_the_card_matches_cpu(dev):
+    # a bfloat16 param tree (llama-3.2-vision's) packs a bfloat16 w_scale;
+    # the dequant scale must round the same way on both devices
+    from repro_torch.nn import layers
+
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy((rng.normal(size=(512, 300)) * 0.05).astype(
+        np.float32)).to(torch.bfloat16)
+    pk, sc = layers.pack_dense_weights(w, 4)
+    assert sc.dtype == torch.bfloat16
+    qcfg = layers.QuantConfig(mode="int", w_bits=4, a_bits=8)
+    x = torch.from_numpy(rng.normal(size=(4, 1, 512)).astype(
+        np.float32)).to(torch.bfloat16)
+    want = layers.dense_apply({"w_packed": pk, "w_scale": sc}, x, qcfg=qcfg)
+    got = layers.dense_apply({"w_packed": pk.to(dev), "w_scale": sc.to(dev)},
+                             x.to(dev), qcfg=qcfg)
+    assert _same(got.cpu(), want)
+
+
 @pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
 @pytest.mark.parametrize("a_bits,w_bits", BITS)
 def test_qconv_signed_vector_scale_matches_plain(dev, a_bits, w_bits,
@@ -511,7 +530,7 @@ def test_qconv_signed_vector_scale_matches_plain(dev, a_bits, w_bits,
             assert _same(got, want), ((n, h, w_, cin, cout, f, s, p), epi)
 
 
-def _recurrent_smoke(arch, dev):
+def _smoke_w4a8(arch, dev):
     """(model, params on the CPU, params on ``dev``) of an arch's smoke
     config at W4A8, packed on the CPU from seeded fp weights."""
     import dataclasses
@@ -537,7 +556,7 @@ def test_recurrent_decode_dense_calls_on_the_card_match_cpu(dev, arch):
     from repro_torch.convert import to_device
     from repro_torch.nn import layers
 
-    model, _, q = _recurrent_smoke(arch, dev)
+    model, _, q = _smoke_w4a8(arch, dev)
     cache = model.init_cache(3, 32, device=dev)
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         2, 128, (3, 12))).to(dev)
@@ -563,7 +582,7 @@ def test_ring_cache_decode_on_the_card_matches_cpu(dev, vector):
     # the card's logits within 1e-3 of the largest of the CPU's
     import dataclasses
 
-    model, q_cpu, q = _recurrent_smoke("recurrentgemma-9b", dev)
+    model, q_cpu, q = _smoke_w4a8("recurrentgemma-9b", dev)
     model = dataclasses.replace(model, cfg=dataclasses.replace(
         model.cfg, compute_dtype="float32"))
     toks = torch.from_numpy(np.random.default_rng(6).integers(
@@ -584,7 +603,7 @@ def test_reset_state_zeroes_only_the_masked_slots_on_the_card(dev):
     from repro_torch.serve.runtime.adapters import LMDecodeAdapter
 
     for arch in ("mamba2-370m", "recurrentgemma-9b"):
-        model, _, q = _recurrent_smoke(arch, dev)
+        model, _, q = _smoke_w4a8(arch, dev)
         adapter = LMDecodeAdapter(model, q, 16)
         cache = adapter.init_state(4)
         for tree in cache.values():
@@ -598,3 +617,133 @@ def test_reset_state_zeroes_only_the_masked_slots_on_the_card(dev):
                 cleared = name in ("ssm", "rec")
                 assert bool((leaf[:, [0, 3]] == 0).all()) == cleared
                 assert bool((leaf[:, [1, 2]] == 1).all())
+
+
+# (M, K, N) of the cross-attention archs' denses (chip_smoke.py's [xattn]
+# wall): seamless-m4t-large-v2's at a decode step (M = 4) and over its
+# encoder's 4 x 4096 frames (M = 16,384), llama-3.2-vision-90b's at M = 4
+# and its cross K/V projection over 4096 source positions
+XATTN_SHAPES = tuple(
+    (m, k, n) for m in (4, 16384)
+    for k, n in ((1024, 1024), (1024, 8192), (8192, 1024))) + tuple(
+    (4, k, n) for k, n in ((8192, 8192), (8192, 1024), (8192, 28672),
+                           (28672, 8192))) + ((4096, 8192, 1024),)
+
+
+def _dev_ints(gen, bits, shape):
+    lo, hi = packing.int_range(bits, True)
+    return torch.randint(-hi if bits == 8 else lo, hi + 1, shape,
+                         generator=gen, device=gen.device,
+                         dtype=torch.int32).to(torch.int8)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("w_bits", [8, 4, 2])
+def test_qmatmul_cross_attention_shapes_match_plain(dev, w_bits, pipeline):
+    gen = torch.Generator(device=dev).manual_seed(w_bits)
+    for m, k, n in XATTN_SHAPES:
+        x = packing.pack(_dev_ints(gen, 8, (m, k)), 8)
+        w = packing.pack(_dev_ints(gen, w_bits, (k, n)), w_bits, axis=0)
+        scale = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-5
+        for out_dtype in (torch.bfloat16, torch.float32):
+            kw = dict(a_bits=8, a_signed=True, w_bits=w_bits, d=0,
+                      out_bits=8, epilogue="dequant", scale=scale,
+                      k_logical=k, out_dtype=out_dtype)
+            want = gemm_k.qmatmul_packed_torch(x, w, None, None, None, **kw)
+            got = gemm_k.qmatmul_packed_cuda(x, w, None, None, None,
+                                             pipeline=pipeline, **kw)
+            assert got.dtype == out_dtype
+            assert _same(got, want), ((m, k, n), out_dtype)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+def test_qmatmul_segmented_cross_attention_plan_matches_plain(dev,
+                                                              pipeline):
+    # seamless's dec_layers/mlp/wi split W8 | W4, at a decode step and
+    # over the encoder's rows
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k = 1024
+    segmap = packing.SegmentMap(((0, 4096, 8), (4096, 8192, 4)))
+    w = torch.cat([_dev_ints(gen, b, (k, e - s)) for s, e, b in segmap.runs],
+                  dim=1)
+    w_flat, padded = packing.pad_segmented(
+        packing.pack_segmented(w, segmap), segmap, k)
+    scale = torch.rand(padded.n, generator=gen, device=dev) * 1e-3 + 1e-5
+    for m, a_bits in ((4, 8), (4, 4), (4, 2), (16384, 8)):
+        xp = packing.pack(_dev_ints(gen, a_bits, (m, k)), a_bits)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            kw = dict(k_logical=k, a_bits=a_bits, a_signed=True, d=0,
+                      out_bits=8, epilogue="dequant", scale=scale,
+                      out_dtype=out_dtype)
+            want = gemm_k.qmatmul_segmented_torch(xp, w_flat, padded, None,
+                                                  None, None, **kw)
+            got = gemm_k.qmatmul_segmented_cuda(xp, w_flat, padded, None,
+                                                None, None,
+                                                pipeline=pipeline, **kw)
+            assert _same(got, want), (m, a_bits, out_dtype)
+
+
+def _filled_cache(model, q, batch, max_len, dev, dtype=torch.bfloat16):
+    src = torch.from_numpy((np.random.default_rng(8).normal(size=(
+        batch, model.cfg.src_len, model.cfg.d_model)) * 0.5).astype(
+        np.float32)).to(dev)
+    return model.fill_cross_kv(q, model.init_cache(batch, max_len, dtype,
+                                                   device=dev), src)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "llama-3.2-vision-90b"])
+def test_cross_attention_decode_dense_calls_on_the_card_match_cpu(dev, arch):
+    # one W4A8 decode step at per-slot positions over a cross cache filled
+    # from the source: every int dense call on the card is identical to
+    # the same call on the CPU
+    from repro_torch.convert import to_device
+    from repro_torch.nn import layers
+
+    model, _, q = _smoke_w4a8(arch, dev)
+    cache = _filled_cache(model, q, 3, 32, dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        2, 128, (3, 12))).to(dev)
+    for t in range(11):
+        model.decode(q, cache, toks[:, t:t + 1], t)
+    calls = []
+    with layers.dense_tap(lambda p, x: calls.append((p, x))
+                          if "w_packed" in p else None):
+        model.decode(q, cache, toks[:, 11:], torch.tensor([11, 9, 10],
+                                                          device=dev))
+    # smoke depth: seamless 2 decoder layers x (4 self + wq, wo + 2 mlp);
+    # vision 4 self layers x 7 + 1 cross layer x (wq, wo + 3 mlp)
+    assert len(calls) == {"seamless-m4t-large-v2": 2 * 8,
+                          "llama-3.2-vision-90b": 4 * 7 + 5}[arch]
+    for p, x in calls:
+        got = layers.dense_apply(p, x, qcfg=model.cfg.quant)
+        want = layers.dense_apply(to_device(p, "cpu"), x.cpu(),
+                                  qcfg=model.cfg.quant)
+        assert _same(got.cpu(), want)
+
+
+def test_encdec_forward_and_decode_on_the_card_match_cpu(dev):
+    # seamless-smoke W4A8, float32 compute: the forward and 12 decode steps
+    # over the cross cache each device fills from `encode`, the card's
+    # logits within 1e-3 of the largest of the CPU's
+    import dataclasses
+
+    model, q_cpu, q = _smoke_w4a8("seamless-m4t-large-v2", dev)
+    model = dataclasses.replace(model, cfg=dataclasses.replace(
+        model.cfg, compute_dtype="float32"))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        2, 128, (2, 12)))
+    src = torch.from_numpy((np.random.default_rng(7).normal(size=(
+        2, 16, 64)) * 0.5).astype(np.float32))
+    want, _, _ = model.forward(q_cpu, {"tokens": toks, "src_embed": src})
+    got, _, _ = model.forward(q, {"tokens": toks.to(dev),
+                                  "src_embed": src.to(dev)})
+    tol = 1e-3 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= tol
+    caches = {"cpu": _filled_cache(model, q_cpu, 2, 12, "cpu",
+                                   torch.float32),
+              dev: _filled_cache(model, q, 2, 12, dev, torch.float32)}
+    for t in range(12):
+        want, _ = model.decode(q_cpu, caches["cpu"], toks[:, t:t + 1], t)
+        got, _ = model.decode(q, caches[dev], toks[:, t:t + 1].to(dev), t)
+        assert float((got.cpu() - want).abs().max()) <= tol, t

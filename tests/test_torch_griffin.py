@@ -104,9 +104,24 @@ def test_ring_cache_decode_past_a_wrap(vector, kv_bits):
         else:
             np.testing.assert_allclose(pcache[k].numpy(),
                                        np.asarray(rcache[k]), atol=BLOCK_ATOL)
-    with pytest.raises(NotImplementedError, match="cross attention"):
-        p_attn.attn_decode(pp, torch.from_numpy(x[:, :1]), pcache, 0, pc,
-                           cross_kv=(None, None))
+    # cross K/V beside a ring cache: every source position, whatever the
+    # index, and the ring neither read nor written
+    src = rng.normal(size=(B, 5, 48)).astype(np.float32)
+    rk, rv = r_attn.cross_kv_project(rp, jnp.asarray(src), rc)
+    pk, pv = p_attn.cross_kv_project(pp, torch.from_numpy(src), pc)
+    before = {k: v.clone() for k, v in pcache.items()}
+    idx = np.array([19, 16], np.int32) if vector else 19
+    want, _ = r_attn.attn_decode(rp, jnp.asarray(x[:, :1]), None,
+                                 jnp.asarray(idx), rc, mode="bidir",
+                                 cross_kv=(rk, rv))
+    got, out = p_attn.attn_decode(
+        pp, torch.from_numpy(x[:, :1]), pcache,
+        torch.from_numpy(idx) if vector else idx, pc, mode="bidir",
+        cross_kv=(pk, pv), ring=True)
+    assert out is pcache
+    assert all(torch.equal(pcache[k], before[k]) for k in before)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=BLOCK_ATOL)
 
 
 @pytest.mark.parametrize("quant", [None, 4], ids=["fp", "w4a8"])

@@ -45,7 +45,9 @@ def test_port_covers_the_lm_modules_and_configs():
             "nn/module.py", "deploy/apply.py", "launch/convert.py",
             "launch/serve.py", "configs/mamba2_370m.py",
             "configs/recurrentgemma_9b.py", "nn/ssm.py", "nn/rglru.py",
-            "models/mamba.py", "models/griffin.py"} <= names
+            "models/mamba.py", "models/griffin.py", "models/encdec.py",
+            "configs/seamless_m4t_large_v2.py",
+            "configs/llama3p2_vision_90b.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():
@@ -55,6 +57,7 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.serve, repro_torch.launch.convert, "
             "repro_torch.deploy.apply, repro_torch.models.api as api, "
             "repro_torch.models.mamba, repro_torch.models.griffin, "
+            "repro_torch.models.encdec, "
             "repro_torch.nn.ssm, repro_torch.nn.rglru; "
             "api.list_archs(); "
             "print(sorted(m for m in sys.modules "

@@ -153,9 +153,17 @@ def test_attention_prefill_and_decode_close(kv_bits):
                                        atol=BLOCK_ATOL)
         if kv_bits == 8:
             assert_same(pcache["k"], rcache["k"], "int8 k cache")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_attn.attn_decode(pp, torch.from_numpy(xt), pcache, 0, pc,
-                           cross_kv=(None, None))
+    # cross K/V (the prefill's own, as a source of S positions): the
+    # cache is neither read nor written
+    before = {k: v.clone() for k, v in pcache.items()}
+    want, _ = r_attn.attn_decode(rp, jnp.asarray(xt), None, jnp.int32(0),
+                                 rc, mode="bidir", cross_kv=(rk, rv))
+    got, out = p_attn.attn_decode(pp, torch.from_numpy(xt), pcache, 0, pc,
+                                  mode="bidir", cross_kv=(pk, pv))
+    assert out is pcache
+    assert all(torch.equal(pcache[k], before[k]) for k in before)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=BLOCK_ATOL)
 
 
 @pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
@@ -277,15 +285,21 @@ def test_packed_trees_identical_and_serve_exact(plan):
 
 def test_other_families_raise_naming_the_roadmap():
     cfg = p_api.get_smoke_config("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        p_api.build(dataclasses.replace(cfg, family="encdec"))
+    # the enc-dec family is served now: a build of it has its trees
+    defs = p_api.build(p_api.get_smoke_config(
+        "seamless-m4t-large-v2")).defs()
+    assert {"enc_layers", "dec_layers", "enc_norm"} <= set(defs)
     with pytest.raises(NotImplementedError, match="Mixture-of-Experts"):
         p_api.build(dataclasses.replace(
             cfg, moe=importlib.import_module(
                 "repro_torch.configs.base").MoeSpec(4, 2, 64))).defs()
-    assert p_api.list_archs() == ["gemma3-1b", "mamba2-370m", "olmo-1b",
+    with pytest.raises(NotImplementedError, match="not in the reference"):
+        p_api.build(dataclasses.replace(cfg, family="diffusion"))
+    assert p_api.list_archs() == ["gemma3-1b", "llama-3.2-vision-90b",
+                                  "mamba2-370m", "olmo-1b",
                                   "phi3-mini-3.8b", "qwen2.5-3b",
-                                  "recurrentgemma-9b"]
+                                  "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2"]
     # the published numbers and the smoke configs, copied unchanged
     for name in p_api.list_archs():
         for r, p in ((r_api.get_config(name), p_api.get_config(name)),
