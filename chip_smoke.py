@@ -149,7 +149,30 @@
    the card equals the CPU's byte for byte; the forward and 16 decode
    steps over each device's filled cross cache stay within 1e-3 of the
    largest CPU logit, greedy tokens equal where the margin exceeds it.
-11. Times each kernel (CUDA events and profiler device time) beside its
+11. [moe]: Mixture-of-Experts, kimi-k2-1t-a32b (384 experts, top-8) and
+   llama4-maverick-400b-a17b (128 experts, top-1), each at full width
+   with its depth cut to 1 layer (of 61 and 48: one layer's routed
+   experts are 33.8 and 32.2 GB of bfloat16). Kernels 1-2 at the eight
+   (K, N) shapes of their attention and shared-expert denses (7168x7168,
+   7168x896, 7168x2048, 2048x7168, 5120x5120, 5120x1024, 5120x8192,
+   8192x5120) at M = 4, A8 x W{8,4,2}, and kernel 3 on each shared wi
+   split W8 | W4 (A{8,4,2}), both output dtypes and STAGES, identical to
+   the plain version. Each model served like qwen2.5-3b at W8A8, W4A8,
+   W4A8 double-buffered and W2A8 with the packed, expert and embedding
+   bytes and peak memory (the packed tree shares the fp tree's router and
+   experts, storage checked); at W4A8 every int dense call of one decode
+   step (4 attention + 3 shared expert) identical to the CPU's; a
+   profiled decode step with the routed experts alone beside the bound
+   of streaming them; a plan with layers/moe/shared/wi split W8 | W4
+   (kernel 3 must launch); the CLI at W4A8 with ``--layers 1``. At full
+   width, 1 layer and the routed experts cut to 16 (kimi) and 8
+   (llama4), float32: the W4A8 artifact packed on the card equals the
+   CPU's byte for byte; the forward's routing (experts where the k-th and
+   (k+1)-th probability differ by over 1e-6, positions and keep up to the
+   first token where they do not) equal, its aux within 1e-5, and the
+   forward and 16 decode steps within 1e-3 of the largest CPU logit,
+   greedy tokens equal where the margin exceeds it.
+12. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -164,8 +187,9 @@
    ``conv2d(groups=C)`` on its integer input, with the MACs each
    lowering contracts against the real ones. Each of qwen2.5-3b's four
    dense shapes and the recurrent families' six at M = 4, A8 x
-   W{8,4,2}, and the [xattn] shapes (M = 16,384 among them), beside
-   its bound and `torch.matmul` in bf16 on dequantized weights.
+   W{8,4,2}, the [xattn] shapes (M = 16,384 among them) and the [moe]
+   shapes at M = 4, beside its bound and `torch.matmul` in bf16 on
+   dequantized weights.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
@@ -1805,6 +1829,13 @@ def _dense_bytes(params):
     return 0
 
 
+def _expert_bytes(params):
+    """Bytes of a MoE tree's routed experts (float wi, wg, wo)."""
+    from repro_torch.nn.module import param_bytes
+    moe = params["layers"]["moe"]
+    return sum(param_bytes(moe[k]) for k in ("wi", "wg", "wo"))
+
+
 def serve_lm(name, model, params, report, phase="lm"):
     """Serve the LM requests through `Engine`; print and record the
     [phase] serve line (peak device memory since the path's last
@@ -1831,6 +1862,8 @@ def serve_lm(name, model, params, report, phase="lm"):
            "waves": lat["waves"], "dense_bytes": _dense_bytes(params),
            "param_bytes": param_bytes(params),
            "embed_bytes": param_bytes(params["embed"]),
+           **({"expert_bytes": _expert_bytes(params)}
+              if "moe" in params.get("layers", {}) else {}),
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "device": torch.cuda.get_device_name(0)}
     say(phase, serve=name, **{k: (round(v, 3) if isinstance(v, float)
@@ -1910,11 +1943,13 @@ def _calls_equal_cpu(calls, qcfg, phase):
                                  f"err {err} against the CPU plain path")
 
 
-def profile_decode_step(dev, model, params, report, phase="lm"):
+def profile_decode_step(dev, model, params, report, phase="lm",
+                        extra=None):
     """One decode step (batch 4) under torch.profiler: wall, device busy
-    and idle share, the qmatmul kernels' device ms; and the logits head
-    (the tied embedding matmul or the untied head, and the mask)
-    profiled alone at the step's shapes."""
+    and idle share, the qmatmul kernels' device ms and launches; and the
+    logits head (the tied embedding matmul or the untied head, and the
+    mask) profiled alone at the step's shapes. ``extra`` fields join the
+    printed row. Resets the launch counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.lm import _logits
@@ -1923,12 +1958,14 @@ def profile_decode_step(dev, model, params, report, phase="lm"):
     tok = torch.full((LM_BATCH, 1), 7, device=dev)
     model.decode(params, cache, tok, 0)           # warm
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model.decode(params, cache, tok, 1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    launches = read_launches()
     busy = _device_us(prof) or None
     ours = _device_us(prof, ("qmatmul_kernel", "qmatmul_segmented_kernel"))
     x = torch.randn(LM_BATCH, 1, cfg.d_model, device=dev).to(torch.bfloat16)
@@ -1938,7 +1975,10 @@ def profile_decode_step(dev, model, params, report, phase="lm"):
            "device_idle_share": None if busy is None
            else max(0.0, 1.0 - busy / wall_us),
            "qmatmul_device_ms": ours / 1e3 if ours else None,
-           "logits_head_device_ms": head_ms}
+           "qmatmul_launches": sum(launches["qmatmul"].values()),
+           "qmatmul_segmented_launches": sum(
+               launches["qmatmul_segmented"].values()),
+           "logits_head_device_ms": head_ms, **(extra or {})}
     say(phase, profile="decode step", arch=cfg.name, batch=LM_BATCH,
         w_bits=cfg.quant.w_bits, **row)
     report.setdefault(f"{phase}_profile_decode_step", {})[cfg.name] = row
@@ -2056,7 +2096,7 @@ def lm_path(dev, report):
     (half W8, half W4), then the CLI `repro_torch.launch.serve` at W4A8.
     Returns the kernels' launch counts over the two serving windows."""
     import torch
-    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
     from repro_torch.deploy.policy import PlanRule, PrecisionPlan
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.convert import convert_params
@@ -2066,7 +2106,7 @@ def lm_path(dev, report):
     torch.cuda.reset_peak_memory_stats()
     fp = build(cfg).init(SEED, device=dev)
     models = {w: _lm_model(cfg, w) for w in WIDTHS}
-    params = {w: convert_params(m.init(0, device=dev), fp, w)
+    params = {w: convert_params(int_skeleton(m.defs()), fp, w)
               for w, m in models.items()}
     db = _lm_model(cfg, 4, pipeline="double_buffer")
     # one untimed request first: torch loads its own CUDA kernels lazily
@@ -2088,7 +2128,7 @@ def lm_path(dev, report):
                                          segments=LM_RUNS),),
                          default_w_bits=4)
     pm = _lm_model(cfg, 4, plan=plan)
-    pp = apply_plan(pm.init(0, device=dev), fp, plan, 4)
+    pp = apply_plan(int_skeleton(pm.defs()), fp, plan, 4)
     del fp, params
     reset_launches()
     serve_lm(f"{LM_ARCH} plan wi W8|W4", pm, pp, report)
@@ -2159,16 +2199,6 @@ def rec_kernel_phase(dev, report):
     return worst
 
 
-def _int_skeleton(defs):
-    """The int-mode tree `apply_plan` fills, at no device memory: it reads
-    only the shape of each dense's ``w_packed`` (a meta tensor here) and
-    takes every other leaf from the fp tree."""
-    import torch
-    if isinstance(defs, dict):
-        return {k: _int_skeleton(v) for k, v in defs.items()}
-    return torch.empty(defs.shape, dtype=defs.dtype, device="meta")
-
-
 def _decode_once(dev, model, params):
     """One decode step at the served batch (torch loads its own CUDA
     kernels lazily: the first served step would pay for it)."""
@@ -2206,7 +2236,7 @@ def rec_path(dev, arch, report):
     with every rec_layers/mlp/wi split W8 | W4; then the CLI at W4A8.
     Returns the kernels' launch counts over the two serving windows."""
     import torch
-    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
     from repro_torch.deploy.policy import PlanRule, PrecisionPlan
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models.api import build, get_config
@@ -2218,7 +2248,7 @@ def rec_path(dev, arch, report):
     fp = build(cfg).init(SEED, device=dev)
 
     def pack(model, w_bits, plan=None):
-        return apply_plan(_int_skeleton(model.defs()), fp, plan, w_bits)
+        return apply_plan(int_skeleton(model.defs()), fp, plan, w_bits)
 
     models = {w: _lm_model(cfg, w) for w in WIDTHS}
     db = _lm_model(cfg, 4, pipeline="double_buffer")
@@ -2290,7 +2320,7 @@ def rec_cpu_check(dev, arch, report):
     import dataclasses
     import torch
     from repro_torch.convert import to_device
-    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
     from repro_torch.models.api import build, get_config
     cut = {"n_layers": REC_CPU_LAYERS[arch], "compute_dtype": "float32"}
     if arch == "recurrentgemma-9b":
@@ -2298,7 +2328,7 @@ def rec_cpu_check(dev, arch, report):
     cfg = dataclasses.replace(get_config(arch), **cut)
     fp_cpu = build(cfg).init(SEED, device="cpu")
     model = _lm_model(cfg, 4)
-    q = {d: apply_plan(_int_skeleton(model.defs()), to_device(fp_cpu, d),
+    q = {d: apply_plan(int_skeleton(model.defs()), to_device(fp_cpu, d),
                        None, 4) for d in ("cpu", dev)}
     diff = first_difference(to_device(q[dev], "cpu"), q["cpu"])
     if diff is not None:
@@ -2565,7 +2595,7 @@ def xattn_path(dev, arch, report):
     forward on the card; then the CLI at W4A8. Returns the kernels' launch
     counts over the two serving windows."""
     import torch
-    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
     from repro_torch.deploy.policy import PlanRule, PrecisionPlan
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models.api import build
@@ -2578,7 +2608,7 @@ def xattn_path(dev, arch, report):
     fp = build(cfg).init(SEED, device=dev)
 
     def pack(model, w_bits, plan=None):
-        return apply_plan(_int_skeleton(model.defs()), fp, plan, w_bits)
+        return apply_plan(int_skeleton(model.defs()), fp, plan, w_bits)
 
     models = {w: _lm_model(cfg, w) for w in WIDTHS}
     db = _lm_model(cfg, 4, pipeline="double_buffer")
@@ -2662,7 +2692,7 @@ def xattn_cpu_check(dev, report):
     import dataclasses
     import torch
     from repro_torch.convert import to_device
-    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
     from repro_torch.models.api import build
     arch = XATTN_ARCHS[0]
     cfg = _xattn_config(arch, enc_layers=XATTN_CPU_LAYERS,
@@ -2671,7 +2701,7 @@ def xattn_cpu_check(dev, report):
                         compute_dtype="float32")
     fp_cpu = build(cfg).init(SEED, device="cpu")
     model = _lm_model(cfg, 4)
-    q = {d: apply_plan(_int_skeleton(model.defs()), to_device(fp_cpu, d),
+    q = {d: apply_plan(int_skeleton(model.defs()), to_device(fp_cpu, d),
                        None, 4) for d in ("cpu", dev)}
     diff = first_difference(to_device(q[dev], "cpu"), q["cpu"])
     if diff is not None:
@@ -2716,6 +2746,287 @@ def xattn_cpu_check(dev, report):
     say("xattn", check="card_vs_cpu", arch=arch, w_bits=4,
         compute="float32", **row)
     report["xattn_cpu_check"] = row
+
+
+# ------------------------------------------------------------ [moe] ---
+
+MOE_ARCHS = ("kimi-k2-1t-a32b", "llama4-maverick-400b-a17b")
+# each served at its full width with its depth cut to one layer (of 61
+# and 48): one layer's routed experts are 33.8 and 32.2 GB of bfloat16,
+# so two layers would leave the card under 10 GB
+MOE_LAYERS = 1
+# (K, N) of the MoE archs' int denses, which no earlier path gives
+# kernels 1-2: kimi's wq / wo (7168x7168), wk / wv (7168x896 = 8 heads of
+# 112), shared wi / wg (7168x2048) and shared wo (2048x7168); llama4's
+# 5120x5120, 5120x1024, 5120x8192 and 8192x5120; all at M = 4
+MOE_SHAPES = ((7168, 7168), (7168, 896), (7168, 2048), (2048, 7168),
+              (5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120))
+# kernel 3 on each arch's layers/moe/shared/wi (K, N), half W8, half W4
+MOE_SHARED_WI = {"kimi-k2-1t-a32b": (7168, 2048),
+                 "llama4-maverick-400b-a17b": (5120, 8192)}
+# the CPU cross-check at full width, float32, with the routed experts
+# cut (top-k kept): 384 float32 experts of kimi alone would take 67.6 GB
+# of host memory
+MOE_CPU_EXPERTS = {"kimi-k2-1t-a32b": 16, "llama4-maverick-400b-a17b": 8}
+MOE_AUX_ATOL, MOE_ROUTE_MARGIN = 1e-5, 1e-6
+
+
+def _moe_runs(arch):
+    n = MOE_SHARED_WI[arch][1]
+    return ((0, n // 2, 8), (n // 2, n, 4))
+
+
+def moe_kernel_phase(dev, report):
+    """Kernels 1-2 at MOE_SHAPES, M = 4, A8 x W{8,4,2}; kernel 3 on each
+    arch's shared wi split W8 | W4 at A{8,4,2}: signed activations, a
+    per-channel scale, both output dtypes, both STAGES, identical to the
+    plain version on the card. The operands are drawn on the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    worst, n_cmp = _no_errors()
+    cases = []
+    for k, n in MOE_SHAPES:
+        for w_bits in WIDTHS:
+            cases.append(DenseCase(4, k, n, 8, w_bits, gen, dev))
+    for arch in MOE_ARCHS:
+        k, n = MOE_SHARED_WI[arch]
+        seg_w = None
+        for a_bits in WIDTHS:
+            c = DenseCase(4, k, n, a_bits, 8, gen, dev, runs=_moe_runs(arch),
+                          w=seg_w)
+            seg_w = c.weights()
+            cases.append(c)
+    compare_dense_cases("moe", cases, worst, n_cmp)
+    report["moe_kernel_phase"] = {
+        "comparisons": n_cmp, "shapes": [list(s) for s in MOE_SHAPES],
+        "m": 4, "shared_wi": MOE_SHARED_WI}
+    return worst
+
+
+def _expert_step_extra(dev, cfg, params):
+    """The routed experts of one decode step alone (every expert at the
+    step's capacity, as `moe_apply` runs them): ms per call by CUDA
+    events over back-to-back calls, beside the bound of streaming their
+    weights once. Not the profiler: its per-pass count rounds a kernel
+    that runs twice a call (wi, wg) down to once when the trace misses
+    records, and on an H100 that read 7.06 ms against the 10.10 ms
+    bound of kimi's experts."""
+    import torch
+    from repro_torch.models.lm import _moe_cfg, layer_params
+    from repro_torch.nn.mlp import _experts
+    mcfg = _moe_cfg(cfg)
+    moe = layer_params(params["layers"], 0)["moe"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    xin = torch.randn(1, mcfg.n_experts, mcfg.capacity(LM_BATCH),
+                      cfg.d_model, generator=gen, device=dev).to(
+        moe["wi"].dtype)
+    nbytes = _expert_bytes(params) / cfg.n_layers
+    return {"experts_ms_per_layer": time_ms(
+        lambda: _experts(xin, moe, mcfg.act), 2, 10),
+        "experts_stream_bound_ms_per_layer": nbytes / PEAK_BYTES * 1e3,
+        "expert_bytes_per_layer": nbytes}
+
+
+def moe_path(dev, arch, report):
+    """Serve one MoE arch at full width, MOE_LAYERS layer(s), from seeded
+    weights made and quantized on the card one width at a time: W8A8,
+    W4A8, W4A8 double-buffered (the same tokens) and W2A8 through
+    `Engine` (the packed tree shares the fp tree's router and experts);
+    then at W4A8 every int dense call of one decode step against the CPU
+    plain path and one profiled decode step; a plan with every
+    layers/moe/shared/wi split W8 | W4; then the CLI at W4A8 with
+    ``--layers``. Returns the kernels' launch counts over the two serving
+    windows."""
+    import dataclasses
+    import torch
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
+    from repro_torch.deploy.policy import PlanRule, PrecisionPlan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.api import build, get_config
+    from repro_torch.nn.module import param_bytes
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=MOE_LAYERS)
+    label = f"{arch} ({MOE_LAYERS} of {get_config(arch).n_layers} layers)"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fp = build(cfg).init(SEED, device=dev)
+    say("moe", arch=label, fp_param_bytes=param_bytes(fp),
+        fp_init_peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    def pack(model, w_bits, plan=None):
+        q = apply_plan(int_skeleton(model.defs()), fp, plan, w_bits)
+        if q["layers"]["moe"]["wi"].data_ptr() != \
+                fp["layers"]["moe"]["wi"].data_ptr():
+            raise AssertionError("[moe] the int tree copied the experts")
+        return q
+
+    models = {w: _lm_model(cfg, w) for w in WIDTHS}
+    db = _lm_model(cfg, 4, pipeline="double_buffer")
+    params = pack(models[8], 8)
+    _decode_once(dev, models[8], params)
+    reset_launches()
+    outs = {8: serve_lm(f"{label} W8A8", models[8], params, report, "moe")}
+    del params
+    p4 = pack(models[4], 4)
+    outs[4] = serve_lm(f"{label} W4A8", models[4], p4, report, "moe")
+    out_db = serve_lm(f"{label} W4A8 double_buffer", db, p4, report, "moe")
+    params = pack(models[2], 2)
+    outs[2] = serve_lm(f"{label} W2A8", models[2], params, report, "moe")
+    del params
+    torch.cuda.synchronize()
+    first = read_launches()
+    if out_db != outs[4]:
+        raise AssertionError(f"[moe] {arch}: double_buffer tokens differ "
+                             "from 'off'")
+    require_launches(label, first, ("qmatmul",))
+    _check_dense_calls(dev, models[4], p4, "moe")
+    profile_decode_step(dev, models[4], p4, report, "moe",
+                        extra=_expert_step_extra(dev, cfg, p4))
+    del p4
+
+    reset_launches()
+    plan = PrecisionPlan(rules=(PlanRule("layers/moe/shared/wi", 8,
+                                         segments=_moe_runs(arch)),),
+                         default_w_bits=4)
+    pm = _lm_model(cfg, 4, plan=plan)
+    pp = pack(pm, 4, plan)
+    serve_lm(f"{label} plan shared wi W8|W4", pm, pp, report, "moe")
+    del pp, fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cut = ["--layers", str(MOE_LAYERS)]
+    cli = serve_cli.main(["--arch", arch, "--quant", "w4a8", "--requests",
+                          str(LM_REQUESTS), "--batch", str(LM_BATCH),
+                          "--max-new", str(LM_MAX_NEW)] + cut)
+    torch.cuda.synchronize()
+    second = read_launches()
+    if len(cli) != LM_REQUESTS or not all(len(r.out) for r in cli):
+        raise AssertionError(f"[moe] the serve CLI returned no tokens for "
+                             f"{arch}")
+    say("moe", cli=" ".join(["python -m repro_torch.launch.serve --arch",
+                             arch, "--quant w4a8"] + cut),
+        seconds=round(time.perf_counter() - t0, 1),
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    require_launches(f"{label} plan + CLI", second,
+                     ("qmatmul_segmented", "qmatmul"), stages_needed=(1,))
+    del cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: {s: first[k][s] + second[k][s] for s in (1, 2)}
+                for k in first}
+    report.setdefault("launches", {})[arch] = launches
+    return launches
+
+
+def _moe_forward(model, params, tokens):
+    """The forward's logits (real vocab, on the host) and aux, and the
+    routing of its one MoE layer: `moe_route` on the block's input, which
+    the shared expert's wi reads (captured with `dense_tap`)."""
+    import torch
+    from repro_torch.models.lm import _moe_cfg
+    from repro_torch.nn.layers import dense_tap
+    from repro_torch.nn.mlp import moe_route
+    cfg = model.cfg
+    wi = params["layers"]["moe"]["shared"]["wi"]["w_packed"]
+    seen = []
+    with dense_tap(lambda p, x: seen.append(x)
+                   if p.get("w_packed") is not None
+                   and p["w_packed"].data_ptr() == wi.data_ptr() else None):
+        logits, aux, _ = model.forward(params, {"tokens": tokens})
+    (x,) = seen
+    b, s, d = x.shape
+    route = moe_route(x.reshape(1, b * s, d),
+                      params["layers"]["moe"]["router"][0], _moe_cfg(cfg))
+    return (logits[..., :cfg.vocab].cpu(), float(aux),
+            [t.cpu() for t in route])
+
+
+def moe_cpu_check(dev, arch, report):
+    """One MoE arch at its full width, MOE_LAYERS layer(s) and
+    MOE_CPU_EXPERTS routed experts (top-k kept), float32 params and
+    compute, fp weights from a CPU generator: the W4A8 artifact packed on
+    the card is byte-identical to the CPU's; the forward over
+    LM_CPU_PROMPT tokens stays within LM_CPU_RTOL of the largest CPU
+    logit, its aux within MOE_AUX_ATOL, and its routing (experts,
+    position, keep) equal wherever the k-th and (k+1)-th probability of a
+    token differ by more than MOE_ROUTE_MARGIN; then the prompt and
+    LM_CPU_STEPS greedy steps, one decode step each on both devices, stay
+    within the same tolerance, greedy tokens equal where the CPU's top-1
+    margin exceeds it."""
+    import dataclasses
+    import torch
+    from repro_torch.convert import to_device
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
+    from repro_torch.models.api import build, get_config
+    base = get_config(arch)
+    cfg = dataclasses.replace(
+        base, n_layers=MOE_LAYERS, compute_dtype="float32",
+        param_dtype="float32", moe=dataclasses.replace(
+            base.moe, n_experts=MOE_CPU_EXPERTS[arch]))
+    fp_cpu = build(cfg).init(SEED, device="cpu")
+    model = _lm_model(cfg, 4)
+    q = {d: apply_plan(int_skeleton(model.defs()), to_device(fp_cpu, d),
+                       None, 4) for d in ("cpu", dev)}
+    del fp_cpu
+    diff = first_difference(to_device(q[dev], "cpu"), q["cpu"])
+    if diff is not None:
+        raise AssertionError(f"[moe] {arch}: the W4A8 artifact packed on "
+                             f"the card differs from the CPU's at {diff}")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    prompt = torch.randint(2, cfg.vocab, (2, LM_CPU_PROMPT), generator=gen)
+    fwd = {d: _moe_forward(model, q[d], prompt.to(d)) for d in ("cpu", dev)}
+    (ref, ref_aux, ref_route), (got, got_aux, got_route) = \
+        fwd["cpu"], fwd[dev]
+    tol = LM_CPU_RTOL * float(ref.abs().max())
+    worst = float((got - ref).abs().max())
+    k = cfg.moe.top_k
+    top = ref_route[0].sort(dim=-1, descending=True).values
+    sure = (top[..., k - 1] - top[..., k]) > MOE_ROUTE_MARGIN
+    # a choice's position counts the choices of every token before it:
+    # held up to the first token whose top-k is not sure
+    upto = torch.cumprod(sure.to(torch.int32), dim=-1).bool()
+    routed = int(sure.sum())
+    for name, a, b, mask in zip(("experts", "pos", "keep"), got_route[2:],
+                                ref_route[2:], (sure, upto, upto)):
+        if not torch.equal(a[mask], b[mask]):
+            raise AssertionError(f"[moe] {arch}: routing ({name}) on the "
+                                 "card differs from the CPU's")
+    aux_err = abs(got_aux - ref_aux)
+    total = LM_CPU_PROMPT + LM_CPU_STEPS
+    caches = {d: model.init_cache(2, total, torch.float32, device=d)
+              for d in ("cpu", dev)}
+    agreed, compared = 0, 0
+    tok = prompt[:, :1]
+    for t in range(total):
+        lg = {d: model.decode(q[d], caches[d], tok.to(d), t)[0][:, -1]
+              .cpu()[:, :cfg.vocab] for d in ("cpu", dev)}
+        r, g = lg["cpu"], lg[dev]
+        worst = max(worst, float((g - r).abs().max()))
+        if t >= LM_CPU_PROMPT - 1:
+            top2 = r.topk(2, dim=-1).values
+            ok = (top2[:, 0] - top2[:, 1]) > tol
+            compared += int(ok.sum())
+            agreed += int(((g.argmax(-1) == r.argmax(-1)) & ok).sum())
+        tok = (prompt[:, t + 1:t + 2] if t + 1 < LM_CPU_PROMPT
+               else r.argmax(-1, keepdim=True))
+    if worst > tol or agreed != compared or aux_err > MOE_AUX_ATOL:
+        raise AssertionError(f"[moe] {arch} card vs CPU: max |dlogit| "
+                             f"{worst} (tol {tol}), aux err {aux_err}, "
+                             f"greedy tokens {agreed}/{compared} where the "
+                             "margin exceeds tol")
+    row = {"layers": cfg.n_layers,
+           "experts": f"{cfg.moe.n_experts} (cut from {base.moe.n_experts})",
+           "top_k": k, "artifact_equal_cpu": True,
+           "routed_tokens_compared": f"{routed}/{sure.numel()}",
+           "positions_compared": f"{int(upto.sum())}/{sure.numel()}",
+           "routing_equal": True, "aux_abs_err": aux_err,
+           "max_abs_logit_err": worst, "tol": tol,
+           "greedy_agree": f"{agreed}/{compared}"}
+    say("moe", check="card_vs_cpu", arch=arch, w_bits=4, compute="float32",
+        **row)
+    report.setdefault("moe_cpu_check", {})[arch] = row
 
 
 def write_report(report, name: str):
@@ -2784,11 +3095,19 @@ def main() -> int:
     for arch in XATTN_ARCHS:
         by_path[arch] = xattn_path(dev, arch, report)
     xattn_cpu_check(dev, report)
+    for key, err in moe_kernel_phase(dev, report).items():
+        worst[key] = max(worst[key], err)
+    for arch in MOE_ARCHS:
+        by_path[arch] = moe_path(dev, arch, report)
+    for arch in MOE_ARCHS:
+        moe_cpu_check(dev, arch, report)
     lm_timing_phase(dev, report, [(4, k, n) for k, n in LM_SHAPES],
                     "lm_shape", SEED + 7)
     lm_timing_phase(dev, report, [(4, k, n) for k, n in REC_SHAPES],
                     "rec_shape", SEED + 10)
     lm_timing_phase(dev, report, XATTN_SHAPES, "xattn_shape", SEED + 15)
+    lm_timing_phase(dev, report, [(4, k, n) for k, n in MOE_SHAPES],
+                    "moe_shape", SEED + 18)
     gemm_rows = gemm_timing_phase(dev, head, report)
     conv_rows = timing_phase(dev, convs, report)
     seg_rows = segmented_timing_phase(dev, report)

@@ -4,8 +4,7 @@ Every architecture file (``repro_torch/configs/<id>.py``) builds a
 `ModelConfig` with its exact published numbers plus a reduced
 ``smoke_config()`` of the same family for CPU tests. The fields are the
 reference's, so a reference config and the port's describe the same
-model; the fields of MoE, which the port does not serve yet, are
-carried but refused by `repro_torch.models`.
+model.
 """
 from __future__ import annotations
 

@@ -1,0 +1,23 @@
+"""kimi-k2-1t-a32b [moe] — trillion-param MoE, 384 experts top-8
+[arXiv:2501.kimi2]. 61L, d=7168, 64H (kv=8), expert ff=2048,
+vocab=163840. One full-width layer's routed experts are 33.8 GB of
+bfloat16, so one card serves it with its depth cut (``--layers 1``)."""
+from repro_torch.configs.base import ModelConfig, MoeSpec
+from repro_torch.models.api import register
+
+CONFIG = register(ModelConfig(
+    name="kimi-k2-1t-a32b", family="lm",
+    n_layers=61, d_model=7168, n_heads=64, kv_heads=8, head_dim=112,
+    d_ff=2048, vocab=163840, act="swiglu", norm="rmsnorm",
+    moe=MoeSpec(n_experts=384, top_k=8, d_ff=2048, group_size=1024),
+    param_dtype="bfloat16",
+))
+
+
+def smoke_config():
+    return ModelConfig(
+        name="kimi-smoke", family="lm",
+        n_layers=2, d_model=64, n_heads=4, kv_heads=2, d_ff=64,
+        vocab=128, act="swiglu", norm="rmsnorm",
+        moe=MoeSpec(n_experts=8, top_k=2, d_ff=64, group_size=64),
+        remat=False)

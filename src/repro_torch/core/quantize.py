@@ -104,6 +104,27 @@ def wrap_int32(v: torch.Tensor) -> torch.Tensor:
     return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
 
 
+def lin(w_hat: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
+    """Eq. (2): int8 x (..., K) @ int8 w (K, N) -> int32 (..., N), exact
+    (the kernels' plain integer contraction; int32 wraps as in the
+    reference)."""
+    from repro_torch.kernels.common import int_matmul  # imports this module
+    x = x_hat.to(torch.int8)
+    out = int_matmul(x.reshape(-1, x.shape[-1]), w_hat.to(torch.int8))
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def batchnorm_int(phi: torch.Tensor, kappa, lam) -> torch.Tensor:
+    """Eq. (3): per-output-channel integer batch-norm with int32
+    wraparound (the 32-bit RISC-V MAC's), kappa and lam cast to int32
+    first as the reference casts them."""
+    def i32(v):
+        return torch.as_tensor(v, device=phi.device).to(torch.int32).to(
+            torch.int64)
+    return wrap_int32(phi.to(torch.int32).to(torch.int64) * i32(kappa)
+                      + i32(lam)).to(torch.int32)
+
+
 def requantize_shift(phi: torch.Tensor, m, d: int) -> torch.Tensor:
     """Exact ``(m * phi) >> d`` (floor) with the reference's int32 hi/lo
     split, for d in [16, 31]; every product wraps as int32 would.
@@ -243,3 +264,25 @@ def quantize_linear_segmented(w_hat: torch.Tensor, segmap, kappa, lam, m,
         segmap=segmap, a_bits=a_bits, a_signed=a_signed, kappa=vec(kappa),
         lam=vec(lam), m=vec(m), d=d, out_bits=out_bits,
         k_logical=int(w_hat.shape[-2]))
+
+
+def quantize_linear(w: torch.Tensor, spec_w: QuantSpec, bn_scale, bn_bias,
+                    spec_x: QuantSpec,
+                    spec_y: QuantSpec) -> QuantizedLinearParams:
+    """Full deployment quantization of one linear layer (the paper's
+    pipeline): quantize the (K, N) weights (eq. 1), pad K to a CHUNK
+    multiple, pack chunk-planar along K, and fold the real BN and the
+    output grid into integer kappa / lambda / (m, d) (eqs. 3-4). Every
+    tensor of the artifact lives on ``w``'s device."""
+    w_hat = quantize(w, spec_w)                       # (K, N) int8
+    k_logical = w_hat.shape[0]
+    w_packed = packing.pack(packing.pad_to_chunk(w_hat, axis=0),
+                            spec_w.bits, axis=0)
+    kappa, lam, m, d = fold_bn_requant(
+        spec_w.eps, spec_x.eps, spec_y.eps,
+        torch.as_tensor(bn_scale, device=w.device),
+        torch.as_tensor(bn_bias, device=w.device), spec_y.bits)
+    return QuantizedLinearParams(
+        w_packed=w_packed, w_bits=spec_w.bits, a_bits=spec_x.bits,
+        a_signed=spec_x.signed, kappa=kappa, lam=lam, m=m, d=d,
+        out_bits=spec_y.bits, k_logical=k_logical)

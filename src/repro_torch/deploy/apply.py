@@ -15,6 +15,8 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.deploy.policy import PrecisionPlan
 from repro_torch.nn.layers import (QuantConfig, pack_dense_weights,
                                    pack_dense_weights_segmented)
@@ -24,13 +26,25 @@ def _is_dense_q(node) -> bool:
     return isinstance(node, dict) and "w_packed" in node
 
 
+def int_skeleton(defs):
+    """The int-mode tree `apply_plan` fills, at no memory: a meta tensor
+    per leaf of an int-mode ParamDef tree. `apply_plan` reads only each
+    dense's ``w_packed`` shape from it and takes every other leaf from
+    the fp tree, so a float leaf the two trees share (an embedding, a
+    MoE's routed experts) exists once."""
+    if isinstance(defs, dict):
+        return {k: int_skeleton(v) for k, v in defs.items()}
+    return torch.empty(defs.shape, dtype=defs.dtype, device="meta")
+
+
 def apply_plan(q_tree, fp_tree, plan: Optional[PrecisionPlan],
                default_w_bits: int = 8, *, assert_range: bool = True,
                _path: Tuple[str, ...] = ()):
     """Fill an int-mode parameter tree (zeros-initialized `w_packed` /
     `w_scale` leaves) from the fp tree, quantizing each dense at its
-    plan-resolved bit-width. Stacked layer weights pack along their own K
-    axis. Every other leaf is the fp tree's own tensor."""
+    plan-resolved bit-width; ``q_tree`` may be its `int_skeleton`.
+    Stacked layer weights pack along their own K axis. Every other leaf
+    is the fp tree's own tensor."""
     if _is_dense_q(q_tree):
         path = "/".join(_path)
         qcfg = QuantConfig(mode="int", w_bits=default_w_bits)

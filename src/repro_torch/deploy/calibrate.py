@@ -196,7 +196,7 @@ def calibrate_vision(cfg, fp_params, image_batches: Sequence[np.ndarray], *,
     if sensitivity == "task_loss":
         raise NotImplementedError(
             "calibrate_vision(sensitivity='task_loss') comes with the QAT "
-            "slice (ROADMAP Queue 1, item 6); use sensitivity='mse'")
+            "slice (ROADMAP Queue 1, item 4); use sensitivity='mse'")
     if sensitivity != "mse":
         raise ValueError(f"unknown sensitivity {sensitivity!r}; expected "
                          "'mse' or 'task_loss'")

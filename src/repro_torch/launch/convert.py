@@ -14,7 +14,8 @@ from repro_torch.nn.module import param_bytes
 
 def convert_params(q_tree, fp_tree, w_bits: int):
     """Fill an int-mode parameter tree (zeros-initialized `w_packed` /
-    `w_scale` leaves) from the fp tree at one uniform bit-width."""
+    `w_scale` leaves, or its `int_skeleton`) from the fp tree at one
+    uniform bit-width."""
     return apply_plan(q_tree, fp_tree, None, w_bits)
 
 

@@ -8,8 +8,12 @@ through `Engine` on ``--device`` (default ``cuda``).
 ``--smoke`` takes the arch's reduced same-family config; ``--layers N``
 keeps the widths and cuts the depth (llama-3.2-vision-90b's 100 layers
 do not fit one card: ``--layers 10`` serves two groups of four self
-layers and a cross layer); ``--device cpu`` runs every dense layer
-through the kernels' plain versions. The enc-dec and vision archs serve
+layers and a cross layer; the MoE archs kimi-k2-1t-a32b and
+llama4-maverick-400b-a17b need ``--layers 1``, one layer's routed
+experts being 33.8 and 32.2 GB of bfloat16); ``--device cpu`` runs every
+dense layer through the kernels' plain versions. The packed tree shares
+every float leaf (embeddings, norms, a MoE's router and routed experts)
+with the fp tree, so those are made once. The enc-dec and vision archs serve
 with their cross cache at zero, as the reference's `Engine` does: no
 request carries source embeddings.
 Mixed-precision serving: pass a deployment plan (one saved by
@@ -53,7 +57,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from repro_torch.deploy.apply import apply_plan
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
     from repro_torch.deploy.policy import load_plan
     from repro_torch.device import resolve_device
     from repro_torch.launch.convert import convert_params
@@ -82,14 +86,14 @@ def main(argv=None):
         qcfg = QuantConfig(mode="int", w_bits=plan.default_w_bits,
                            a_bits=plan.default_a_bits)
         model = build(dataclasses.replace(cfg, quant=qcfg, quant_plan=plan))
-        params = apply_plan(model.init(0, device=device), fp_params, plan,
+        params = apply_plan(int_skeleton(model.defs()), fp_params, plan,
                             plan.default_w_bits)
         mode = f"plan:{args.plan} w_bits={plan.distinct_w_bits()}"
     elif args.quant != "off":
         qcfg = QuantConfig(mode="int", w_bits=int(args.quant[1]),
                            a_bits=int(args.quant[3]))
         model = build(dataclasses.replace(cfg, quant=qcfg))
-        params = convert_params(model.init(0, device=device), fp_params,
+        params = convert_params(int_skeleton(model.defs()), fp_params,
                                 qcfg.w_bits)
         mode = args.quant
     else:

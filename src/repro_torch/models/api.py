@@ -2,8 +2,8 @@
 
 `Model` exposes init / specs / loss / forward / prefill / decode /
 init_cache; the server and the tests talk only to it. The port serves
-the dense ``lm`` family (with llama-3.2-vision's cross layers), the
-enc-dec family, Mamba-2 and Griffin. A batch may carry ``src_embed``
+the ``lm`` family (dense, Mixture-of-Experts, and llama-3.2-vision's
+cross layers), the enc-dec family, Mamba-2 and Griffin. A batch may carry ``src_embed``
 (B, S_src, d), the stubbed frontend's output that the enc-dec encoder
 and the vision cross layers read.
 """

@@ -1,5 +1,6 @@
-"""Decoder LM of the dense family (olmo, phi3, qwen2.5, gemma3) and the
-vision cross-attention LM (llama-3.2-vision).
+"""Decoder LM of the dense family (olmo, phi3, qwen2.5, gemma3), the
+Mixture-of-Experts LMs (kimi-k2, llama4) and the vision cross-attention
+LM (llama-3.2-vision).
 
 The layer parameters stay stacked, with (L, ...) leaves, so a converted
 reference tree maps onto the port's one to one; a Python loop over the
@@ -8,8 +9,9 @@ per-layer window and rope theta of a pattern schedule (gemma3's 5 local
 : 1 global) are Python values. A vision arch runs groups of
 ``cross_every`` self layers then one cross layer that attends into the
 projected source embeddings: self layer j of group g is stacked row
-``g * cross_every + j``. Mixture-of-Experts layers arrive with those
-models (ROADMAP Queue 1 item 4).
+``g * cross_every + j``. A MoE arch's layers hold a ``moe`` block in
+place of the ``mlp`` one; the forward returns the sum of their Switch
+aux losses.
 """
 from __future__ import annotations
 
@@ -23,15 +25,9 @@ from repro_torch.nn.layers import (const, dense_apply, dense_def,
                                    embedding_apply, embedding_def,
                                    embedding_logits, norm_apply, norm_def,
                                    padded_vocab, rope_tables)
-from repro_torch.nn.mlp import MlpConfig, mlp_apply, mlp_def
+from repro_torch.nn.mlp import (MlpConfig, MoeConfig, mlp_apply, mlp_def,
+                                moe_apply, moe_def)
 from repro_torch.nn.module import stack_defs
-
-
-def _check_dense(cfg: ModelConfig):
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: Mixture-of-Experts layers are ROADMAP Queue 1 "
-            "item 4 (nn/mlp.py::moe_*, kimi-k2 and llama4)")
 
 
 def _attn_cfg(cfg: ModelConfig, path: str = "layers/attn") -> AttnConfig:
@@ -47,11 +43,22 @@ def _mlp_cfg(cfg: ModelConfig, path: str = "layers/mlp") -> MlpConfig:
                      cfg.quant_plan, path)
 
 
+def _moe_cfg(cfg: ModelConfig, path: str = "layers/moe") -> MoeConfig:
+    m = cfg.moe
+    return MoeConfig(cfg.d_model, m.d_ff, m.n_experts, m.top_k,
+                     m.capacity_factor, m.group_size, m.shared_expert,
+                     cfg.act, cfg.quant, cfg.quant_plan, path)
+
+
 def _layer_def(cfg: ModelConfig, dtype):
-    return {"ln1": norm_def(cfg.d_model, cfg.norm, dtype),
-            "attn": attn_def(_attn_cfg(cfg), dtype),
-            "ln2": norm_def(cfg.d_model, cfg.norm, dtype),
-            "mlp": mlp_def(_mlp_cfg(cfg), dtype)}
+    p = {"ln1": norm_def(cfg.d_model, cfg.norm, dtype),
+         "attn": attn_def(_attn_cfg(cfg), dtype),
+         "ln2": norm_def(cfg.d_model, cfg.norm, dtype)}
+    if cfg.moe is not None:
+        p["moe"] = moe_def(_moe_cfg(cfg), dtype)
+    else:
+        p["mlp"] = mlp_def(_mlp_cfg(cfg), dtype)
+    return p
 
 
 def _cross_layer_def(cfg: ModelConfig, dtype):
@@ -71,7 +78,6 @@ def _layer_split(cfg: ModelConfig):
 
 
 def lm_def(cfg: ModelConfig, dtype=torch.float32):
-    _check_dense(cfg)
     n_self, n_cross = _layer_split(cfg)
     p = {"embed": embedding_def(cfg.vocab, cfg.d_model, dtype),
          "layers": stack_defs(_layer_def(cfg, dtype), n_self),
@@ -120,6 +126,17 @@ def _cross_mlp(cfg, xp, x, h):
                          _mlp_cfg(cfg, "cross_layers/mlp"))
 
 
+def _ffn(cfg: ModelConfig, lp, x):
+    """A self layer's FFN block on the residual ``x``: (x + its output,
+    the block's aux loss, a float32 0-dim tensor or 0.0 for a dense
+    MLP)."""
+    h = norm_apply(lp.get("ln2", {}), x, cfg.norm)
+    if cfg.moe is not None:
+        y, aux = moe_apply(lp["moe"], h, _moe_cfg(cfg))
+        return x + y, aux
+    return x + mlp_apply(lp["mlp"], h, _mlp_cfg(cfg)), 0.0
+
+
 def _order(cfg: ModelConfig):
     """The layer order: ("self", i) | ("cross", g) over the stacked
     indices; a vision arch's group g is self rows g*ce .. g*ce + ce - 1,
@@ -140,7 +157,6 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
     (B, S_src, d): the frontend's embeddings a vision arch attends into.
     Returns (logits, aux_loss, (k, v) stacked (L,B,S,Hk,Dh), or None when
     not collected or for a vision arch)."""
-    _check_dense(cfg)
     dtype = _compute_dtype(cfg)
     s = tokens.shape[1]
     x = _embed(params, tokens, cfg, dtype)
@@ -148,7 +164,7 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
     glob = rope_tables(s, cfg.head_dim_, cfg.rope_theta, dtype, dev)
     loc = (rope_tables(s, cfg.head_dim_, cfg.rope_theta_local, dtype, dev)
            if cfg.rope_theta_local else glob)
-    acfg, mcfg = _attn_cfg(cfg), _mlp_cfg(cfg)
+    acfg = _attn_cfg(cfg)
     acfg_x = _attn_cfg(cfg, "cross_layers/xattn")
     cross = _layer_split(cfg)[1] > 0
     if cross:
@@ -156,6 +172,7 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
             raise ValueError(f"{cfg.name} needs src_embed input")
         src = src_embed.to(dtype)
     sched = _schedule(cfg, s)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     ks, vs = [], []
     for kind, i in _order(cfg):
         if kind == "cross":
@@ -174,16 +191,15 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
                                norm_apply(lp.get("ln1", {}), x, cfg.norm),
                                acfg, cos=cos, sin=sin, mode="local",
                                window=window)
-        x = x + h
-        x = x + mlp_apply(lp["mlp"],
-                          norm_apply(lp.get("ln2", {}), x, cfg.norm), mcfg)
+        x, a = _ffn(cfg, lp, x + h)
+        aux = aux + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv and not cross \
         else None
-    return _logits(params, x, cfg), torch.zeros((), device=dev), kvs
+    return _logits(params, x, cfg), aux, kvs
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -205,7 +221,6 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
     arch "cross_kv" (n_cross, 2, B, src_len, Hk, Dh): the source K/V each
     cross layer attends into (filled by `cross_kv_project`; zero
     otherwise)."""
-    _check_dense(cfg)
     n_self, n_cross = _layer_split(cfg)
     acfg = _attn_cfg(cfg)
     one = init_cache(acfg, batch, max_len, dtype, device)
@@ -235,15 +250,14 @@ def decode_step(params, cache, token, index, cfg: ModelConfig, *,
     """One decode step. token (B,1) int; index a scalar or a (B,) vector
     of true positions. The self-attention cache is written in place; the
     cross layers read ``cache["cross_kv"]`` as it is (``src_embed`` is
-    not read: the cache carries the source). Returns (logits (B,1,V),
-    cache)."""
-    _check_dense(cfg)
+    not read: the cache carries the source). A MoE layer's aux loss is
+    dropped. Returns (logits (B,1,V), cache)."""
     dtype = _compute_dtype(cfg)
     max_len = cache["kv"]["k"].shape[2]
     x = _embed(params, token, cfg, dtype)
     th_g = cfg.rope_theta
     th_l = cfg.rope_theta_local or cfg.rope_theta
-    acfg, mcfg = _attn_cfg(cfg), _mlp_cfg(cfg)
+    acfg = _attn_cfg(cfg)
     acfg_x = _attn_cfg(cfg, "cross_layers/xattn")
     sched = _schedule(cfg, max_len)
     for kind, i in _order(cfg):
@@ -263,8 +277,6 @@ def decode_step(params, cache, token, index, cfg: ModelConfig, *,
                            layer_params(cache["kv"], i), index, acfg,
                            theta=th_l if local_rope else th_g,
                            mode="local", window=window)
-        x = x + h
-        x = x + mlp_apply(lp["mlp"],
-                          norm_apply(lp.get("ln2", {}), x, cfg.norm), mcfg)
+        x, _ = _ffn(cfg, lp, x + h)
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
     return _logits(params, x, cfg), cache

@@ -44,11 +44,13 @@ def _init_leaf(d: ParamDef, seed: int, device: torch.device):
                           dtype=d.dtype, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(d.shape, generator=gen, device=device)
+    # scaled in place: one float32 draw is the only transient (a full
+    # width expert leaf is 22.5 GB of float32)
     if d.init == "embed":
-        return (x * d.scale).to(d.dtype)
+        return x.mul_(d.scale).to(d.dtype)
     # fan-in scaled normal: last-but-one dim is fan-in for matrices
     fan_in = d.shape[-2] if len(d.shape) >= 2 else max(d.shape[-1], 1)
-    return (x * (d.scale / fan_in ** 0.5)).to(d.dtype)
+    return x.mul_(d.scale / fan_in ** 0.5).to(d.dtype)
 
 
 def _is_def(x):

@@ -747,3 +747,150 @@ def test_encdec_forward_and_decode_on_the_card_match_cpu(dev):
         want, _ = model.decode(q_cpu, caches["cpu"], toks[:, t:t + 1], t)
         got, _ = model.decode(q, caches[dev], toks[:, t:t + 1].to(dev), t)
         assert float((got.cpu() - want).abs().max()) <= tol, t
+
+
+# (K, N) of the MoE archs' int denses (chip_smoke.py's [moe] wall), at a
+# decode step of the served batch (M = 4): kimi-k2-1t-a32b's wq / wo
+# (7168x7168), wk / wv (7168x896), shared wi / wg (7168x2048) and shared
+# wo (2048x7168); llama4-maverick-400b-a17b's 5120x5120, 5120x1024,
+# 5120x8192 and 8192x5120
+MOE_SHAPES = ((7168, 7168), (7168, 896), (7168, 2048), (2048, 7168),
+              (5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120))
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("w_bits", [8, 4, 2])
+def test_qmatmul_moe_shapes_match_plain(dev, w_bits, pipeline):
+    gen = torch.Generator(device=dev).manual_seed(20 + w_bits)
+    for k, n in MOE_SHAPES:
+        x = packing.pack(_dev_ints(gen, 8, (4, k)), 8)
+        w = packing.pack(_dev_ints(gen, w_bits, (k, n)), w_bits, axis=0)
+        scale = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-5
+        for out_dtype in (torch.bfloat16, torch.float32):
+            kw = dict(a_bits=8, a_signed=True, w_bits=w_bits, d=0,
+                      out_bits=8, epilogue="dequant", scale=scale,
+                      k_logical=k, out_dtype=out_dtype)
+            want = gemm_k.qmatmul_packed_torch(x, w, None, None, None, **kw)
+            got = gemm_k.qmatmul_packed_cuda(x, w, None, None, None,
+                                             pipeline=pipeline, **kw)
+            assert got.dtype == out_dtype
+            assert _same(got, want), ((k, n), out_dtype)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("k,n", [(7168, 2048), (5120, 8192)])
+def test_qmatmul_segmented_moe_shared_plan_matches_plain(dev, k, n,
+                                                         pipeline):
+    # a layers/moe/shared/wi split W8 | W4 at a decode step, A{8,4,2}
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    segmap = packing.SegmentMap(((0, n // 2, 8), (n // 2, n, 4)))
+    w = torch.cat([_dev_ints(gen, b, (k, e - s)) for s, e, b in segmap.runs],
+                  dim=1)
+    w_flat, padded = packing.pad_segmented(
+        packing.pack_segmented(w, segmap), segmap, k)
+    scale = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-5
+    for a_bits in (8, 4, 2):
+        xp = packing.pack(_dev_ints(gen, a_bits, (4, k)), a_bits)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            kw = dict(k_logical=k, a_bits=a_bits, a_signed=True, d=0,
+                      out_bits=8, epilogue="dequant", scale=scale,
+                      out_dtype=out_dtype)
+            want = gemm_k.qmatmul_segmented_torch(xp, w_flat, padded, None,
+                                                  None, None, **kw)
+            got = gemm_k.qmatmul_segmented_cuda(xp, w_flat, padded, None,
+                                                None, None,
+                                                pipeline=pipeline, **kw)
+            assert _same(got, want), (a_bits, out_dtype)
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_apply_on_the_card_matches_cpu(dev, arch):
+    # the smoke MoE block in float32 with capacity drops (64 tokens,
+    # capacity 5): routing identical, y within 1e-5, aux within 1e-6
+    import dataclasses
+
+    from repro_torch.convert import to_device
+    from repro_torch.models import api, lm
+    from repro_torch.nn import mlp
+    from repro_torch.nn.module import init_params
+
+    cfg = dataclasses.replace(lm._moe_cfg(api.get_smoke_config(arch)),
+                              capacity_factor=0.25)
+    p = init_params(mlp.moe_def(cfg), 3, "cpu")
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(4, 16, cfg.d_model)).astype(np.float32))
+    want_y, want_aux = mlp.moe_apply(p, x, cfg)
+    got_y, got_aux = mlp.moe_apply(to_device(p, dev), x.to(dev), cfg)
+    route = [mlp.moe_route(x.reshape(1, 64, -1).to(d),
+                           p["router"].to(d), cfg) for d in ("cpu", dev)]
+    for want, got in zip(route[0][2:], route[1][2:]):
+        assert torch.equal(got.cpu(), want)
+    assert not route[0][4].all()
+    assert float((got_y.cpu() - want_y).abs().max()) <= 1e-5
+    assert abs(float(got_aux) - float(want_aux)) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_decode_dense_calls_on_the_card_match_cpu(dev, arch):
+    # one W4A8 decode step at per-slot positions: every int dense call on
+    # the card (4 attention + 3 shared expert per layer) is identical to
+    # the same call on the CPU
+    from repro_torch.convert import to_device
+    from repro_torch.nn import layers
+
+    model, _, q = _smoke_w4a8(arch, dev)
+    cache = model.init_cache(3, 16, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        2, 128, (3, 8))).to(dev)
+    for t in range(7):
+        model.decode(q, cache, toks[:, t:t + 1], t)
+    calls = []
+    with layers.dense_tap(lambda p, x: calls.append((p, x))):
+        model.decode(q, cache, toks[:, 7:], torch.tensor([7, 5, 6],
+                                                         device=dev))
+    assert len(calls) == 7 * model.cfg.n_layers
+    for p, x in calls:
+        got = layers.dense_apply(p, x, qcfg=model.cfg.quant)
+        want = layers.dense_apply(to_device(p, "cpu"), x.cpu(),
+                                  qcfg=model.cfg.quant)
+        assert _same(got.cpu(), want)
+
+
+def test_moe_int_tree_shares_the_fp_expert_storage(dev):
+    # packed through the int skeleton on the card, the int tree's router
+    # and routed experts are the fp tree's tensors: the same storage
+    import dataclasses
+
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
+    from repro_torch.models import api
+    from repro_torch.nn import layers
+
+    cfg = api.get_smoke_config("kimi-k2-1t-a32b")
+    fp = api.build(cfg).init(0, device=dev)
+    model = api.build(dataclasses.replace(cfg, quant=layers.QuantConfig(
+        mode="int", w_bits=4, a_bits=8)))
+    q = apply_plan(int_skeleton(model.defs()), fp, None, 4)
+    for name in ("router", "wi", "wg", "wo"):
+        a, b = q["layers"]["moe"][name], fp["layers"]["moe"][name]
+        assert a.device.type == "cuda" and a.data_ptr() == b.data_ptr()
+    assert q["embed"]["table"].data_ptr() == fp["embed"]["table"].data_ptr()
+    assert q["layers"]["moe"]["shared"]["wi"]["w_packed"].is_cuda
+
+
+def test_init_leaf_in_place_gives_the_same_values_on_the_card(dev):
+    # the in-place scaling of the float32 draw equals the out-of-place
+    # product bit for bit, bfloat16 leaves included
+    from repro_torch.nn.module import ParamDef, _init_leaf
+
+    for i, d in enumerate((ParamDef((4, 256, 96), ("e", "d", "f"),
+                                    dtype=torch.bfloat16),
+                           ParamDef((256, 16), ("d", "e"), scale=0.02),
+                           ParamDef((300, 64), ("v", "d"), "embed",
+                                    dtype=torch.bfloat16))):
+        got = _init_leaf(d, 77 + i, dev)
+        x = torch.randn(d.shape, generator=torch.Generator(
+            device=dev).manual_seed(77 + i), device=dev)
+        scale = d.scale if d.init == "embed" else d.scale / d.shape[-2] ** 0.5
+        assert torch.equal(got, (x * scale).to(d.dtype)), d

@@ -23,12 +23,12 @@ import jax.numpy as jnp
 from repro.core import packing as r_pack
 from repro.core.calibration import calibrate_weight
 from repro.vision import layers as r_vl
-from repro_torch.core import quantize as p_q
 from repro_torch.vision import layers as p_vl
 
 from torch_bridge import assert_artifacts_equal, assert_same
 
 r_q = importlib.import_module("repro.core.quantize")
+p_q = importlib.import_module("repro_torch.core.quantize")
 BITS = [(a, w) for a in (8, 4, 2) for w in (8, 4, 2)]
 
 

@@ -47,7 +47,9 @@ def test_port_covers_the_lm_modules_and_configs():
             "configs/recurrentgemma_9b.py", "nn/ssm.py", "nn/rglru.py",
             "models/mamba.py", "models/griffin.py", "models/encdec.py",
             "configs/seamless_m4t_large_v2.py",
-            "configs/llama3p2_vision_90b.py"} <= names
+            "configs/llama3p2_vision_90b.py", "configs/kimi_k2_1t.py",
+            "configs/llama4_maverick_400b.py", "core/calibration.py",
+            "core/quantize.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():

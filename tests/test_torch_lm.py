@@ -51,23 +51,30 @@ DECODE_ATOL = 2e-2
 B, S = 2, 8
 
 
-def _configs(mod, **over):
+def _configs(mod, moe=None, **over):
+    """Both packages' smoke configs of ``mod`` with ``over`` replaced, and
+    a MoE arch's `MoeSpec` fields with ``moe`` (each side keeps its own
+    spec class)."""
     over = {"compute_dtype": "float32", **over}
-    r = importlib.import_module(f"repro.configs.{mod}").smoke_config()
-    p = importlib.import_module(f"repro_torch.configs.{mod}").smoke_config()
-    return dataclasses.replace(r, **over), dataclasses.replace(p, **over)
+    out = []
+    for pkg in ("repro", "repro_torch"):
+        c = importlib.import_module(f"{pkg}.configs.{mod}").smoke_config()
+        if moe:
+            c = dataclasses.replace(c, moe=dataclasses.replace(c.moe, **moe))
+        out.append(dataclasses.replace(c, **over))
+    return tuple(out)
 
 
 def _t(tree):
     return fp_params_from_numpy(np_tree(tree), "cpu")
 
 
-def _models(mod, quant=None, plan=None, **over):
+def _models(mod, quant=None, plan=None, moe=None, **over):
     """(reference model, fp params), (port model, params): numpy fp
     weights on both sides; in int mode the port packs them and the
     reference runs the port's packed tree (the packers are held
     identical by `test_packed_trees_identical_and_serve_exact`)."""
-    rc, pc = _configs(mod, **over)
+    rc, pc = _configs(mod, moe, **over)
     if quant is not None:
         kw = dict(mode="int", w_bits=quant, a_bits=8)
         rc = dataclasses.replace(
@@ -289,23 +296,28 @@ def test_other_families_raise_naming_the_roadmap():
     defs = p_api.build(p_api.get_smoke_config(
         "seamless-m4t-large-v2")).defs()
     assert {"enc_layers", "dec_layers", "enc_norm"} <= set(defs)
-    with pytest.raises(NotImplementedError, match="Mixture-of-Experts"):
-        p_api.build(dataclasses.replace(
-            cfg, moe=importlib.import_module(
-                "repro_torch.configs.base").MoeSpec(4, 2, 64))).defs()
+    # and so are MoE layers: a moe block in place of the mlp one
+    defs = p_api.build(dataclasses.replace(
+        cfg, moe=importlib.import_module(
+            "repro_torch.configs.base").MoeSpec(4, 2, 64))).defs()
+    assert "moe" in defs["layers"] and "mlp" not in defs["layers"]
+    assert defs["layers"]["moe"]["wi"].shape == (2, 4, 64, 64)
     with pytest.raises(NotImplementedError, match="not in the reference"):
         p_api.build(dataclasses.replace(cfg, family="diffusion"))
-    assert p_api.list_archs() == ["gemma3-1b", "llama-3.2-vision-90b",
-                                  "mamba2-370m", "olmo-1b",
-                                  "phi3-mini-3.8b", "qwen2.5-3b",
-                                  "recurrentgemma-9b",
-                                  "seamless-m4t-large-v2"]
-    # the published numbers and the smoke configs, copied unchanged
+    assert p_api.list_archs() == r_api.list_archs() == [
+        "gemma3-1b", "kimi-k2-1t-a32b", "llama-3.2-vision-90b",
+        "llama4-maverick-400b-a17b", "mamba2-370m", "olmo-1b",
+        "phi3-mini-3.8b", "qwen2.5-3b", "recurrentgemma-9b",
+        "seamless-m4t-large-v2"]
+    # the published numbers and the smoke configs, copied unchanged (a
+    # MoeSpec field by field: the two packages' classes differ)
     for name in p_api.list_archs():
         for r, p in ((r_api.get_config(name), p_api.get_config(name)),
                      (r_api.get_smoke_config(name),
                       p_api.get_smoke_config(name))):
             for f in dataclasses.fields(p):
                 if f.name not in ("quant", "quant_plan"):
-                    assert getattr(p, f.name) == getattr(r, f.name), \
-                        (name, f.name)
+                    a, b = getattr(p, f.name), getattr(r, f.name)
+                    if f.name == "moe" and a is not None:
+                        a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+                    assert a == b, (name, f.name)

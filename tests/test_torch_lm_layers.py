@@ -17,12 +17,12 @@ import torch
 import jax.numpy as jnp
 
 from repro.nn import layers as r_layers
-from repro_torch.core import quantize as p_quant
 from repro_torch.nn import layers as p_layers
 
 from torch_bridge import assert_same
 
 r_quant = importlib.import_module("repro.core.quantize")
+p_quant = importlib.import_module("repro_torch.core.quantize")
 
 K, N = 200, 320                    # ragged K (two chunks), a ragged N tail
 SEGMENTS = ((0, 128, 8), (128, 256, 4), (256, 320, 2))

@@ -15,13 +15,13 @@ from repro.core import calibration as r_cal
 from repro.core import packing as r_pack
 from repro_torch.core import calibration as p_cal
 from repro_torch.core import packing as p_pack
-from repro_torch.core import quantize as p_q
 from repro_torch.kernels.qmatmul.ref import unpack_np
 
 from torch_bridge import assert_same
 
 # repro.core re-exports a function named `quantize` over the module name
 r_q = importlib.import_module("repro.core.quantize")
+p_q = importlib.import_module("repro_torch.core.quantize")
 
 
 def _values(rng, bits, signed, shape):

@@ -19,7 +19,6 @@ from repro.kernels import api as r_api
 from repro.kernels.qconv import ops as r_ops
 from repro.kernels.qconv.ref import qconv2d_ref
 from repro_torch.core import packing as p_pack
-from repro_torch.core import quantize as p_q
 from repro_torch.kernels import api as p_api
 from repro_torch.kernels.qconv import ops as p_ops
 from repro_torch.kernels.qconv.kernel import (pad_and_pack, qconv2d_fused,
@@ -29,6 +28,7 @@ from repro_torch.kernels.qconv.ref import qconv2d_ref as p_qconv2d_ref
 from torch_bridge import assert_artifacts_equal, assert_same
 
 r_q = importlib.import_module("repro.core.quantize")
+p_q = importlib.import_module("repro_torch.core.quantize")
 
 # (n, h, w, cin, cout, f, stride, padding): Cin off the CHUNK grid, Cin
 # past one CHUNK, 1x1 stride 2, padding 0, ragged Cout

@@ -6,6 +6,7 @@ modes (`pallas_interpret`, 'off' and 'double_buffer'). Integer outputs
 must be identical; `dequant` must match bf16 bit for bit. `eager_ref`
 takes a scalar scale only, so per-channel scales go against `xla`.
 """
+import dataclasses
 import importlib
 
 import numpy as np
@@ -22,9 +23,10 @@ from repro_torch.kernels.qmatmul.kernel import (gemm_launch_plan,
                                                 qmatmul_packed,
                                                 qmatmul_packed_cuda)
 
-from torch_bridge import assert_same
+from torch_bridge import assert_artifacts_equal, assert_same
 
 r_q = importlib.import_module("repro.core.quantize")
+p_q = importlib.import_module("repro_torch.core.quantize")
 
 # ragged everywhere: M spans several 64-row tiles, K two CHUNKs after
 # padding (200 -> 256), N two 64-wide tiles plus a ragged edge
@@ -42,13 +44,13 @@ def _params(seed, a_bits, w_bits, n=N, k=K):
     spec_y = r_q.QuantSpec.activation(a_bits, 0.25)
     ref = r_q.quantize_linear(jnp.asarray(w), spec_w, bn_s, bn_b, spec_x,
                               spec_y)
-    port = PParams(
-        w_packed=torch.from_numpy(np.array(ref.w_packed)),
-        w_bits=ref.w_bits, a_bits=ref.a_bits, a_signed=ref.a_signed,
-        kappa=torch.from_numpy(np.array(ref.kappa)),
-        lam=torch.from_numpy(np.array(ref.lam)),
-        m=torch.from_numpy(np.array(ref.m)), d=ref.d,
-        out_bits=ref.out_bits, k_logical=ref.k_logical)
+    # the port's own pipeline, from the same floats: the same artifact
+    port = p_q.quantize_linear(
+        torch.from_numpy(w), p_q.QuantSpec(**dataclasses.asdict(spec_w)),
+        bn_s, bn_b, p_q.QuantSpec(**dataclasses.asdict(spec_x)),
+        p_q.QuantSpec(**dataclasses.asdict(spec_y)))
+    assert isinstance(port, PParams)
+    assert_artifacts_equal(port, ref, "quantize_linear")
     hi = p_pack.int_range(a_bits, False)[1]
     x = rng.integers(0, hi + 1, size=(M, k)).astype(np.int8)
     return ref, port, x
