@@ -172,7 +172,23 @@
    first token where they do not) equal, its aux within 1e-5, and the
    forward and 16 decode steps within 1e-3 of the largest CPU logit,
    greedy tokens equal where the margin exceeds it.
-12. Times each kernel (CUDA events and profiler device time) beside its
+12. [deploy]: the LM deployment flow, qwen2.5-3b at full width and depth
+   from seeded weights drawn on the card. The fp tree (12.4 GB of
+   float32) is saved with `repro_torch.ckpt.checkpoint.save` under
+   ``build/`` (the free disk printed first) and restored onto the card,
+   equal leaf for leaf; the CLI `python -m repro_torch.launch.deploy
+   --ckpt ... --budget auto --out ... --artifact ...` calibrates (36
+   layers, 2 batches of 2 x 32 tokens), plans, packs and saves the
+   artifact; the CLI `python -m repro_torch.launch.serve --ckpt ...
+   --plan ...` serves it (8 requests, batch 4, 16 new), its params bytes
+   equal to deploy's mixed bytes, qmatmul launched; the artifact,
+   restored onto the card, equals `apply_plan` of the same plan over the
+   same fp tree leaf for leaf. The files are deleted. At 2 layers of the
+   full width, float32 compute, `calibrate` on the card and on the CPU
+   agree (a_absmax within 1e-5, sens(b) within 1e-3, relative), and the
+   plan from the card's stats, packed on both devices, gives
+   byte-identical artifacts.
+13. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -201,8 +217,10 @@ import gc
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -3029,6 +3047,225 @@ def moe_cpu_check(dev, arch, report):
     report.setdefault("moe_cpu_check", {})[arch] = row
 
 
+# ----------------------------------------------------------- [deploy] ---
+
+# the deploy flow's card-vs-CPU check: qwen2.5-3b's full width at this
+# depth, float32 compute, the CLI's calibration batches. a_absmax: the max
+# of a float32 activation (cuBLAS and the CPU's BLAS sum in other orders);
+# sens(b): float32 sums of squared errors, the W8 error ~1/250 of the
+# output, so the outputs' rounding shows ~250x larger in it
+DEPLOY_CPU_LAYERS = 2
+DEPLOY_ABSMAX_RTOL, DEPLOY_SENS_RTOL = 1e-5, 1e-3
+# free disk the phase needs: the fp checkpoint (12.4 GB of float32) and
+# the packed artifact (~3 GB)
+DEPLOY_DISK_BYTES = 16e9
+
+
+def _captured(fn, *args):
+    """fn(*args) with its standard output captured; the output is
+    printed after it, and returned beside fn's result."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def deploy_path(dev, work, report):
+    """The LM deployment flow at qwen2.5-3b's full width and depth from
+    seeded weights drawn on the card: the fp tree saved with `ckpt.save`
+    and restored (equal leaf for leaf); the CLI `repro_torch.launch.deploy
+    --ckpt` calibrates, plans, packs and saves the artifact; the CLI
+    `repro_torch.launch.serve --ckpt --plan` serves the plan, its params
+    bytes equal to deploy's mixed bytes, kernel 1 launched; the saved
+    artifact, restored onto the card, equal leaf for leaf to `apply_plan`
+    of the same plan over the same fp tree. Returns the kernels' launch
+    counts over the two CLIs."""
+    import re
+    import shutil
+    import torch
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
+    from repro_torch.deploy.policy import load_plan
+    from repro_torch.launch import deploy as deploy_cli
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.api import build, get_config
+    from repro_torch.nn.module import param_bytes
+
+    cfg = get_config(LM_ARCH)
+    free = shutil.disk_usage(work).free
+    say("deploy", disk_free_bytes=free, work_dir=work.relative_to(ROOT))
+    if free < DEPLOY_DISK_BYTES:
+        raise AssertionError(f"[deploy] {free} bytes free under {work}; "
+                             f"the phase writes ~{DEPLOY_DISK_BYTES:.0f}")
+    ckpt, art, plan_path = work / "ckpt", work / "art", work / "plan.json"
+    torch.cuda.reset_peak_memory_stats()
+    fp = build(cfg).init(SEED, device=dev)
+    fp_bytes = param_bytes(fp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(ckpt, 0, {"params": fp})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = checkpoint.restore(ckpt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diff = first_difference(back["params"], fp)
+    if diff is not None:
+        raise AssertionError(f"[deploy] the restored fp checkpoint differs "
+                             f"at {diff}")
+    del back
+    row = {"fp_bytes": fp_bytes, "leaves": len(list(ckpt.rglob("*.npy"))),
+           "save_s": save_s, "save_gb_per_s": fp_bytes / save_s / 1e9,
+           "restore_s": restore_s,
+           "restore_gb_per_s": fp_bytes / restore_s / 1e9,
+           "restored_equal": True}
+    say("deploy", ckpt=f"{LM_ARCH} fp float32", **{
+        k: (round(v, 3) if isinstance(v, float) else v)
+        for k, v in row.items()})
+    report["deploy_ckpt"] = row
+
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = deploy_cli.main(["--arch", LM_ARCH, "--ckpt", str(ckpt),
+                               "--budget", "auto", "--out", str(plan_path),
+                               "--artifact", str(art)])
+    deploy_s = time.perf_counter() - t0
+    plan = summary["plan"]
+    row = {"seconds": deploy_s, "calibrate_s": summary["calibrate_s"],
+           "rules": len(plan.rules), "w_bits": list(plan.distinct_w_bits()),
+           "rule_w_bits": {r.pattern: r.w_bits for r in plan.rules},
+           "budget": summary["budget"],
+           "total_sensitivity": plan.meta["total_sensitivity"],
+           "fp_bytes": summary["fp_bytes"], "w8_bytes": summary["w8_bytes"],
+           "mixed_bytes": summary["mixed_bytes"],
+           "mixed_over_w8": summary["mixed_bytes"] / summary["w8_bytes"]}
+    say("deploy", cli=f"python -m repro_torch.launch.deploy --arch "
+        f"{LM_ARCH} --ckpt --budget auto", **{
+            k: (round(v, 6) if isinstance(v, float) else v)
+            for k, v in row.items() if k != "rule_w_bits"})
+    report["deploy_cli"] = row
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, text = _captured(serve_cli.main, [
+        "--arch", LM_ARCH, "--ckpt", str(ckpt), "--plan", str(plan_path),
+        "--requests", str(LM_REQUESTS), "--batch", str(LM_BATCH),
+        "--max-new", str(LM_MAX_NEW)])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_launches()
+    served = int(re.search(r"\((\d[\d,]*) bytes\)", text).group(1)
+                 .replace(",", ""))
+    if served != summary["mixed_bytes"]:
+        raise AssertionError(f"[deploy] serve's params {served} bytes != "
+                             f"deploy's mixed {summary['mixed_bytes']}")
+    if len(out) != LM_REQUESTS or not all(len(r.out) for r in out):
+        raise AssertionError("[deploy] the serve CLI returned no tokens")
+    require_launches(f"{LM_ARCH} deploy + serve --ckpt --plan", launches,
+                     ("qmatmul",), stages_needed=(1,))
+    tok = re.search(r"= ([\d.]+) tok/s", text)
+    lat = re.search(r"p50=([\d.]+)ms p95=([\d.]+)ms", text)
+    row = {"param_bytes": served, "equals_mixed_bytes": True,
+           "tok_per_s": float(tok.group(1)),
+           "wave_p50_ms": float(lat.group(1)),
+           "wave_p95_ms": float(lat.group(2)), "seconds": serve_s,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "device": torch.cuda.get_device_name(0)}
+    say("deploy", serve=f"python -m repro_torch.launch.serve --arch "
+        f"{LM_ARCH} --ckpt --plan", **{
+            k: (round(v, 3) if isinstance(v, float) else v)
+            for k, v in row.items()})
+    report["deploy_serve"] = row
+
+    t0 = time.perf_counter()
+    got, _ = checkpoint.restore(art)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if load_plan(art / "plan.json").to_json() != plan.to_json():
+        raise AssertionError("[deploy] the artifact's plan.json differs")
+    q_model = _lm_model(cfg, plan.default_w_bits, plan=plan)
+    want = apply_plan(int_skeleton(q_model.defs()), fp, plan,
+                      plan.default_w_bits)
+    diff = first_difference(got["params"], want)
+    if diff is not None:
+        raise AssertionError(f"[deploy] the restored artifact differs from "
+                             f"apply_plan's at {diff}")
+    art_bytes = param_bytes(got)
+    row = {"bytes": art_bytes, "restore_s": restore_s,
+           "restore_gb_per_s": art_bytes / restore_s / 1e9,
+           "equal_apply_plan": True}
+    say("deploy", check="artifact round trip", **{
+        k: (round(v, 3) if isinstance(v, float) else v)
+        for k, v in row.items()})
+    report["deploy_artifact"] = row
+    report.setdefault("launches", {})["deploy"] = launches
+    return launches
+
+
+def deploy_cpu_check(dev, report):
+    """qwen2.5-3b's full width at DEPLOY_CPU_LAYERS layers, float32
+    compute, fp weights from a CPU generator, the CLI's calibration
+    batches: `calibrate` on the card and on the CPU agree (a_absmax within
+    DEPLOY_ABSMAX_RTOL, sens(b) within DEPLOY_SENS_RTOL); the plan the
+    card's stats give, packed on both devices, gives byte-identical
+    artifacts."""
+    import dataclasses
+    from repro_torch.convert import to_device
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
+    from repro_torch.deploy.calibrate import calibrate
+    from repro_torch.deploy.planner import auto_budget, plan_mixed_precision
+    from repro_torch.launch.deploy import calib_batches
+    from repro_torch.models.api import build, get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=DEPLOY_CPU_LAYERS,
+                              compute_dtype="float32")
+    model = build(cfg)
+    fp = {"cpu": model.init(SEED, device="cpu")}
+    fp[dev] = to_device(fp["cpu"], dev)
+    batches = calib_batches(cfg.vocab, seed=SEED)
+    stats = {d: calibrate(model, fp[d], batches) for d in ("cpu", dev)}
+    if list(stats[dev]) != list(stats["cpu"]):
+        raise AssertionError("[deploy] card and CPU calibrate other paths")
+    absmax_err, sens_err = 0.0, 0.0
+    for path, want in stats["cpu"].items():
+        got = stats[dev][path]
+        if (got.layers, got.d_in, got.d_out, got.taps) != \
+                (want.layers, want.d_in, want.d_out, want.taps):
+            raise AssertionError(f"[deploy] {path}: shapes or taps differ")
+        absmax_err = max(absmax_err, abs(got.a_absmax - want.a_absmax)
+                         / want.a_absmax)
+        for b in WIDTHS:
+            sens_err = max(sens_err, abs(got.sens(b) - want.sens(b))
+                           / want.sens(b))
+    if absmax_err > DEPLOY_ABSMAX_RTOL or sens_err > DEPLOY_SENS_RTOL:
+        raise AssertionError(f"[deploy] card vs CPU calibration: a_absmax "
+                             f"rel err {absmax_err} (tol "
+                             f"{DEPLOY_ABSMAX_RTOL}), sens rel err "
+                             f"{sens_err} (tol {DEPLOY_SENS_RTOL})")
+    plans = {d: plan_mixed_precision(
+        stats[d], auto_budget(stats[d]), meta={"arch": cfg.name})
+        for d in ("cpu", dev)}
+    plan = plans[dev]
+    q_model = _lm_model(cfg, plan.default_w_bits, plan=plan)
+    q = {d: apply_plan(int_skeleton(q_model.defs()), fp[d], plan,
+                       plan.default_w_bits) for d in ("cpu", dev)}
+    diff = first_difference(to_device(q[dev], "cpu"), q["cpu"])
+    if diff is not None:
+        raise AssertionError(f"[deploy] the card's plan packed on the card "
+                             f"differs from the CPU's packing at {diff}")
+    row = {"layers": DEPLOY_CPU_LAYERS, "paths": len(stats["cpu"]),
+           "absmax_rel_err": absmax_err, "absmax_tol": DEPLOY_ABSMAX_RTOL,
+           "sens_rel_err": sens_err, "sens_tol": DEPLOY_SENS_RTOL,
+           "plan_rules_equal_cpu_plan": plans[dev].rules == plans["cpu"].rules,
+           "w_bits": list(plan.distinct_w_bits()),
+           "artifact_equal_cpu": True}
+    say("deploy", check="card_vs_cpu", arch=LM_ARCH, compute="float32",
+        **row)
+    report["deploy_cpu_check"] = row
+
+
 def write_report(report, name: str):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3101,6 +3338,18 @@ def main() -> int:
         by_path[arch] = moe_path(dev, arch, report)
     for arch in MOE_ARCHS:
         moe_cpu_check(dev, arch, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="deploy_",
+                                         dir=ROOT / "build"))
+    try:
+        by_path["deploy"] = deploy_path(dev, work, report)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    deploy_cpu_check(dev, report)
     lm_timing_phase(dev, report, [(4, k, n) for k, n in LM_SHAPES],
                     "lm_shape", SEED + 7)
     lm_timing_phase(dev, report, [(4, k, n) for k, n in REC_SHAPES],

@@ -90,15 +90,20 @@ def quantized_dense_paths(defs,
     return ()
 
 
+def dense_weight(fp_params, path: str) -> torch.Tensor:
+    """The fp ``w`` leaf of the dense subtree at "/"-joined ``path``."""
+    node = fp_params
+    for part in path.split("/"):
+        node = node[part]
+    return node["w"]
+
+
 def dense_inventory(fp_params, paths) -> Dict[str, Tuple[int, int, int]]:
     """path -> (n_stacked_layers, d_in, d_out) for each quantized dense,
     read off the fp tree ((K,N) or stacked (L,K,N) `w` leaves)."""
     out = {}
     for path in paths:
-        node = fp_params
-        for part in path.split("/"):
-            node = node[part]
-        w = node["w"]
+        w = dense_weight(fp_params, path)
         if w.dim() == 3:
             out[path] = (int(w.shape[0]), int(w.shape[1]), int(w.shape[2]))
         else:

@@ -1,24 +1,46 @@
-"""Vision calibration: per-layer activation ranges and bit-width
-sensitivities for the deploy planner.
+"""Calibration: per-layer activation ranges and bit-width sensitivities
+for the deploy planner.
 
-`calibrate_vision` replays the fp net once per calibration batch with two
-observers: the `vision.layers.conv_tap` observer sees every conv's,
-depthwise conv's and the head's input, and prices each candidate weight
-width b by the squared output error of a simulated W{b}A{a_bits} op
-against the fp op on the layer's real geometry (weights on the
-per-tensor symmetric grid the vision packers deploy, activations
-symmetric on the a_bits grid); an edge tap records every layer
-boundary's absmax, which `quantize_net` turns into the chained
-activation grids. The resulting `CalibStats` feed
-`deploy.planner.plan_mixed_precision`.
+**LMs** (`calibrate`): an eager per-depth replay of the fp model (stacked
+layer params indexed per depth, the layer run by `models/lm.py::_block`,
+as the forward runs it) with the `nn/layers.py::dense_tap` observer
+installed. For every quantized dense path the tap records
 
+  a_absmax   — the running max |x| over every calibration token (the
+               static activation scale the int serving path uses), and
+  sens[b]    — the relative output MSE of the simulated W{b}A{a_bits}
+               integer GEMM against the fp matmul, per candidate w_bits b,
+               summed over depth instances and batches (on at most
+               ``max_rows`` rows per tap; per output channel too).
+
+The simulation is the deployed integer dense without packing: the
+serving weight grid (`quantize_dense_weights`, per output channel) and
+activations symmetric on the a_bits grid, divided by a float32 tensor as
+the serving quantizer divides. Families without a replay (mamba, griffin,
+the enc-dec and the cross-attention LMs) fall back to weight-only
+sensitivities (a unit activation second moment, the default absmax), as
+the reference does. MoE archs replay: the shared expert's denses are
+tapped; the router and the routed experts stay float and are no
+quantized path.
+
+**CNNs** (`calibrate_vision`): the fp net is replayed once per
+calibration batch with two observers: the `vision.layers.conv_tap`
+observer sees every conv's, depthwise conv's and the head's input, and
+prices each candidate weight width b by the squared output error of a
+simulated W{b}A{a_bits} op against the fp op on the layer's real geometry
+(weights on the per-tensor symmetric grid the vision packers deploy,
+activations symmetric on the a_bits grid); an edge tap records every
+layer boundary's absmax, which `quantize_net` turns into the chained
+activation grids.
+
+Both give `CalibStats`, which feed `deploy.planner.plan_mixed_precision`.
 The float sums are float32 torch reductions; they agree with the
 reference's XLA reductions to rounding, not bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +48,9 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.calibration import calibrate_weight
 from repro_torch.core.quantize import dequantize, quantize
+from repro_torch.deploy.apply import (dense_inventory, dense_weight,
+                                     quantized_dense_paths)
+from repro_torch.nn.layers import dense_tap, quantize_dense_weights
 from repro_torch.obs import trace as obs
 
 CANDIDATE_BITS = (8, 4, 2)
@@ -69,6 +94,147 @@ class CalibStats:
         self.col_sq_err[bits] = cols if prev is None else prev + cols
 
 
+# ------------------------------------------------------------------ LM ---
+
+def _sim_int_dense(x, w, w_bits: int, a_bits: int, a_absmax: float):
+    """The deployed integer dense without packing: the serving weight grid
+    (`quantize_dense_weights`, shared with `apply_plan`), activations on
+    the symmetric a_bits grid; float32 in and out."""
+    w_hat, w_scale = quantize_dense_weights(w, w_bits)
+    x_q, a_scale = _act_codes(x, a_bits, a_absmax)
+    return (x_q @ w_hat.to(torch.float32)) * (w_scale * a_scale)
+
+
+def _walk_dense_ids(tree, prefix: Tuple[str, ...] = ()):
+    """id(w leaf) -> "/"-joined dense path, for one layer's params. The
+    replay passes this very dict into the layer, so `dense_apply` sees
+    these tensor objects."""
+    out = {}
+    if isinstance(tree, dict):
+        if "w" in tree and not isinstance(tree["w"], dict):
+            out[id(tree["w"])] = "/".join(prefix)
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out.update(_walk_dense_ids(v, prefix + (k,)))
+    return out
+
+
+class _Collector:
+    """`dense_tap` observer of the LM replay: per-path activation absmax
+    over every token, and the simulated-W{b} output error on at most
+    ``max_rows`` rows of each tap."""
+
+    def __init__(self, stats: Dict[str, CalibStats], bits: Sequence[int],
+                 a_bits: int, max_rows: int):
+        self.stats = stats
+        self.bits = tuple(bits)
+        self.a_bits = a_bits
+        self.max_rows = max_rows
+        self.id2path: Dict[int, str] = {}
+
+    def __call__(self, p, x):
+        w = p.get("w")
+        if w is None:
+            return
+        path = self.id2path.get(id(w))
+        if path is None or path not in self.stats:
+            return
+        st = self.stats[path]
+        x2 = x.to(torch.float32).reshape(-1, x.shape[-1])
+        # the static serving scale must see every token; only the MSE
+        # simulation below is subsampled
+        absmax = float(torch.max(torch.abs(x2)))
+        st.a_absmax = max(st.a_absmax, absmax)
+        if x2.shape[0] > self.max_rows:
+            stride = -(-x2.shape[0] // self.max_rows)
+            x2 = x2[::stride]
+        wf = w.to(torch.float32)
+        y_ref = x2 @ wf
+        st.sq_ref += float(torch.sum(y_ref * y_ref))
+        for b in self.bits:
+            err = _sim_int_dense(x2, wf, b, self.a_bits, absmax) - y_ref
+            st.sq_err[b] = st.sq_err.get(b, 0.0) + float(torch.sum(err * err))
+            st._add_col_err(b, err)
+        st.taps += 1
+
+
+def _replay_lm(model, params, tokens, collector):
+    """Eager per-depth replay of `models/lm.py::forward`'s self layers (no
+    cross layers) on one (B, S) token batch."""
+    from repro_torch.models.lm import (_block, _compute_dtype, _embed,
+                                       _layer_split, _ropes, _schedule,
+                                       layer_params)
+    cfg = model.cfg
+    dtype = _compute_dtype(cfg)
+    dev = params["embed"]["table"].device
+    x = _embed(params, torch.as_tensor(np.asarray(tokens), device=dev), cfg,
+               dtype)
+    s = x.shape[1]
+    glob, loc = _ropes(cfg, s, dtype, dev)
+    sched = _schedule(cfg, s)
+    for i in range(_layer_split(cfg)[0]):
+        lp = layer_params(params["layers"], i)
+        collector.id2path = _walk_dense_ids(lp, ("layers",))
+        window, local_rope = sched[i]
+        cos, sin = loc if local_rope else glob
+        x, _, _ = _block(cfg, lp, x, cos, sin, window)
+    return x
+
+
+def _weight_only(stats: Dict[str, CalibStats], fp_params, bits,
+                 a_absmax: float):
+    """Fallback sensitivity: weight-quantization MSE under a unit
+    activation second moment; a_absmax stays at the default. A stacked
+    (L, K, N) weight is priced as one (L*K, N) matrix, one scale per
+    column across the layers, as the reference prices it."""
+    for path, st in stats.items():
+        w = dense_weight(fp_params, path).to(torch.float32)
+        w2 = w.reshape(-1, w.shape[-1]) if w.dim() == 3 else w
+        st.a_absmax = a_absmax
+        st.sq_ref += float(torch.sum(w2 * w2))
+        for b in bits:
+            w_hat, scale = quantize_dense_weights(w2, b)
+            err = w_hat.to(torch.float32) * scale - w2
+            st.sq_err[b] = st.sq_err.get(b, 0.0) + float(torch.sum(err * err))
+            st._add_col_err(b, err)
+        st.taps += 1
+
+
+def calibrate(model, fp_params, token_batches: Sequence[np.ndarray], *,
+              bits: Sequence[int] = CANDIDATE_BITS, a_bits: int = 8,
+              max_rows: int = 512,
+              default_a_absmax: float = 4.0) -> Dict[str, CalibStats]:
+    """Run (B, S) integer token batches through the fp LM on its params'
+    device: per quantized dense path, its `CalibStats`."""
+    from repro_torch.models.api import Model
+    from repro_torch.nn.layers import QuantConfig
+
+    cfg = model.cfg
+    q_defs = Model(dataclasses.replace(cfg, quant=QuantConfig(mode="int"),
+                                       quant_plan=None)).defs()
+    paths = quantized_dense_paths(q_defs)
+    inv = dense_inventory(fp_params, paths)
+    stats = {p: CalibStats(p, *inv[p]) for p in paths}
+
+    if cfg.family == "lm" and not cfg.cross_every:
+        collector = _Collector(stats, bits, a_bits, max_rows)
+        with dense_tap(collector):
+            for i, toks in enumerate(token_batches):
+                with obs.span("calibrate.batch", cat="deploy", batch=i,
+                              tokens=int(np.asarray(toks).size)):
+                    _replay_lm(model, fp_params, toks, collector)
+        # a path the replay never reaches falls back to weight-only, so
+        # the planner always sees every path
+        missed = {p: st for p, st in stats.items() if st.taps == 0}
+        if missed:
+            _weight_only(missed, fp_params, bits, default_a_absmax)
+    else:
+        _weight_only(stats, fp_params, bits, default_a_absmax)
+    return stats
+
+
+# -------------------------------------------------------------- vision ---
+
 def _sim_quant_weights(w: torch.Tensor, b: int) -> torch.Tensor:
     """Quantize-dequantize ``w`` on the per-tensor symmetric grid the
     vision packers deploy (`calibrate_weight` -> `quantize`)."""
@@ -76,14 +242,20 @@ def _sim_quant_weights(w: torch.Tensor, b: int) -> torch.Tensor:
     return dequantize(quantize(w, spec), spec)
 
 
-def _sim_quant_acts(x: torch.Tensor, a_bits: int,
-                    absmax: float) -> torch.Tensor:
-    """Activations on the symmetric a_bits grid, dequantized. The divisor
-    is a float32 tensor, as in `quantize`."""
+def _act_codes(x: torch.Tensor, a_bits: int, absmax: float):
+    """(codes, scale): activations on the symmetric a_bits grid, as
+    floats. The divisor is a float32 tensor, as in `quantize`."""
     a_max = packing.int_range(a_bits, True)[1]
     a_scale = max(absmax, 1e-8) / a_max
     div = torch.tensor(a_scale, dtype=torch.float32, device=x.device)
-    return torch.clamp(torch.round(x / div), -a_max, a_max) * a_scale
+    return torch.clamp(torch.round(x / div), -a_max, a_max), a_scale
+
+
+def _sim_quant_acts(x: torch.Tensor, a_bits: int,
+                    absmax: float) -> torch.Tensor:
+    """Activations on the symmetric a_bits grid, dequantized."""
+    codes, a_scale = _act_codes(x, a_bits, absmax)
+    return codes * a_scale
 
 
 def _hwio(w: torch.Tensor) -> torch.Tensor:
@@ -196,7 +368,7 @@ def calibrate_vision(cfg, fp_params, image_batches: Sequence[np.ndarray], *,
     if sensitivity == "task_loss":
         raise NotImplementedError(
             "calibrate_vision(sensitivity='task_loss') comes with the QAT "
-            "slice (ROADMAP Queue 1, item 4); use sensitivity='mse'")
+            "slice (ROADMAP Queue 1, item 2); use sensitivity='mse'")
     if sensitivity != "mse":
         raise ValueError(f"unknown sensitivity {sensitivity!r}; expected "
                          "'mse' or 'task_loss'")

@@ -1,6 +1,7 @@
-"""LM serving launcher: init seeded params, convert them to the packed
-sub-byte deployment artifact, and serve a batch of synthetic requests
-through `Engine` on ``--device`` (default ``cuda``).
+"""LM serving launcher: take seeded params (or a checkpoint's,
+``--ckpt``), convert them to the packed sub-byte deployment artifact,
+and serve a batch of synthetic requests through `Engine` on
+``--device`` (default ``cuda``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --quant w4a8 --requests 8 --max-new 16
@@ -22,6 +23,14 @@ plan-resolved bit-width instead of one uniform ``--quant``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --smoke --plan plan.json --requests 8 --device cpu
+
+``--ckpt DIR`` serves the fp weights of a checkpoint (``state["params"]``
+when the tree has it, as a training checkpoint does) in place of seeded
+ones; with the plan and checkpoint ``repro_torch.launch.deploy`` wrote,
+this serves the deployed artifact:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --ckpt ckpt/ --plan plan.json
 
 With ``REPRO_OBS=1`` the run records a ``serve.generate`` span and
 exports a Chrome trace on exit to ``REPRO_OBS_TRACE`` (default
@@ -50,6 +59,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint dir to load fp params from")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -78,7 +89,12 @@ def main(argv=None):
             else {"n_layers": args.layers}))
         print(f"{cfg.name}: depth cut to layers={args.layers}, widths kept")
     fp_model = build(cfg)
-    fp_params = fp_model.init(args.seed, device=device)
+    if args.ckpt:
+        from repro_torch.ckpt.checkpoint import restore
+        state, _ = restore(args.ckpt, device=device)
+        fp_params = state["params"] if "params" in state else state
+    else:
+        fp_params = fp_model.init(args.seed, device=device)
 
     plan = None
     if args.plan:

@@ -137,6 +137,27 @@ def _ffn(cfg: ModelConfig, lp, x):
     return x + mlp_apply(lp["mlp"], h, _mlp_cfg(cfg)), 0.0
 
 
+def _ropes(cfg: ModelConfig, seq_len: int, dtype, device):
+    """(global, local) rope tables (cos, sin) over ``seq_len`` positions;
+    the local ones are the global ones when the arch has no local
+    theta."""
+    glob = rope_tables(seq_len, cfg.head_dim_, cfg.rope_theta, dtype, device)
+    loc = (rope_tables(seq_len, cfg.head_dim_, cfg.rope_theta_local, dtype,
+                       device) if cfg.rope_theta_local else glob)
+    return glob, loc
+
+
+def _block(cfg: ModelConfig, lp, x, cos, sin, window):
+    """One pre-norm self layer on the residual ``x`` with layer params
+    ``lp``: (x, its aux loss, (k, v)). The forward and the calibration
+    replay (`deploy/calibrate.py`) both run it."""
+    h, kv = attn_apply(lp["attn"], norm_apply(lp.get("ln1", {}), x, cfg.norm),
+                       _attn_cfg(cfg), cos=cos, sin=sin, mode="local",
+                       window=window)
+    x, aux = _ffn(cfg, lp, x + h)
+    return x, aux, kv
+
+
 def _order(cfg: ModelConfig):
     """The layer order: ("self", i) | ("cross", g) over the stacked
     indices; a vision arch's group g is self rows g*ce .. g*ce + ce - 1,
@@ -161,10 +182,7 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
     s = tokens.shape[1]
     x = _embed(params, tokens, cfg, dtype)
     dev = x.device
-    glob = rope_tables(s, cfg.head_dim_, cfg.rope_theta, dtype, dev)
-    loc = (rope_tables(s, cfg.head_dim_, cfg.rope_theta_local, dtype, dev)
-           if cfg.rope_theta_local else glob)
-    acfg = _attn_cfg(cfg)
+    glob, loc = _ropes(cfg, s, dtype, dev)
     acfg_x = _attn_cfg(cfg, "cross_layers/xattn")
     cross = _layer_split(cfg)[1] > 0
     if cross:
@@ -185,13 +203,9 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
             x = _cross_mlp(cfg, xp, x, h)
             continue
         window, local_rope = sched[i]
-        lp = layer_params(params["layers"], i)
         cos, sin = loc if local_rope else glob
-        h, (k, v) = attn_apply(lp["attn"],
-                               norm_apply(lp.get("ln1", {}), x, cfg.norm),
-                               acfg, cos=cos, sin=sin, mode="local",
-                               window=window)
-        x, a = _ffn(cfg, lp, x + h)
+        x, a, (k, v) = _block(cfg, layer_params(params["layers"], i), x,
+                              cos, sin, window)
         aux = aux + a
         if collect_kv:
             ks.append(k)

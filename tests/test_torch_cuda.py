@@ -894,3 +894,72 @@ def test_init_leaf_in_place_gives_the_same_values_on_the_card(dev):
             device=dev).manual_seed(77 + i), device=dev)
         scale = d.scale if d.init == "embed" else d.scale / d.shape[-2] ** 0.5
         assert torch.equal(got, (x * scale).to(d.dtype)), d
+
+
+def test_lm_calibrate_on_the_card_matches_cpu(dev):
+    # the smoke qwen in float32: the card's stats within float32
+    # rounding of the CPU's (the tolerances of test_torch_deploy_lm.py)
+    import dataclasses
+
+    from repro_torch.convert import to_device
+    from repro_torch.deploy.calibrate import calibrate
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(api.get_smoke_config("qwen2.5-3b"),
+                              compute_dtype="float32")
+    model = api.build(cfg)
+    fp = model.init(0, device="cpu")
+    rng = np.random.default_rng(3)
+    batches = [rng.integers(2, cfg.vocab, size=(2, 32)).astype(np.int32)
+               for _ in range(2)]
+    want = calibrate(model, fp, batches)
+    got = calibrate(model, to_device(fp, dev), batches)
+    assert list(got) == list(want)
+    for path, w in want.items():
+        g = got[path]
+        assert (g.layers, g.d_in, g.d_out, g.taps) == \
+            (w.layers, w.d_in, w.d_out, w.taps)
+        assert g.a_absmax == pytest.approx(w.a_absmax, rel=1e-5), path
+        for b in (8, 4, 2):
+            assert g.sens(b) == pytest.approx(w.sens(b), rel=1e-4), path
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8,
+                                   torch.bfloat16])
+def test_checkpoint_restores_onto_the_card(dev, dtype, tmp_path):
+    from repro_torch.ckpt import checkpoint
+
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.randint(-128, 128, (3, 5), generator=gen, dtype=torch.int8)
+         if dtype == torch.int8 else
+         torch.randn(3, 5, generator=gen).to(dtype))
+    checkpoint.save(tmp_path, 2, {"a": {"x": x.to(dev)}})
+    got, step = checkpoint.restore(tmp_path)        # default: the card
+    assert step == 2 and got["a"]["x"].is_cuda
+    assert got["a"]["x"].dtype == dtype and torch.equal(got["a"]["x"].cpu(), x)
+
+
+def test_deploy_cli_on_the_card_matches_cpu(dev, tmp_path):
+    # calibrated and packed on the card; the CPU packs the card's plan
+    # from the same checkpoint into the same files
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.launch import deploy
+    from repro_torch.models import api
+
+    fp = api.build(api.get_smoke_config("qwen2.5-3b")).init(0, device=dev)
+    checkpoint.save(tmp_path / "ck", 0, {"params": fp})
+    common = ["--arch", "qwen2.5-3b", "--smoke", "--ckpt",
+              str(tmp_path / "ck")]
+    card = deploy.main(common + ["--out", str(tmp_path / "p.json"),
+                                 "--artifact", str(tmp_path / "card")])
+    cpu = deploy.main(common + ["--device", "cpu", "--from-plan",
+                                str(tmp_path / "p.json"), "--out",
+                                str(tmp_path / "p2.json"), "--artifact",
+                                str(tmp_path / "cpu")])
+    assert card["mixed_bytes"] == cpu["mixed_bytes"] < card["w8_bytes"]
+
+    def files(d):
+        return {str(f.relative_to(d)): f.read_bytes()
+                for f in sorted(d.rglob("*")) if f.is_file()}
+
+    assert files(tmp_path / "card") == files(tmp_path / "cpu")

@@ -49,7 +49,8 @@ def test_port_covers_the_lm_modules_and_configs():
             "configs/seamless_m4t_large_v2.py",
             "configs/llama3p2_vision_90b.py", "configs/kimi_k2_1t.py",
             "configs/llama4_maverick_400b.py", "core/calibration.py",
-            "core/quantize.py"} <= names
+            "core/quantize.py", "ckpt/checkpoint.py",
+            "launch/deploy.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():
@@ -60,7 +61,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.deploy.apply, repro_torch.models.api as api, "
             "repro_torch.models.mamba, repro_torch.models.griffin, "
             "repro_torch.models.encdec, "
-            "repro_torch.nn.ssm, repro_torch.nn.rglru; "
+            "repro_torch.nn.ssm, repro_torch.nn.rglru, "
+            "repro_torch.ckpt.checkpoint, repro_torch.launch.deploy; "
             "api.list_archs(); "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
@@ -103,6 +105,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         Engine(model, model.init(0, device="cpu"), 2, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen2.5-3b", "--smoke"])
+    from repro_torch.launch import deploy
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deploy.main(["--arch", "qwen2.5-3b", "--smoke"])
 
 
 def test_engine_refuses_a_net_on_another_device(monkeypatch):
