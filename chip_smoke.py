@@ -188,7 +188,37 @@
    agree (a_absmax within 1e-5, sens(b) within 1e-3, relative), and the
    plan from the card's stats, packed on both devices, gives
    byte-identical artifacts.
-13. Times each kernel (CUDA events and profiler device time) beside its
+13. [mesh]: the cluster path on the one card, every mesh position on
+   `cuda:0`, positions sharing it each on their own CUDA stream. Kernel
+   wall: `api.qconv` and `api.qdot` on meshes (data, model) = (1,1),
+   (1,4), (4,1), (2,2), (8,1) at every layer of ResNet-8 W8/W4/W2 (A8)
+   on the layer's own input for a wave of 64 (each conv, the conv as its
+   im2col GEMM, the head where its N = 10 divides the model axis), both
+   pipelines, plus 61 rows / images on the data meshes; every call,
+   twice, equal to the meshless call's integers, and one call's dispatch
+   shape (shard-local) beside its counted MACs (global). Then ResNet-8
+   W8/W4/W2 and W8 double-buffered, mobilenet-tiny W8 (the `qdot`
+   lowering, as a mesh forces) and qat-cnn plan (b), 200 images in waves
+   of 64 (the last ragged), served meshless and through
+   `VisionEngine(mesh=)` on (2,2), (4,1) and (1,1), each mesh twice:
+   logits equal meshless, per-device utilization equal to its
+   definition, wave p50 / p95 of each printed side by side. qwen2.5-3b
+   W4A8 at full width, 4 requests at batch 4: `Engine` meshless and on
+   a (2,1) mesh, then the CLI with ``--mesh 2,1`` (its own `mesh:` and
+   `cluster utilization:` lines), greedy tokens equal in all three, the
+   (2,1) engine's logit rows within 1e-2 x max |row| of the meshless
+   ones, and one (2,1) decode step's dense calls (kernel 1 at 2 rows)
+   identical to the CPU's plain versions. Kernels 1-2 and 4-5 must have
+   launched in the mesh runs alone: the counts are set to 0 just before
+   each mesh run and read just after, the meshless baselines and the
+   comparisons outside every window. Each net
+   again on a (2,2) mesh of CPU positions: one wave's logits equal the
+   card's. `ring_decode_attention`, `collective_matmul` (1 x 4) and
+   `pipeline_apply` (2 stages) on the card within 1e-4 (relative to the
+   largest |y|) of the same calls on CPU meshes, twice; a checkpoint of
+   ResNet-8's fp tree saved meshless and restored onto a (2,2) mesh of
+   the card (replicated, and split on the last dim) equal leaf for leaf.
+14. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -3266,6 +3296,553 @@ def deploy_cpu_check(dev, report):
     report["deploy_cpu_check"] = row
 
 
+# ------------------------------------------------------------ [mesh] ---
+
+# (data, model) layouts of the kernel wall; every position on the one card
+MESHES = ((1, 1), (1, 4), (4, 1), (2, 2), (8, 1))
+# the served layouts, (1, 1) as the mesh path's own baseline
+MESH_SERVE = ((2, 2), (4, 1), (1, 1))
+# 200 images in waves of 64: the last wave holds 8 (ragged)
+MESH_REQUESTS = 200
+# rows / images that no data axis above divides: padded, sliced back
+MESH_RAGGED = 61
+MESH_LM_REQUESTS, MESH_LM_BATCH = 4, 4
+# logit rows of the (2,1) mesh against meshless serving: the float parts
+# of a decode step (bf16 compute) may round differently at 2 rows than
+# at 4; a wrong block's cache, position or row is off by O(max |row|)
+MESH_LM_ROW_TOL = 1e-2
+MESH_RUNS = 2      # every mesh check runs twice (a stream race shows as
+                   # a mismatch at random)
+
+
+def _layer_inputs(qnet, x):
+    """(LayerDef, layer, its integer input) per compute layer of one
+    forward (`forward_int`'s graph walk)."""
+    from repro_torch.vision.models import COMPUTE_KINDS
+    stream, edges, out = x, {}, []
+    for L, q in qnet.qlayers:
+        xin = edges[L.input_from] if L.input_from else stream
+        if L.kind in COMPUTE_KINDS:
+            out.append((L, q, xin))
+            y = q.apply(xin)
+        elif L.kind == "add":
+            y = q.apply(xin, edges[L.skip_from])
+        else:
+            y = q.apply(xin)
+        if L.save_as:
+            edges[L.save_as] = y
+        if not L.branch:
+            stream = y
+    return out
+
+
+def _count_launches(acc, fn):
+    """``fn()`` with every launch count set to 0 just before and read
+    just after; the counts are added into ``acc``."""
+    import torch
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    for name, counts in read_launches().items():
+        for stages, n in counts.items():
+            acc[name][stages] = acc[name].get(stages, 0) + n
+    return out
+
+
+def _mesh_equal(name, fn, want):
+    """``fn()`` MESH_RUNS times, each identical to ``want``."""
+    import torch
+    for run in range(MESH_RUNS):
+        got = fn()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"[mesh] {name} (run {run}) differs from "
+                                 "the meshless call")
+
+
+def mesh_kernel_phase(dev, nets, images, report):
+    """`api.qconv` and `api.qdot` on every mesh of MESHES at each ResNet-8
+    layer of ``nets`` (W{8,4,2}, A8), on the layer's own input for a wave
+    of 64: each conv, each conv as its im2col GEMM (kernel 1/2 at N =
+    Cout), the head (N = 10: meshes whose model axis divides it), at both
+    pipelines; ragged rows and batches of MESH_RAGGED on the data meshes.
+    Every call equals the meshless one's integers, MESH_RUNS times."""
+    import torch
+    from repro_torch.kernels import api
+    from repro_torch.kernels.qconv.ops import im2col_hwc
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.obs import counters as obs_counters
+    from repro_torch.obs import trace as obs
+    from repro_torch.vision.models import quantize_input
+
+    meshes = {s: make_cluster_mesh(*s, device=dev) for s in MESHES}
+    compared = {"qdot": 0, "qconv": 0}
+    t0 = time.perf_counter()
+    for w_bits, qnet in nets.items():
+        x = quantize_input(qnet, images[:WAVE])
+        for L, q, xin in _layer_inputs(qnet, x):
+            for pl in PIPELINE.values():
+                if L.kind == "conv":
+                    c = q.conv
+                    want = api.qconv(c, xin, pipeline=pl)
+                    cols = im2col_hwc(xin, c.fh, c.fw, c.stride,
+                                      c.padding)[0]
+                    cols = cols.reshape(-1, c.gemm.k_logical)
+                    want_g = api.qdot(c.gemm, cols, pipeline=pl)
+                    if not torch.equal(want_g.reshape(want.shape), want):
+                        raise AssertionError(f"[mesh] {L.path}: im2col "
+                                             "GEMM differs from the conv")
+                    for s, m in meshes.items():
+                        _mesh_equal(f"qconv {L.path} W{w_bits} {pl} {s}",
+                                    lambda: api.qconv(c, xin, pipeline=pl,
+                                                      mesh=m), want)
+                        _mesh_equal(f"qdot {L.path} W{w_bits} {pl} {s}",
+                                    lambda: api.qdot(c.gemm, cols,
+                                                     pipeline=pl, mesh=m),
+                                    want_g)
+                        compared["qconv"] += MESH_RUNS
+                        compared["qdot"] += MESH_RUNS
+                    r = xin[:MESH_RAGGED]
+                    want_r = api.qconv(c, r, pipeline=pl)
+                    for s in ((4, 1), (8, 1), (2, 2)):
+                        _mesh_equal(f"qconv {L.path} ragged batch {s}",
+                                    lambda: api.qconv(c, r, pipeline=pl,
+                                                      mesh=meshes[s]),
+                                    want_r)
+                        compared["qconv"] += MESH_RUNS
+                else:
+                    g, epi = q.gemm, q.epilogue
+                    for rows in (WAVE, MESH_RAGGED):
+                        xr = xin[:rows]
+                        want = api.qdot(g, xr, epilogue=epi, pipeline=pl)
+                        for s, m in meshes.items():
+                            if g.w_packed.shape[1] % s[1]:
+                                continue     # N = 10 over 4: refused
+                            _mesh_equal(
+                                f"qdot {L.path} M={rows} {pl} {s}",
+                                lambda: api.qdot(g, xr, epilogue=epi,
+                                                 pipeline=pl, mesh=m),
+                                want)
+                            compared["qdot"] += MESH_RUNS
+    wall = time.perf_counter() - t0
+    # one sharded call observed: pipeline and launch resolve on the
+    # shard-local shape, the counters count the global one
+    L, q, xin = _layer_inputs(nets[8], quantize_input(
+        nets[8], images[:WAVE]))[1]
+    obs.reset()
+    obs_counters.reset()
+    with obs.enabled_scope():
+        api.qconv(q.conv, xin, mesh=meshes[(2, 2)])
+        ev = obs.dispatch_log()[-1]
+        (counted,) = obs_counters.snapshot().values()
+    obs.reset()
+    obs_counters.reset()
+    say("mesh", kernels="qmatmul,qconv", meshes=json.dumps(
+        [list(s) for s in MESHES]), compared=json.dumps(compared),
+        runs_each=MESH_RUNS, seconds=round(wall, 1), all_exact=True)
+    say("mesh", call=f"qconv {L.path} W8 on (2,2)",
+        dispatch_shape=list(ev["shape"]), counted_macs=counted["macs"],
+        counted_calls=counted["calls"])
+    report["mesh_kernels"] = {"compared": compared, "seconds": wall,
+                              "local_dispatch_shape": list(ev["shape"]),
+                              "counted": counted}
+
+
+def _expected_per_device(wave_sizes, batch, dp):
+    """Per-device slot utilization of a wave stream, from the definition
+    (device d owns the contiguous slots [d*b, (d+1)*b) of the padded
+    array, real slots fill from 0)."""
+    b = -(-batch // dp)
+    per = [[min(max(n - d * b, 0), b) / b for d in range(dp)]
+           for n in wave_sizes]
+    return [sum(col) / len(per) for col in zip(*per)]
+
+
+def mesh_vision_path(dev, nets, images, report, acc):
+    """Serve each net of ``nets`` meshless and through `VisionEngine(mesh=)`
+    on every layout of MESH_SERVE (each MESH_RUNS times), waves of 64 with
+    a ragged last one; logits equal meshless, per-device utilization as
+    its definition gives. Only the mesh runs' launches go into ``acc``.
+    Returns the meshless logits."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.serve.engine import VisionEngine
+
+    served = {}
+    for name, qnet in nets.items():
+        eng = VisionEngine(qnet, batch_size=WAVE, device=dev)
+        want = eng.run(images)
+        lat = eng.utilization_report()["latency_us"]
+        row = {"meshless": {"wave_p50_ms": lat["p50"] / 1e3,
+                            "wave_p95_ms": lat["p95"] / 1e3}}
+        for s in MESH_SERVE:
+            mesh = make_cluster_mesh(*s, device=dev)
+            eng = VisionEngine(qnet, batch_size=WAVE, device=dev, mesh=mesh)
+            for run in range(MESH_RUNS):
+                got = _count_launches(acc, lambda: eng.run(images))
+                if not np.array_equal(got, want):
+                    bad = int((got != want).any(-1).sum())
+                    raise AssertionError(f"[mesh] {name} on {s} (run "
+                                         f"{run}): {bad} images' logits "
+                                         "differ from meshless serving")
+            rep = eng.utilization_report()
+            sizes = [w["n_real"] for w in eng.wave_stats]
+            exp = _expected_per_device(sizes, WAVE, s[0])
+            if not np.allclose(rep["per_device"], exp):
+                raise AssertionError(f"[mesh] {name} on {s}: per-device "
+                                     f"{rep['per_device']} != {exp}")
+            lat = rep["latency_us"]
+            row[f"{s[0]},{s[1]}"] = {
+                "wave_p50_ms": lat["p50"] / 1e3,
+                "wave_p95_ms": lat["p95"] / 1e3,
+                "per_device": rep["per_device"]}
+        say("mesh", serve=name, images=len(images), wave=WAVE,
+            logits_equal_meshless=True, **{
+                f"p50_p95_ms[{k}]": f"{v['wave_p50_ms']:.3f}/"
+                                    f"{v['wave_p95_ms']:.3f}"
+                for k, v in row.items()},
+            per_device_2x2=row["2,2"]["per_device"],
+            per_device_4x1=row["4,1"]["per_device"])
+        report.setdefault("mesh_serve", {})[name] = row
+        served[name] = want
+    return served
+
+
+def mesh_vision_cpu_check(nets, images, served):
+    """Each net moved to the CPU and served on a (2, 2) mesh of CPU
+    positions: logits of its first wave (``images[name]``) equal the
+    card's."""
+    import numpy as np
+    from repro_torch.convert import to_device
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.serve.engine import VisionEngine
+    mesh = make_cluster_mesh(2, 2, device="cpu")
+    for name, qnet in nets.items():
+        got = VisionEngine(to_device(qnet, "cpu"), batch_size=WAVE,
+                           device="cpu", mesh=mesh).run(
+            images[name][:WAVE])
+        if not np.array_equal(got, served[name][:WAVE]):
+            raise AssertionError(f"[mesh] {name}: CPU mesh logits differ "
+                                 "from the card's")
+    say("mesh", check="card_vs_cpu_mesh", mesh="2,2", nets=len(nets),
+        images=WAVE, logits_equal=True)
+
+
+def _cli_requests(cfg, n, max_new, seed=SEED):
+    """The requests `repro_torch.launch.serve` draws for ``--seed``."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(2, cfg.vocab, size=(
+        int(rng.integers(2, 8)),)).astype(np.int32),
+        max_new_tokens=max_new) for _ in range(n)]
+
+
+def _record_rows(eng):
+    """Per request id, the float32 logit rows its engine's adapter hands
+    to `consume` (one per fed position)."""
+    import numpy as np
+    rows = {}
+    ad = eng._adapter
+    consume = ad.consume
+
+    def record(cur, row):
+        rows.setdefault(cur.rid, []).append(np.array(row, np.float32))
+        return consume(cur, row)
+
+    ad.consume = record
+    return rows
+
+
+def _check_mesh_dense_calls(model, adapter):
+    """One decode step of the mesh adapter with `dense_tap` on: each data
+    block's int dense calls run at the block's rows (kernel 1 at the
+    shard-local M), and each, run again on the card, is identical to the
+    same call on the CPU (the kernels' plain versions)."""
+    import numpy as np
+    import torch
+    from repro_torch.nn.layers import dense_tap
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 24)
+    toks = rng.integers(2, cfg.vocab, size=(MESH_LM_BATCH, 5)).astype(
+        np.int32)
+    state = adapter.init_state(MESH_LM_BATCH)
+    for t in range(4):
+        _, state = adapter.step(state, toks[:, t:t + 1],
+                                np.full(MESH_LM_BATCH, t))
+    calls = []
+    with dense_tap(lambda p, x: calls.append((p, x)) if "w_packed" in p
+                   else None):
+        adapter.step(state, toks[:, 4:5], np.array([4, 3, 4, 2]))
+    torch.cuda.synchronize()
+    expected = adapter.dp * dense_calls_per_step(model)
+    rows = sorted({x.reshape(-1, x.shape[-1]).shape[0] for _, x in calls})
+    if len(calls) != expected or rows != [MESH_LM_BATCH // adapter.dp]:
+        raise AssertionError(f"[mesh] tapped {len(calls)} dense calls of "
+                             f"{rows} rows, expected {expected} of "
+                             f"{MESH_LM_BATCH // adapter.dp}")
+    _calls_equal_cpu(calls, cfg.quant, "mesh")
+    say("mesh", check="dense_tap", arch=cfg.name, w_bits=cfg.quant.w_bits,
+        mesh=f"{adapter.dp},1", dense_calls=len(calls), rows_per_call=rows[0],
+        all_equal_cpu_plain=True)
+    return len(calls)
+
+
+def mesh_lm_path(dev, report, acc):
+    """qwen2.5-3b W4A8 at full width: `Engine` meshless and on a (2, 1)
+    mesh of the card, then the CLI with ``--mesh 2,1`` (the same seeded
+    weights and requests): greedy tokens equal in all three, the logit
+    rows of the (2,1) engine within MESH_LM_ROW_TOL x max |row| of the
+    meshless ones, and one mesh decode step's dense calls equal to the
+    CPU's. Only the mesh runs' launches go into ``acc``."""
+    import numpy as np
+    import torch
+    from repro_torch.deploy.apply import int_skeleton
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.models.api import build, get_config
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config(LM_ARCH)
+    model = _lm_model(cfg, 4)
+    fp = build(cfg).init(SEED, device=dev)
+    params = convert_params(int_skeleton(model.defs()), fp, 4)
+    del fp
+    torch.cuda.empty_cache()
+    outs, rows = {}, {}
+    for label, mesh in (("meshless", None),
+                        ("2,1", make_cluster_mesh(2, 1, device=dev))):
+        eng = Engine(model, params, batch_size=MESH_LM_BATCH,
+                     max_len=LM_MAX_LEN, device=dev, mesh=mesh)
+        rows[label] = _record_rows(eng)
+        reqs = _cli_requests(cfg, MESH_LM_REQUESTS, LM_MAX_NEW)
+        t0 = time.perf_counter()
+        if mesh is None:
+            out = eng.generate(reqs)
+        else:
+            out = _count_launches(acc, lambda: eng.generate(reqs))
+        wall = time.perf_counter() - t0
+        outs[label] = [r.out.tolist() for r in out]
+        rep = eng.utilization_report()
+        toks = sum(len(r.out) for r in out)
+        say("mesh", serve=f"{LM_ARCH} W4A8", mesh=label,
+            tok_per_s=round(toks / wall, 3), tokens=toks,
+            wave_p50_ms=round(rep["latency_us"]["p50"] / 1e3, 3),
+            wave_p95_ms=round(rep["latency_us"]["p95"] / 1e3, 3),
+            per_device=rep["per_device"])
+        report.setdefault("mesh_lm", {})[label] = {
+            "tok_per_s": toks / wall, "tokens": toks, "wall_s": wall,
+            "latency_us": rep["latency_us"],
+            "per_device": rep["per_device"]}
+    err, n_rows, scale = 0.0, 0, 0.0
+    for rid, want in rows["meshless"].items():
+        got = rows["2,1"].get(rid, [])
+        if len(got) != len(want):
+            raise AssertionError(f"[mesh] request {rid}: {len(got)} logit "
+                                 f"rows on (2,1), {len(want)} meshless")
+        for g, w in zip(got, want):
+            err = max(err, float(np.abs(g - w).max()))
+            scale = max(scale, float(np.abs(w).max()))
+            n_rows += 1
+    if not err <= MESH_LM_ROW_TOL * scale:
+        raise AssertionError(f"[mesh] {LM_ARCH} logit rows on (2,1): max "
+                             f"abs err {err} against meshless (max |row| "
+                             f"{scale})")
+    say("mesh", check="logit_rows 2,1 vs meshless", arch=LM_ARCH,
+        rows=n_rows, max_abs_err=err, max_abs_row=scale,
+        tol=f"{MESH_LM_ROW_TOL} x max|row|", exact=err == 0.0)
+    report["mesh_lm"]["logit_rows"] = {"rows": n_rows, "max_abs_err": err,
+                                       "max_abs_row": scale}
+    report["mesh_lm"]["dense_calls"] = _check_mesh_dense_calls(
+        model, eng._adapter)
+    del params, eng, rows
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli, text = _count_launches(acc, lambda: _captured(serve_cli.main, [
+        "--arch", LM_ARCH, "--quant", "w4a8", "--requests",
+        str(MESH_LM_REQUESTS), "--batch", str(MESH_LM_BATCH), "--max-new",
+        str(LM_MAX_NEW), "--mesh", "2,1"]))
+    outs["cli 2,1"] = [r.out.tolist() for r in cli]
+    if "mesh: data=2 model=1" not in text or \
+            "cluster utilization:" not in text:
+        raise AssertionError("[mesh] the serve CLI printed no mesh lines")
+    if not outs["meshless"] == outs["2,1"] == outs["cli 2,1"]:
+        raise AssertionError(f"[mesh] {LM_ARCH} tokens differ: {outs}")
+    say("mesh", cli=f"python -m repro_torch.launch.serve --arch {LM_ARCH} "
+        "--quant w4a8 --mesh 2,1", seconds=round(time.perf_counter() - t0,
+                                                  1),
+        tokens_equal_meshless=True)
+
+
+def mesh_collectives_check(dev, report):
+    """`ring_decode_attention`, `collective_matmul` and `pipeline_apply`
+    on meshes of the card against the same calls on CPU meshes (float32,
+    MESH_RUNS times), and a checkpoint saved meshless and restored onto a
+    (2, 2) mesh of the card."""
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.pipeline import pipeline_apply, stage_stack
+    from repro_torch.parallel.ring import (collective_matmul,
+                                           ring_decode_attention)
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import init_fp
+
+    rng = np.random.default_rng(SEED + 23)
+    card, cpu = (make_cluster_mesh(1, 4, device=dev),
+                 make_cluster_mesh(1, 4, device="cpu"))
+    b, t, h, dh = 2, 64, 4, 32
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((b, h, dh), (b, t, h, dh), (b, t, h, dh)))
+    mask = torch.arange(t)[None, :] < torch.tensor([[40], [7]])
+    x = torch.from_numpy(rng.normal(size=(16, 128)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(128, 96)).astype(np.float32))
+    wl = torch.from_numpy((rng.normal(size=(8, 16, 16)) * 0.3).astype(
+        np.float32))
+    xm = torch.from_numpy(rng.normal(size=(4, 3, 16)).astype(np.float32))
+
+    def stage(sp, hh):
+        for wi in sp["w"]:
+            hh = torch.tanh(hh @ wi)
+        return hh
+
+    pods = {d: pm.make_mesh((2,), ("pod",), [d, d]) for d in (dev, "cpu")}
+    cases = {
+        "ring_decode_attention": lambda m, d: ring_decode_attention(
+            q.to(d), k.to(d), v.to(d), mask.to(d), m),
+        "collective_matmul": lambda m, d: collective_matmul(
+            x.to(d), w.to(d), m),
+        "pipeline_apply": lambda m, d: pipeline_apply(
+            stage, stage_stack({"w": wl.to(d)}, 2), xm.to(d), pods[d]),
+    }
+    errs = {}
+    for name, fn in cases.items():
+        want = fn(cpu, "cpu")
+        for run in range(MESH_RUNS):
+            got = fn(card, dev).cpu()
+            errs[name] = max(errs.get(name, 0.0),
+                             float((got - want).abs().max()))
+        if errs[name] > 1e-4 * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"[mesh] {name}: card vs CPU max abs err "
+                                 f"{errs[name]}")
+    say("mesh", check="collectives card_vs_cpu", tol="1e-4 x max|y|",
+        **{k: f"{e:.3g}" for k, e in errs.items()})
+
+    fp = init_fp(get_vision_config("resnet8"), seed=SEED, device=dev)
+    mesh = make_cluster_mesh(2, 2, device=dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="mesh_ckpt_",
+                                         dir=ROOT / "build"))
+    try:
+        ckpt.save(work, 1, {"params": fp})
+        leaves = 0
+        for run in range(MESH_RUNS):
+            state, _ = ckpt.restore(work, mesh=mesh)
+            split, _ = ckpt.restore(work, shardings=_split_last(
+                state, mesh))
+            for tree in (state, split):
+                leaves = _check_restored(tree["params"], fp)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say("mesh", check="restore onto (2,2)", leaves=leaves,
+        replicated_and_split_equal=True)
+    report["mesh_collectives"] = {"max_abs_err": errs,
+                                  "restored_leaves": leaves}
+
+
+def _split_last(tree, mesh):
+    """Per leaf: the last dim over ``model`` where it divides, else
+    replicated."""
+    from repro_torch.parallel import mesh as pm
+    if isinstance(tree, dict):
+        return {k: _split_last(v, mesh) for k, v in tree.items()}
+    spec = [None] * len(tree.shape)
+    if tree.shape and tree.shape[-1] % mesh.shape["model"] == 0:
+        spec[-1] = "model"
+    return pm.NamedSharding(mesh, pm.P(*spec))
+
+
+def _check_restored(tree, want) -> int:
+    import torch
+    from repro_torch.parallel import mesh as pm
+    if isinstance(want, dict):
+        return sum(_check_restored(tree[k], want[k]) for k in want)
+    if not isinstance(tree, pm.Sharded) or not torch.equal(
+            pm.gather(tree).to(want.device), want):
+        raise AssertionError("[mesh] a restored leaf differs")
+    return 1
+
+
+def mesh_path(dev, report):
+    """[mesh]: the cluster path on one card. Returns the kernels' launch
+    counts summed over the mesh serving runs alone (vision and LM; the
+    meshless baselines and the comparisons are outside every window)."""
+    import numpy as np
+    import torch
+    from repro_torch.deploy.calibrate import calibrate_vision
+    from repro_torch.deploy.planner import auto_budget, plan_mixed_precision
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.launch.vision import uniform_plan
+    from repro_torch.serve.engine import VisionEngine
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import (collect_absmax, init_fp,
+                                           quantize_net)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    nets, inputs = {}, {}
+    for net in ("resnet8", "mobilenet-tiny", "qat-cnn"):
+        cfg = get_vision_config(net)
+        fp = init_fp(cfg, seed=SEED, device=dev)
+        calib = [rng.uniform(0, 1, size=(WAVE, *cfg.in_hw, cfg.in_ch))
+                 .astype(np.float32) for _ in range(2)]
+        inputs[net] = rng.uniform(0, 1, size=(
+            MESH_REQUESTS, *cfg.in_hw, cfg.in_ch)).astype(np.float32)
+        if net == "qat-cnn":
+            stats, absmax = calibrate_vision(cfg, fp, calib)
+            plan = plan_mixed_precision(stats, auto_budget(stats),
+                                        granularity="channel_group")
+            nets["qat-cnn plan (b)"] = quantize_net(cfg, fp, absmax,
+                                                    plan=plan, device=dev)
+            continue
+        absmax = collect_absmax(cfg, fp, calib)
+        widths = WIDTHS if net == "resnet8" else (8,)
+        for w in widths:
+            nets[f"{net} W{w}"] = quantize_net(
+                cfg, fp, absmax, plan=uniform_plan(cfg, w, cfg.a_bits),
+                device=dev)
+        if net == "resnet8":
+            nets["resnet8 W8 double_buffer"] = quantize_net(
+                cfg, fp, absmax, plan=uniform_plan(
+                    cfg, 8, cfg.a_bits, pipeline="double_buffer"),
+                device=dev)
+    images = {k: inputs[k.split(" ")[0]] for k in nets}
+    mesh_kernel_phase(dev, {w: nets[f"resnet8 W{w}"] for w in WIDTHS},
+                      inputs["resnet8"], report)
+    # one untimed wave per layout: torch loads its CUDA kernels lazily,
+    # and each position's stream is made at first use
+    for s in MESH_SERVE:
+        VisionEngine(nets["resnet8 W8"], batch_size=WAVE, device=dev,
+                     mesh=make_cluster_mesh(*s, device=dev)).run(
+            images["resnet8 W8"][:WAVE])
+    launches = {name: {stages: 0 for stages in counts}
+                for name, counts in read_launches().items()}
+    served = {}
+    for name in nets:
+        served.update(mesh_vision_path(dev, {name: nets[name]},
+                                       images[name], report, launches))
+    mesh_lm_path(dev, report, launches)
+    require_launches("mesh", launches, ("qmatmul", "qconv"))
+    report.setdefault("launches", {})["mesh"] = launches
+    mesh_vision_cpu_check(nets, images, served)
+    mesh_collectives_check(dev, report)
+    say("mesh", phase_seconds=round(time.perf_counter() - t0, 1))
+    return launches
+
+
 def write_report(report, name: str):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3350,6 +3927,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     deploy_cpu_check(dev, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["mesh"] = mesh_path(dev, report)
     lm_timing_phase(dev, report, [(4, k, n) for k, n in LM_SHAPES],
                     "lm_shape", SEED + 7)
     lm_timing_phase(dev, report, [(4, k, n) for k, n in REC_SHAPES],

@@ -16,9 +16,11 @@ manifest's ``"dtype": "bfloat16"``; `restore` reads that dtype and
 reinterprets the 2-byte words as ``torch.bfloat16`` (numpy alone loads
 them as raw ``|V2`` bytes).
 
-Not here yet: the reference's elastic restore (``shardings=`` /
-``mesh=``, placing leaves on another mesh than the one that saved) waits
-for the port's ``parallel/``.
+The files hold global arrays, so any mesh can take them: `restore`
+with ``shardings=`` (a tree of `NamedSharding` like the checkpoint's, or
+one for every leaf) or ``mesh=`` (every leaf replicated on it) places
+each leaf as a `repro_torch.parallel.mesh.Sharded`, on a mesh other than
+the one that saved if need be (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.mesh import NamedSharding, P, device_put
 
 # the 2-byte header descr the reference's ml_dtypes bfloat16 arrays carry
 _BF16_DESCR = "<V2"
@@ -179,9 +182,17 @@ def _read_leaf(path: pathlib.Path, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir, step: Optional[int] = None, device="cuda"):
+def restore(ckpt_dir, step: Optional[int] = None, device="cuda",
+            shardings=None, mesh=None):
     """Load a checkpoint (the latest step by default) as a tree of
-    tensors on ``device``; returns (tree, step)."""
+    tensors on ``device``; returns (tree, step). With ``shardings`` or
+    ``mesh`` each leaf is read on the CPU and placed on the mesh as a
+    `Sharded` (module docstring); ``device`` is then not read."""
+    if shardings is not None or mesh is not None:
+        tree, step = restore(ckpt_dir, step, device="cpu")
+        if shardings is None:
+            shardings = NamedSharding(mesh, P())
+        return _place(tree, shardings), step
     dev = resolve_device(device)
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
@@ -193,3 +204,11 @@ def restore(ckpt_dir, step: Optional[int] = None, device="cuda"):
     leaves = {key: _read_leaf(d / meta["file"], meta["dtype"]).to(dev)
               for key, meta in manifest["leaves"].items()}
     return _unflatten(leaves), manifest["step"]
+
+
+def _place(tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings if isinstance(shardings,
+                                                     NamedSharding)
+                          else shardings[k]) for k, v in tree.items()}
+    return device_put(tree, shardings)

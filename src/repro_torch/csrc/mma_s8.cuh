@@ -34,6 +34,7 @@
 // real K meets zero weights (zeroed here, or the artifact's padding).
 #pragma once
 
+#include <atomic>
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -677,6 +678,29 @@ cudaError_t set_smem(Kernel kernel) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
+
+// A kernel's shared-memory attribute belongs to the device it was set on,
+// so each launch function keeps one of these (a function-local static:
+// one per kernel instantiation) and sets the attribute once for each
+// device it launches on, the current device of the launch.
+class OncePerDevice {
+ public:
+  template <class Set>
+  cudaError_t operator()(Set set) {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= 64) return set();
+    const unsigned long long bit = 1ull << dev;
+    if (done_.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    const cudaError_t r = set();
+    if (r == cudaSuccess) done_.fetch_or(bit, std::memory_order_acq_rel);
+    return r;
+  }
+
+ private:
+  std::atomic<unsigned long long> done_{0};
+};
 
 }  // namespace tc
 }  // namespace rq

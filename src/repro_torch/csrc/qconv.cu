@@ -318,8 +318,9 @@ template <int A_BITS, int W_BITS, int STAGES, int NT>
 cudaError_t launch(const ConvArgs& a, const rq::EpilogueArgs& epi,
                    cudaStream_t stream) {
   auto kernel = qconv_kernel<A_BITS, W_BITS, STAGES, NT>;
-  static const cudaError_t attr =
-      rq::tc::set_smem<NT, STAGES, stage_k<NT>()>(kernel);
+  static rq::tc::OncePerDevice smem_set;
+  const cudaError_t attr = smem_set(
+      [&] { return rq::tc::set_smem<NT, STAGES, stage_k<NT>()>(kernel); });
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.npix + TILE_M - 1) / TILE_M, (a.cout + NT - 1) / NT);
   const int bytes = rq::tc::Smem<NT, STAGES, stage_k<NT>()>::bytes(

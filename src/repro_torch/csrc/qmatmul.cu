@@ -95,8 +95,9 @@ template <int A_BITS, int W_BITS, int STAGES, int NT, int MIN_BLOCKS>
 cudaError_t launch(const GemmArgs& a, int splits,
                    const rq::EpilogueArgs& epi, cudaStream_t stream) {
   auto kernel = qmatmul_kernel<A_BITS, W_BITS, STAGES, NT, MIN_BLOCKS>;
-  static const cudaError_t attr =
-      rq::tc::set_smem<NT, STAGES, STAGE_K>(kernel);
+  static rq::tc::OncePerDevice smem_set;
+  const cudaError_t attr = smem_set(
+      [&] { return rq::tc::set_smem<NT, STAGES, STAGE_K>(kernel); });
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.M + TILE_M - 1) / TILE_M, (a.N + NT - 1) / NT, splits);
   const int nstages = (a.k_logical + STAGE_K - 1) / STAGE_K;

@@ -117,8 +117,9 @@ cudaError_t launch_blocks(const int8_t* x, const int8_t* w, const int* codes,
                           int k_logical, int a_signed,
                           const rq::EpilogueArgs& epi, cudaStream_t stream) {
   auto kernel = qmatmul_segmented_kernel<A_BITS, STAGES, MIN_BLOCKS>;
-  static const cudaError_t attr =
-      rq::tc::set_smem<NT, STAGES, STAGE_K>(kernel);
+  static rq::tc::OncePerDevice smem_set;
+  const cudaError_t attr = smem_set(
+      [&] { return rq::tc::set_smem<NT, STAGES, STAGE_K>(kernel); });
   if (attr != cudaSuccess) return attr;
   const dim3 grid((M + TILE_M - 1) / TILE_M, N / NT, splits);
   const int nstages = (k_logical + STAGE_K - 1) / STAGE_K;

@@ -29,6 +29,16 @@ against the device the net is placed on.
 tune-cache probe, no dispatch event, no op counter. Its pipeline is
 explicit -> ``REPRO_QPIPELINE`` -> 'off'; its launch the planned one.
 
+**Cluster path** (`qdot_sharded`, `qconv_sharded`; ``mesh=`` on `qdot`
+and `qconv`): the paper's N-core cluster (fig. 9) on a
+`repro_torch.parallel.mesh.Mesh`. Packed weights and the per-N epilogue
+vectors are tensor-parallel over the output features (``model``),
+activation rows or images data-parallel over ``data`` (padded to a
+multiple, sliced back). K is never split, so every shard runs the whole
+eq. 2-4 pipeline at its local shape and the result equals one device's
+exactly, with no reduction across shards. Pipeline and launch resolve on
+the local shape; the op counters count the global one.
+
 **Observability.** With ``REPRO_OBS=1`` (`repro_torch.obs`), every call
 records one dispatch event (the choice and where each field came from,
 queryable via `repro_torch.obs.dispatch_log()`), bumps the per-(op,
@@ -39,6 +49,7 @@ single predicate per call.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -53,6 +64,9 @@ from repro_torch.kernels.qmatmul.kernel import (qmatmul_packed,
 from repro_torch.obs import counters as obs_counters
 from repro_torch.obs import env as obsenv
 from repro_torch.obs import trace as obs
+from repro_torch.parallel import mesh as pmesh
+from repro_torch.parallel import sharding as shrules
+from repro_torch.parallel.mesh import NamedSharding, P, device_put, gather
 
 # the backend a plan or the CLI may name, by the device it runs on
 BACKENDS = ("cuda", "torch")
@@ -136,11 +150,20 @@ def _run_counted(op: str, shape, a_bits: int, w_bits: int, backend: str,
 
 
 def qdot(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,
-         pipeline: Optional[str] = None) -> torch.Tensor:
+         pipeline: Optional[str] = None, mesh=None) -> torch.Tensor:
     """Quantized dot: integer images x_hat (..., K_logical) int8 x packed
     weights (`QuantizedLinearParams` or `SegmentedLinearParams`). Leading
     dims are flattened for the GEMM and restored; K is padded to CHUNK
-    and packed on the fly."""
+    and packed on the fly. With ``mesh=`` the call runs `qdot_sharded`."""
+    if mesh is not None:
+        if isinstance(params, SegmentedLinearParams):
+            raise NotImplementedError(
+                "qdot(mesh=...) does not take SegmentedLinearParams: "
+                "segment boundaries and the TP output-feature split would "
+                "have to be co-aligned; shard per segment above the op "
+                "instead")
+        return qdot_sharded(params, x_hat, mesh=mesh, epilogue=epilogue,
+                            scale=scale, pipeline=pipeline)
     lead = x_hat.shape[:-1]
     x2 = packing.pad_to_chunk(x_hat.reshape(-1, x_hat.shape[-1]), axis=-1)
     xp = packing.pack(x2, params.a_bits, axis=-1)
@@ -251,16 +274,15 @@ def int_gemm(x_q: torch.Tensor, w, *, a_bits: int,
 
 
 def qconv(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,
-          pipeline: Optional[str] = None) -> torch.Tensor:
+          pipeline: Optional[str] = None, mesh=None) -> torch.Tensor:
     """Quantized HWC conv: (N, H, W, Cin) int8 images -> (N, Ho, Wo, Cout)
     through the fused implicit-GEMM route. The shape key is (n, h, w, cin,
-    fh, fw, stride, padding, cout, groups), Cin the image's real one."""
-    if params.groups != 1:
-        raise ValueError(
-            f"qconv does not support grouped conv (groups={params.groups}); "
-            "lower depthwise/grouped layers via "
-            "repro_torch.vision.layers.QDepthwiseConv2D (per-group qconv "
-            "or block-diagonal im2col + qdot)")
+    fh, fw, stride, padding, cout, groups), Cin the image's real one.
+    With ``mesh=`` the call runs `qconv_sharded`."""
+    if mesh is not None:
+        return qconv_sharded(params, x_hat, mesh=mesh, epilogue=epilogue,
+                             scale=scale, pipeline=pipeline)
+    _check_ungrouped(params)
     g = params.gemm
     shape = (*x_hat.shape, params.fh, params.fw, params.stride,
              params.padding, params.cout, params.groups)
@@ -271,6 +293,15 @@ def qconv(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,
         "qconv", shape, g.a_bits, g.w_bits, backend, pipeline,
         lambda: qconv_run(params, x_hat, epilogue=epilogue, scale=scale,
                           pipeline=pipeline))
+
+
+def _check_ungrouped(params):
+    if params.groups != 1:
+        raise ValueError(
+            f"qconv does not support grouped conv (groups={params.groups}); "
+            "lower depthwise/grouped layers via "
+            "repro_torch.vision.layers.QDepthwiseConv2D (per-group qconv "
+            "or block-diagonal im2col + qdot)")
 
 
 def qconv_run(params, x_hat: torch.Tensor, *, epilogue: str, scale,
@@ -284,3 +315,125 @@ def qconv_run(params, x_hat: torch.Tensor, *, epilogue: str, scale,
         cin_pad=params.cin_pad, cout=params.cout, a_bits=g.a_bits,
         a_signed=g.a_signed, w_bits=g.w_bits, d=g.d, out_bits=g.out_bits,
         epilogue=epilogue, scale=scale, pipeline=pipeline)
+
+
+# ------------------------------------------------ cluster-parallel path ---
+
+def _cluster_prologue(mesh):
+    """(dp, tp, dp spec entry, tp spec entry) of a cluster call; an
+    absent axis acts as size 1, so pure-DP and pure-TP meshes work."""
+    return (shrules.cluster_axis_size(mesh, shrules.DP_AXIS),
+            shrules.cluster_axis_size(mesh, shrules.TP_AXIS),
+            shrules.axis_entry(mesh, shrules.DP_AXIS),
+            shrules.axis_entry(mesh, shrules.TP_AXIS))
+
+
+def _pad_rows(x: torch.Tensor, mult: int) -> torch.Tensor:
+    pad = (-x.shape[0]) % mult
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+
+
+def _run_on_mesh(mesh, out_spec, out_shape, placed, local):
+    """Run ``local(pos, *shards at pos)`` once per distinct (output block,
+    device) and assemble the outputs; ``placed`` are `Sharded` inputs."""
+    positions = pmesh.unique_positions(mesh, out_spec, len(out_shape))
+    outs = pmesh.run_per_shard(
+        mesh, local, [[a.shards[p] for a in placed] for p in positions],
+        positions)
+    return pmesh.assemble(mesh, out_spec, out_shape,
+                          dict(zip(positions, outs)))
+
+
+def qdot_sharded(params, x_hat: torch.Tensor, *, mesh, epilogue: str = "int",
+                 scale=1.0, pipeline: Optional[str] = None) -> torch.Tensor:
+    """`qdot` on a mesh (module docstring, cluster path). A presharded
+    artifact (`parallel.sharding.shard_packed_linear`) is taken as it is;
+    the result is one global tensor on ``x_hat``'s device."""
+    dp, tp, dpe, tpe = _cluster_prologue(mesh)
+    wspecs = shrules.packed_linear_specs(params, mesh)
+    lead = x_hat.shape[:-1]
+    x2 = x_hat.reshape(-1, x_hat.shape[-1])
+    m = x2.shape[0]
+    x2 = _pad_rows(x2, dp)
+    n = params.w_packed.shape[1]
+    k_pad = params.w_packed.shape[0] * packing.pack_factor(params.w_bits)
+    m_loc, n_loc = x2.shape[0] // dp, n // tp
+    backend = device_backend(mesh.flat[0])
+    launch, pipeline = _resolve_call("qdot", (m_loc, k_pad, n_loc),
+                                     params.a_bits, params.w_bits, backend,
+                                     pipeline)
+    per_n = not isinstance(scale, (int, float)) and \
+        torch.as_tensor(scale).dim() == 1
+    put = lambda a, spec: device_put(a, NamedSharding(mesh, spec))
+    placed = [put(x2, P(dpe, None)),
+              *(put(getattr(params, k), wspecs[k])
+                for k in ("w_packed", "kappa", "lam", "m"))]
+    if per_n:
+        placed.append(put(torch.as_tensor(scale, device=x_hat.device),
+                          P(tpe)))
+
+    def local(pos, xs, wp, kappa, lam, mm, s=scale):
+        p_loc = dataclasses.replace(params, w_packed=wp, kappa=kappa,
+                                    lam=lam, m=mm)
+        xp = packing.pack(packing.pad_to_chunk(xs, axis=-1), params.a_bits,
+                          axis=-1)
+        return qdot_run(p_loc, xp, epilogue=epilogue, scale=s,
+                        pipeline=pipeline, launch=launch)
+
+    out = _run_counted(
+        "qdot", (x2.shape[0], k_pad, n), params.a_bits, params.w_bits,
+        backend, pipeline,
+        lambda: gather(_run_on_mesh(mesh, P(dpe, tpe), (x2.shape[0], n),
+                                    placed, local), x_hat.device))
+    return out[:m].reshape(*lead, n)
+
+
+def qconv_sharded(params, x_hat: torch.Tensor, *, mesh, epilogue: str = "int",
+                  scale=1.0, pipeline: Optional[str] = None) -> torch.Tensor:
+    """`qconv` on a mesh: images data-parallel over the batch (padded to
+    a ``dp`` multiple, sliced back), both packed weight layouts and the
+    epilogue vectors tensor-parallel over Cout (module docstring)."""
+    _check_ungrouped(params)
+    dp, tp, dpe, tpe = _cluster_prologue(mesh)
+    wspecs = shrules.packed_conv_specs(params, mesh)
+    nb = x_hat.shape[0]
+    x = _pad_rows(x_hat, dp)
+    g = params.gemm
+    cout_loc = params.cout // tp
+    geom = (params.fh, params.fw, params.stride, params.padding)
+    backend = device_backend(mesh.flat[0])
+    _, pipeline = _resolve_call(
+        "qconv", (x.shape[0] // dp, *x.shape[1:], *geom, cout_loc,
+                  params.groups), g.a_bits, g.w_bits, backend, pipeline)
+    per_n = not isinstance(scale, (int, float)) and \
+        torch.as_tensor(scale).dim() == 1
+    put = lambda a, spec: device_put(a, NamedSharding(mesh, spec))
+    gs = wspecs["gemm"]
+    placed = [put(x, P(dpe, None, None, None)),
+              put(params.w_packed_fused, wspecs["w_packed_fused"]),
+              *(put(getattr(g, k), gs[k])
+                for k in ("w_packed", "kappa", "lam", "m"))]
+    if per_n:
+        placed.append(put(torch.as_tensor(scale, device=x_hat.device),
+                          P(tpe)))
+
+    def local(pos, xs, wpf, wp, kappa, lam, mm, s=scale):
+        g_loc = dataclasses.replace(g, w_packed=wp, kappa=kappa, lam=lam,
+                                    m=mm)
+        p_loc = dataclasses.replace(params, gemm=g_loc, w_packed_fused=wpf,
+                                    cout=cout_loc)
+        return qconv_run(p_loc, xs, epilogue=epilogue, scale=s,
+                         pipeline=pipeline)
+
+    ho = (x.shape[1] + 2 * params.padding - params.fh) // params.stride + 1
+    wo = (x.shape[2] + 2 * params.padding - params.fw) // params.stride + 1
+    out_shape = (x.shape[0], ho, wo, params.cout)
+    out = _run_counted(
+        "qconv", (*x.shape, *geom, params.cout, params.groups), g.a_bits,
+        g.w_bits, backend, pipeline,
+        lambda: gather(_run_on_mesh(mesh, P(dpe, None, None, tpe),
+                                    out_shape, placed, local),
+                       x_hat.device))
+    return out[:nb]

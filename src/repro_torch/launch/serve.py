@@ -32,6 +32,13 @@ this serves the deployed artifact:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --ckpt ckpt/ --plan plan.json
 
+``--mesh DP,TP`` serves the waves data-parallel over DP data blocks of
+slots, each decoding on its own position of a (data=DP, model=TP) mesh
+(positions share the host's devices round-robin; TP must be 1):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --smoke --quant w4a8 --device cpu --mesh 2,1
+
 With ``REPRO_OBS=1`` the run records a ``serve.generate`` span and
 exports a Chrome trace on exit to ``REPRO_OBS_TRACE`` (default
 ``serve_trace.json``); render it with ``python -m
@@ -63,6 +70,9 @@ def main(argv=None):
                     help="checkpoint dir to load fp params from")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="DP,TP",
+                    help="serve on a (data=DP, model=TP) mesh, waves "
+                         "sharded over 'data' (TP must be 1)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -72,6 +82,7 @@ def main(argv=None):
     from repro_torch.deploy.policy import load_plan
     from repro_torch.device import resolve_device
     from repro_torch.launch.convert import convert_params
+    from repro_torch.launch.mesh import mesh_line, parse_mesh
     from repro_torch.models.api import build, get_config, get_smoke_config
     from repro_torch.nn.layers import QuantConfig
     from repro_torch.nn.module import param_bytes
@@ -79,6 +90,7 @@ def main(argv=None):
     from repro_torch.serve.engine import Engine, Request
 
     device = resolve_device(args.device)
+    mesh = None if args.mesh is None else parse_mesh(args.mesh, device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
     cfg = dataclasses.replace(cfg, kv_quant_bits=args.kv_bits)
@@ -125,7 +137,9 @@ def main(argv=None):
         int(rng.integers(2, 8)),)).astype(np.int32),
         max_new_tokens=args.max_new) for _ in range(args.requests)]
     eng = Engine(model, params, batch_size=args.batch, max_len=args.max_len,
-                 plan=plan, device=device)
+                 plan=plan, device=device, mesh=mesh)
+    if mesh is not None:
+        print(f"mesh: {mesh_line(mesh)}; waves sharded over 'data'")
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "CPU, the kernels' plain versions")
     t0 = time.perf_counter()
@@ -143,6 +157,12 @@ def main(argv=None):
               f"p95={lat['p95'] / 1e3:.1f}ms p99={lat['p99'] / 1e3:.1f}ms "
               f"over {lat['waves']} wave(s); queue depth mean "
               f"{qd['mean']:.1f} max {qd['max']}")
+    if mesh is not None:
+        per = " ".join(f"d{d}={u:.0%}" for d, u in
+                       enumerate(rep["per_device"]))
+        print(f"cluster utilization: {rep['mean_util']:.0%} over "
+              f"{rep['waves']} wave(s) [{per}] — idle devices == padded "
+              "slots")
     for r in out[:3]:
         print("  prompt", r.prompt.tolist(), "->", r.out.tolist())
     trace_path = obs.export_if_configured("serve_trace.json")

@@ -11,7 +11,12 @@ at ``--budget``, ``auto`` by default) and save the plan to ``--out``.
 ``--from-plan`` loads a plan JSON instead (one saved by the reference
 loads too; a channel-group plan with segments comes in this way). The
 net is packed and served through `VisionEngine` on ``--device`` (default
-``cuda``).
+``cuda``). ``--mesh DP,TP`` serves the waves on a (data=DP, model=TP)
+cluster mesh: images data-parallel, conv and linear output channels
+tensor-parallel; on one card every position shares it:
+
+    PYTHONPATH=src python -m repro_torch.launch.vision --net resnet8 \
+        --smoke --device cpu --mesh 2,2
 
 With ``REPRO_OBS=1`` the run records spans (``deploy.calibrate``,
 ``deploy.plan``, ``deploy.pack``, ``serve.generate``), the kernels'
@@ -65,6 +70,9 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="DP,TP",
+                    help="serve on a (data=DP, model=TP) mesh; positions "
+                         "share the host's devices round-robin")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -75,6 +83,7 @@ def main(argv=None):
     from repro_torch.deploy.policy import load_plan, save_plan
     from repro_torch.device import resolve_device
     from repro_torch.kernels.api import check_backend
+    from repro_torch.launch.mesh import mesh_line, parse_mesh
     from repro_torch.obs import trace as obs
     from repro_torch.serve.engine import VisionEngine
     from repro_torch.vision.configs import get_vision_config
@@ -84,6 +93,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     check_backend(args.backend, device)
+    mesh = None if args.mesh is None else parse_mesh(args.mesh, device)
     cfg = get_vision_config(args.net, smoke=args.smoke, a_bits=args.a_bits)
     candidates = tuple(int(b) for b in args.bits.split(","))
     rng = np.random.default_rng(args.seed)
@@ -131,7 +141,10 @@ def main(argv=None):
     print(f"packed artifact: {vision_artifact_bytes(qnet):,} bytes, "
           f"per-layer bits {qnet.layer_bits()}")
 
-    engine = VisionEngine(qnet, batch_size=args.batch, device=device)
+    engine = VisionEngine(qnet, batch_size=args.batch, device=device,
+                          mesh=mesh)
+    if mesh is not None:
+        print(f"mesh: {mesh_line(mesh)}")
     images = rng.uniform(0, 1, size=(
         args.requests, *cfg.in_hw, cfg.in_ch)).astype(np.float32)
     with obs.span("serve.generate", cat="serve", requests=len(images),
@@ -139,10 +152,15 @@ def main(argv=None):
         logits = engine.run(images)
     print(f"served {len(images)} images in waves of {args.batch} on "
           f"{device}: preds {logits.argmax(-1).tolist()}")
-    lat = engine.utilization_report()["latency_us"]
+    rep = engine.utilization_report()
+    lat = rep["latency_us"]
     if lat is not None:
         print(f"wave latency: p50={lat['p50'] / 1e3:.3f}ms "
               f"p95={lat['p95'] / 1e3:.3f}ms over {lat['waves']} wave(s)")
+    if mesh is not None:
+        print(f"utilization: mean {rep['mean_util']:.3f} over "
+              f"{rep['waves']} waves, per-device "
+              f"{[round(u, 3) for u in rep['per_device']]}")
     trace_path = obs.export_if_configured("vision_trace.json")
     if trace_path:
         print(f"trace -> {trace_path} (render: python -m "

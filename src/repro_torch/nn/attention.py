@@ -6,7 +6,9 @@ GQA keeps an explicit group dim (no KV head is ever replicated). Every
 projection is a quantization-aware dense layer, so the packed sub-byte
 GEMM serves all four. The score and value contractions are plain torch
 einsums with a float32 softmax, as the reference leaves them to XLA
-outside any kernel. There is no mesh, so there is no sharding strategy.
+outside any kernel. `attn_strategy` names the reference's sharding
+strategy for the active mesh; the port's attention runs whole on each
+data block, so it reads the strategy nowhere yet.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from repro_torch.deploy.policy import PrecisionPlan, resolve_qcfg
 from repro_torch.nn.layers import (QOFF, QuantConfig, const, dense_apply,
                                    dense_def, rope_apply, rope_single)
+from repro_torch.parallel.ctx import active_mesh
 
 NEG_INF = -2.0e38
 
@@ -72,6 +75,30 @@ def _mask_full(q_len, k_len, mode, window, device, q_offset=0):
     if mode == "local":
         allow = allow & (q_pos - k_pos < window)
     return allow
+
+
+def attn_strategy(hk: int, groups: int, s_len: int, t_len: int,
+                  batch=None) -> str:
+    """One sharding strategy per attention call on the active mesh
+    (`repro_torch.parallel.ctx.active_mesh`):
+
+    'tp'  kv_heads divide the model axis: classic tensor parallelism;
+    'cp'  context parallel: q-seq (train / prefill) or kv-seq (decode)
+          divides it;
+    'gp'  the GQA group dim divides it (q-only tensor parallelism);
+    'none' no mesh, or nothing divides.
+    """
+    mesh = active_mesh()
+    if mesh is None:
+        return "none"
+    m = mesh.shape.get("model", 1)
+    if hk % m == 0:
+        return "tp"
+    if (s_len > 1 and s_len % m == 0) or (s_len == 1 and t_len % m == 0):
+        return "cp"
+    if groups % m == 0:
+        return "gp"
+    return "none"
 
 
 def _sdpa(q, k, v, mask):

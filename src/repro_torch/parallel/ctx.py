@@ -1,0 +1,54 @@
+"""Activation-sharding context: the ambient mesh and logical constraints.
+
+**Paper analogy (XpulpNN §V):** an active mesh is the paper's parallel
+cluster, one mesh position per core. `use_mesh` / `activation_sharding`
+enter that context; `active_mesh()` reads it (`nn.attention.attn_strategy`
+picks its strategy from it).
+
+`constrain(x, axes)` and `constrain_first(x, options)` keep the
+reference's call shape but return ``x`` unchanged: the reference hands
+the resolved PartitionSpec to GSPMD inside ``jit``, which moves the data;
+eager torch has no partitioner to hand it to. The port shards explicitly
+instead (`repro_torch.kernels.api.qdot_sharded`, the engines' data
+blocks), so a constraint has nothing left to do.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+from repro_torch.parallel.sharding import DEFAULT_RULES
+
+_ACTIVE = contextvars.ContextVar("repro_torch_mesh_ctx", default=None)
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, rules=DEFAULT_RULES):
+    tok = _ACTIVE.set((mesh, rules))
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(tok)
+
+
+def use_mesh(mesh):
+    """The ambient-mesh context manager. The reference keeps two (jax's
+    ambient mesh for ``jit`` and this module's for the constraints); the
+    port has only this one, so `active_mesh()` returns ``mesh`` inside
+    either."""
+    return activation_sharding(mesh)
+
+
+def active_mesh():
+    ctx = _ACTIVE.get()
+    return ctx[0] if ctx else None
+
+
+def constrain(x, axes):
+    """``x`` unchanged (module docstring)."""
+    return x
+
+
+def constrain_first(x, options):
+    """``x`` unchanged (module docstring)."""
+    return x

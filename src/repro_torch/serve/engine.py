@@ -7,6 +7,14 @@ plus streaming decode; `VisionEngine`'s are images. A ragged last wave
 runs with empty slots that never reach the results. A `Scheduler` with
 the default ``policy="continuous"`` over the same adapter re-admits
 mid-wave and gives the same per-request outputs.
+
+Cluster-parallel serving (paper fig. 9: one mesh position per core of
+the 8-core cluster): with ``mesh=`` the wave's slots split into data
+blocks over ``data``, a ragged batch padded with slots that are never
+admitted, and the per-device utilization of each wave is recorded (an
+idle core is a pad slot). `VisionEngine` also runs every conv and linear
+tensor-parallel over ``model``; `Engine` refuses a ``model`` axis larger
+than 1 (`LMDecodeAdapter`).
 """
 from __future__ import annotations
 
@@ -31,6 +39,10 @@ class _WaveShim:
     def wave_stats(self) -> List[dict]:
         return self._sched.wave_stats
 
+    @property
+    def _dp(self) -> int:
+        return self._sched._dp
+
     def utilization_report(self) -> dict:
         return self._sched.utilization_report()
 
@@ -44,13 +56,15 @@ class Engine(_WaveShim):
     ``batch_size``. Weights may be packed sub-byte (QuantConfig
     mode='int'); the KV cache may be int8 (kv_quant_bits=8). The params
     must already live on ``device``. ``plan``: the `PrecisionPlan` the
-    params were packed with, kept for introspection."""
+    params were packed with, kept for introspection. ``mesh``: serve the
+    waves data-parallel over ``data`` (module docstring)."""
 
     def __init__(self, model, params, batch_size: int, max_len: int,
-                 eos_id: int = 1, plan=None, *, device="cuda"):
+                 eos_id: int = 1, plan=None, *, device="cuda", mesh=None):
         dev = resolve_device(device)
         self._adapter = LMDecodeAdapter(model, params, max_len,
-                                        eos_id=eos_id, plan=plan)
+                                        eos_id=eos_id, plan=plan,
+                                        mesh=mesh)
         if self._adapter.device.type != dev.type:
             raise ValueError(
                 f"the params live on {self._adapter.device}, the engine "
@@ -61,6 +75,7 @@ class Engine(_WaveShim):
         self.max_len = max_len
         self.eos = eos_id
         self.plan = plan
+        self.mesh = mesh
         self._sched = Scheduler(self._adapter, batch_size, policy="wave")
 
     def artifact_bytes(self) -> int:
@@ -76,9 +91,11 @@ class Engine(_WaveShim):
 
 class VisionEngine(_WaveShim):
     """Serve a `QuantizedVisionNet` in waves of ``batch_size`` images on
-    ``device`` (default ``"cuda"``); the net must already live there."""
+    ``device`` (default ``"cuda"``); the net must already live there.
+    ``mesh``: every conv and linear runs on the cluster path, the wave's
+    images data-parallel over ``data`` (module docstring)."""
 
-    def __init__(self, qnet, batch_size: int, *, device="cuda"):
+    def __init__(self, qnet, batch_size: int, *, device="cuda", mesh=None):
         dev = resolve_device(device)
         if qnet.device.type != dev.type:
             raise ValueError(
@@ -86,7 +103,8 @@ class VisionEngine(_WaveShim):
                 f"serve on {dev}; quantize_net(..., device=) places it")
         self.qnet = qnet
         self.batch = batch_size
-        self._adapter = VisionAdapter(qnet)
+        self.mesh = mesh
+        self._adapter = VisionAdapter(qnet, mesh=mesh)
         self._sched = Scheduler(self._adapter, batch_size, policy="wave")
 
     def artifact_bytes(self) -> int:

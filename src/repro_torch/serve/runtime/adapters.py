@@ -7,6 +7,13 @@ computes): ``init_state``/``reset_state`` for carried per-slot state,
 request cursor hooks ``begin``/``feed``/``consume`` (whose return value
 is the finished predicate). Every step must be row-independent, which
 makes per-request outputs independent of batching and admission order.
+
+On a mesh (``mesh=``) the slots split into ``dp`` contiguous data blocks,
+one per position of the ``data`` axis (the scheduler pads the slot count
+to a multiple of ``dp``). Each block's step runs on its position's
+device, on a stream of its own where several share a card
+(`repro_torch.parallel.mesh.run_per_shard`), and the rows are gathered
+back in slot order, so per-request outputs equal the meshless ones.
 """
 from __future__ import annotations
 
@@ -16,6 +23,13 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.parallel.mesh import (NamedSharding, assemble,
+                                       axis_positions, run_per_shard,
+                                       tree_map)
+from repro_torch.parallel.sharding import (DP_AXIS, TP_AXIS,
+                                           cache_shardings,
+                                           cluster_axis_size)
+
 # per-slot carried state that must be cleared on slot reuse, keyed by the
 # cache subtree name: leaves are (layers, slots, ...) with zero init
 STATE_RESET_KEYS = ("ssm", "rec")
@@ -23,10 +37,13 @@ STATE_RESET_KEYS = ("ssm", "rec")
 
 class WorkloadAdapter:
     """Base contract; subclasses set ``name`` and ``max_len`` and
-    implement the hooks below."""
+    implement the hooks below. ``mesh``: the mesh the adapter serves on
+    (None: one device); the scheduler splits its slots over its ``data``
+    axis."""
 
     name: str = "?"
     max_len: int = 1
+    mesh = None
 
     def init_state(self, slots: int):
         return None
@@ -110,22 +127,73 @@ class LMDecodeAdapter(WorkloadAdapter):
     ``prompt_len + k < max_len`` and no earlier EOS; the EOS token itself
     is emitted. Non-greedy sampling draws from a per-request generator
     seeded ``(seed, rid)``, so outputs do not depend on admission order.
+
+    With ``mesh=`` each data block of slots decodes on its own device
+    (module docstring), the params replicated once per distinct device
+    (blocks that share a card share one copy), and the cache is a tree
+    of `Sharded` leaves placed per `cache_shardings`' batch entry. A
+    ``model`` axis larger than 1 raises: the reference shards LM
+    activations over heads only through partitioner constraints inside
+    ``jit``, and explicit LM tensor parallelism is not ported.
     """
 
     name = "lm"
 
     def __init__(self, model, params, max_len: int, *, eos_id: int = 1,
-                 plan=None):
+                 plan=None, mesh=None):
         self.model = model
         self.params = params
         self.max_len = max_len
         self.eos = eos_id
         self.plan = plan
         self.device = _tree_device(params)
+        self.mesh = mesh
+        if mesh is None:
+            return
+        from repro_torch.convert import to_device
+
+        if cluster_axis_size(mesh, TP_AXIS) > 1:
+            raise NotImplementedError(
+                f"LM serving on a {TP_AXIS!r} axis of size "
+                f"{mesh.shape[TP_AXIS]}: explicit LM tensor parallelism "
+                "(heads / mlp over 'model', the KV cache's kv_heads "
+                "entry) is not ported; serve with model=1")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"the params live on {self.device}, the mesh "
+                             f"on {mesh.device_type} devices")
+        # data block d runs at the position whose data index is d
+        self.dp = cluster_axis_size(mesh, DP_AXIS)
+        self._block_pos = axis_positions(mesh, DP_AXIS)
+        self._params = {}
+        for p in self._block_pos:
+            dev = mesh.flat[p]
+            if dev not in self._params:
+                self._params[dev] = (params if dev == self.device
+                                     else to_device(params, dev))
 
     def init_state(self, slots: int):
-        return self.model.init_cache(slots, self.max_len,
-                                     device=self.device)
+        if self.mesh is None:
+            return self.model.init_cache(slots, self.max_len,
+                                         device=self.device)
+        specs = cache_shardings(
+            self.model.init_cache(slots, self.max_len, device="meta"),
+            self.mesh)
+        flat = self.mesh.flat
+        local = {p: self.model.init_cache(slots // self.dp, self.max_len,
+                                          device=flat[p])
+                 for p in self._block_pos}
+        return self._assemble(specs, local, slots)
+
+    def _assemble(self, specs, local, slots):
+        """Per-block cache trees (``local[pos]``) -> one tree of `Sharded`
+        leaves of ``slots`` rows."""
+        def leaf(sharding: NamedSharding, *blocks):
+            shape = list(blocks[0].shape)
+            shape[_batch_dim(sharding)] = slots
+            return assemble(self.mesh, sharding.spec, shape,
+                            dict(zip(self._block_pos, blocks)))
+
+        return tree_map(leaf, specs, *(local[p] for p in self._block_pos))
 
     def reset_state(self, cache, slot_mask: np.ndarray):
         """Zero the carried recurrent rows (SSM / RG-LRU) of re-admitted
@@ -135,14 +203,22 @@ class LMDecodeAdapter(WorkloadAdapter):
         keys = [k for k in STATE_RESET_KEYS if k in cache]
         if not keys or not slot_mask.any():
             return cache
-        mask = torch.from_numpy(np.asarray(slot_mask, bool)).to(self.device)
+        slot_mask = np.asarray(slot_mask, bool)
+        if self.mesh is None:
+            blocks = [(None, torch.from_numpy(slot_mask).to(self.device))]
+        else:
+            b = len(slot_mask) // self.dp
+            blocks = [(p, torch.from_numpy(slot_mask[i * b:(i + 1) * b])
+                       .to(self.mesh.flat[p]))
+                      for i, p in enumerate(self._block_pos)]
 
         def clear(tree):
             for leaf in tree.values():
                 if isinstance(leaf, dict):
                     clear(leaf)
-                else:
-                    leaf[:, mask] = 0
+                    continue
+                for p, mask in blocks:
+                    (leaf if p is None else leaf.shards[p])[:, mask] = 0
 
         for k in keys:
             clear(cache[k])
@@ -152,10 +228,35 @@ class LMDecodeAdapter(WorkloadAdapter):
         return ((1,), np.int32)
 
     def step(self, cache, feed, positions):
+        if self.mesh is not None:
+            return self._step_mesh(cache, feed, positions)
         tok = torch.from_numpy(feed).to(self.device)
         pos = torch.from_numpy(positions.astype(np.int64)).to(self.device)
         logits, cache = self.model.decode(self.params, cache, tok, pos)
         return logits[:, -1].to(torch.float32).cpu().numpy(), cache
+
+    def _step_mesh(self, cache, feed, positions):
+        b = len(feed) // self.dp
+        flat = self.mesh.flat
+        inputs = []
+        for i, p in enumerate(self._block_pos):
+            rows = slice(i * b, (i + 1) * b)
+            inputs.append((
+                torch.from_numpy(feed[rows]).to(flat[p]),
+                torch.from_numpy(positions[rows].astype(np.int64))
+                .to(flat[p]),
+                tree_map(lambda s, p=p: s.shards[p], cache)))
+
+        def local(p, tok, pos, block_cache):
+            logits, block_cache = self.model.decode(
+                self._params[flat[p]], block_cache, tok, pos)
+            return logits[:, -1].to(torch.float32), block_cache
+
+        outs = run_per_shard(self.mesh, local, inputs, self._block_pos)
+        rows = np.concatenate([o[0].cpu().numpy() for o in outs])
+        local_trees = dict(zip(self._block_pos, (o[1] for o in outs)))
+        specs = tree_map(lambda s: s.sharding, cache)
+        return rows, self._assemble(specs, local_trees, len(feed))
 
     def begin(self, payload: Request, *, rid: int, greedy: bool = True,
               seed: int = 0):
@@ -213,6 +314,16 @@ class LMDecodeAdapter(WorkloadAdapter):
         return len(cur.out)
 
 
+def _batch_dim(sharding: NamedSharding) -> int:
+    """The dim a cache leaf's spec splits over the ``data`` axis."""
+    for i, entry in enumerate(sharding.spec):
+        if entry == DP_AXIS or (isinstance(entry, tuple)
+                                and DP_AXIS in entry):
+            return i
+    raise ValueError(f"cache spec {sharding.spec} does not split the "
+                     f"batch over {DP_AXIS!r}")
+
+
 # ---------------------------------------------------------------- vision ---
 
 @dataclasses.dataclass
@@ -228,16 +339,26 @@ class VisionAdapter(WorkloadAdapter):
     one step is one batched integer forward on the net's device, and every
     admitted request finishes after exactly one step. Images are quantized
     per request with the net's input spec (elementwise, so identical to a
-    whole-batch quantize)."""
+    whole-batch quantize).
+
+    With ``mesh=`` every conv and linear runs on the cluster path
+    (`forward_int(mesh=)`), the images data-parallel over ``data`` and
+    the output channels over ``model``; the net's packed weights are
+    placed on the mesh once (`shard_net`)."""
 
     name = "vision"
     max_len = 1
 
-    def __init__(self, qnet):
-        from repro_torch.vision.models import forward_int
+    def __init__(self, qnet, *, mesh=None):
+        from repro_torch.vision.models import forward_int, shard_net
 
         self.qnet = qnet
         self.device = qnet.device
+        self.mesh = mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the net lives on {self.device}, the mesh "
+                             f"on {mesh.device_type} devices")
+        self._net = qnet if mesh is None else shard_net(qnet, mesh)
         self._forward = forward_int
         self._spec = ((*qnet.cfg.in_hw, qnet.cfg.in_ch), np.int8)
 
@@ -246,7 +367,7 @@ class VisionAdapter(WorkloadAdapter):
 
     def step(self, state, feed, positions):
         x = torch.from_numpy(feed).to(self.device)
-        logits = self._forward(self.qnet, x)
+        logits = self._forward(self._net, x, mesh=self.mesh)
         return logits.cpu().numpy(), state
 
     def begin(self, payload, *, rid: int, greedy: bool = True,

@@ -25,6 +25,7 @@ from typing import Any, Deque, Dict, List, Optional
 import numpy as np
 
 from repro_torch.obs import trace as obs
+from repro_torch.parallel.sharding import DP_AXIS, cluster_axis_size
 from repro_torch.serve.runtime.slots import SlotManager
 
 
@@ -33,18 +34,25 @@ class Backpressure(RuntimeError):
 
 
 class WaveStats:
-    """Per-wave slot utilization + latency bookkeeping. ``clock`` is an
-    instance-overridable callable so tests can inject a fake."""
+    """Per-wave per-device slot utilization + latency bookkeeping: device
+    d of ``dp`` owns the contiguous slot range [d*B/dp, (d+1)*B/dp) and
+    real slots fill from 0, so a padded slot is an idle cluster core (the
+    paper's fig. 9 readout). ``clock`` is an instance-overridable
+    callable so tests can inject a fake."""
 
     clock = staticmethod(time.perf_counter)   # seconds
 
-    def __init__(self, batch: int = 0):
+    def __init__(self, batch: int = 0, dp: int = 1):
         self.batch = batch
+        self._dp = dp
         self.wave_stats: List[dict] = []
 
     def _record_wave(self, n_real: int, queue_depth: int = 0):
+        b_loc = self.batch // self._dp
+        per_dev = [min(max(n_real - d * b_loc, 0), b_loc) / b_loc
+                   for d in range(self._dp)]
         self.wave_stats.append({"n_real": n_real, "batch": self.batch,
-                                "util": n_real / self.batch,
+                                "per_device": per_dev,
                                 "queue_depth": queue_depth,
                                 "t0": self.clock(), "latency_us": None})
 
@@ -56,11 +64,15 @@ class WaveStats:
         return w
 
     def utilization_report(self) -> dict:
-        """Slot utilization, wave-latency percentiles and queue depth over
-        the waves served so far."""
+        """Per-device slot utilization, wave-latency percentiles and queue
+        depth over the waves served so far."""
         if not self.wave_stats:
-            return {"waves": 0, "mean_util": 0.0, "latency_us": None,
-                    "queue_depth": None}
+            return {"devices": self._dp, "waves": 0, "mean_util": 0.0,
+                    "per_device": [0.0] * self._dp, "latency_us": None,
+                    "queue_depth": None, "occupancy_timeline": []}
+        per_dev = [float(np.mean([w["per_device"][d]
+                                  for w in self.wave_stats]))
+                   for d in range(self._dp)]
         lats = [w["latency_us"] for w in self.wave_stats
                 if w.get("latency_us") is not None]
         latency = None
@@ -72,12 +84,14 @@ class WaveStats:
                        "max": float(np.max(lats)),
                        "waves": len(lats)}
         depths = [w.get("queue_depth", 0) for w in self.wave_stats]
-        return {"waves": len(self.wave_stats),
-                "mean_util": float(np.mean([w["util"]
-                                            for w in self.wave_stats])),
+        return {"devices": self._dp, "waves": len(self.wave_stats),
+                "mean_util": float(np.mean(per_dev)),
+                "per_device": per_dev,
                 "latency_us": latency,
                 "queue_depth": {"mean": float(np.mean(depths)),
-                                "max": int(np.max(depths))}}
+                                "max": int(np.max(depths))},
+                "occupancy_timeline": [list(w["per_device"])
+                                       for w in self.wave_stats]}
 
 
 @dataclasses.dataclass
@@ -94,23 +108,31 @@ class _Entry:
 class Scheduler(WaveStats):
     """Workload-agnostic serving loop over a `WorkloadAdapter`.
 
-    ``num_slots`` is the number of request slots (the wave's batch size);
-    ``max_queue`` bounds the admission queue (`submit` raises
-    `Backpressure` when it is full).
+    ``num_slots`` is the number of real request slots (the wave's batch
+    size). When the adapter serves on a mesh (``adapter.mesh``) the
+    physical slot array is padded to a multiple of its ``data`` axis size
+    and device *d* owns a contiguous block (a ragged ``num_slots % dp`` is
+    absorbed by pad slots that are never admitted). ``max_queue``
+    bounds the admission queue (`submit` raises `Backpressure` when it is
+    full).
     """
 
     def __init__(self, adapter, num_slots: int, *,
-                 policy: str = "continuous", max_queue: Optional[int] = None,
-                 page_tokens: int = 16):
+                 policy: str = "continuous",
+                 max_queue: Optional[int] = None, page_tokens: int = 16):
         if policy not in ("continuous", "wave"):
             raise ValueError(f"unknown policy {policy!r}")
+        mesh = adapter.mesh
+        dp = 1 if mesh is None else cluster_axis_size(mesh, DP_AXIS)
         self.adapter = adapter
         self.policy = policy
         self.max_queue = max_queue
-        self.slots = SlotManager(num_slots, adapter.max_len,
+        self.slots = SlotManager(num_slots, adapter.max_len, dp=dp,
                                  page_tokens=page_tokens)
-        super().__init__(batch=num_slots)
-        self.state = adapter.init_state(num_slots)
+        # wave stats run over the physical array, so the per-device
+        # columns line up with the mesh blocks
+        super().__init__(batch=self.slots.phys, dp=dp)
+        self.state = adapter.init_state(self.slots.phys)
         self._queue: Deque[_Entry] = collections.deque()
         self._entries: Dict[int, _Entry] = {}
         self.results: Dict[int, Any] = {}
@@ -159,7 +181,7 @@ class Scheduler(WaveStats):
             while self._queue and self.slots.free_slots:
                 admitted.append(self._admit_one(now))
         if admitted:
-            mask = np.zeros(self.slots.real, bool)
+            mask = np.zeros(self.slots.phys, bool)
             mask[[e.sid for e in admitted]] = True
             self.state = self.adapter.reset_state(self.state, mask)
 
@@ -179,8 +201,8 @@ class Scheduler(WaveStats):
         if not active:
             return []
         shape, dtype = self.adapter.input_spec()
-        feed = np.zeros((self.slots.real, *shape), dtype)
-        pos = np.zeros(self.slots.real, np.int32)
+        feed = np.zeros((self.slots.phys, *shape), dtype)
+        pos = np.zeros(self.slots.phys, np.int32)
         for s in active:
             row, p = self.adapter.feed(self._entries[s.rid].cursor)
             feed[s.sid] = row
@@ -198,7 +220,8 @@ class Scheduler(WaveStats):
         self.step_log.append({
             "t": now, "active": len(active),
             "queue_depth": len(self._queue),
-            "occupancy": self.slots.occupancy()})
+            "occupancy": self.slots.occupancy(),
+            "per_device": self.slots.device_occupancy()})
         return finished
 
     def _finish(self, e: _Entry, now: float):
@@ -249,6 +272,7 @@ class Scheduler(WaveStats):
         return {
             "policy": self.policy,
             "slots": self.slots.real,
+            "devices": self._dp,
             "requests": len(self.request_log),
             "steps": len(self.step_log),
             "tokens_out": int(sum(r["tokens_out"]

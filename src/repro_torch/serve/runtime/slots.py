@@ -7,6 +7,12 @@ pages of ``page_tokens`` positions: a request reserves
 ``ceil(min(tokens, max_len) / page_tokens)`` pages on admission and
 touches them as its position advances.
 
+A data-parallel mesh of ``dp`` devices owns the slots in contiguous
+blocks: the physical slot count is padded up to the next multiple of
+``dp``, pad slots are never admitted, and device *d* owns
+``[d*block, (d+1)*block)``. A ragged ``num_slots % dp`` costs idle slots,
+not an error.
+
 Counters (`repro_torch.obs.trace`): ``serve.admits``, ``serve.evicts``,
 ``serve.pages_reserved``, ``serve.pages_released``.
 """
@@ -38,13 +44,16 @@ class Slot:
 
 
 class SlotManager:
-    def __init__(self, num_slots: int, max_len: int, *,
+    def __init__(self, num_slots: int, max_len: int, *, dp: int = 1,
                  page_tokens: int = 16):
         if num_slots < 1:
             raise ValueError(f"num_slots={num_slots} must be >= 1")
         if page_tokens < 1:
             raise ValueError(f"page_tokens={page_tokens} must be >= 1")
         self.real = num_slots
+        self.dp = max(int(dp), 1)
+        self.block = -(-num_slots // self.dp)     # slots per device
+        self.phys = self.block * self.dp
         self.max_len = max_len
         self.page_tokens = page_tokens
         self.pages_per_slot = -(-max_len // page_tokens)
@@ -102,3 +111,12 @@ class SlotManager:
 
     def occupancy(self) -> float:
         return (self.real - len(self._free)) / self.real
+
+    def device_occupancy(self) -> List[float]:
+        """Fraction of each device's ``block`` physical slots doing real
+        work (a pad or free slot is an idle cluster core)."""
+        busy = [0] * self.dp
+        for s in self.slots:
+            if not s.free:
+                busy[s.sid // self.block] += 1
+        return [b / self.block for b in busy]

@@ -142,9 +142,9 @@ class QConv2D:
     conv: QuantizedConvParams
     pipeline: Optional[str] = None
 
-    def apply(self, x_hat, *, pipeline: Optional[str] = None):
+    def apply(self, x_hat, *, pipeline: Optional[str] = None, mesh=None):
         return api.qconv(self.conv, x_hat,
-                         pipeline=pipeline or self.pipeline)
+                         pipeline=pipeline or self.pipeline, mesh=mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,13 +155,14 @@ class QSegmentedConv2D:
     Each ``(n_start, n_end, w_bits)`` run is quantized as a uniform layer
     over its column slice (its own per-tensor weight grid and its own
     eq. 3/4 fold), which is what `SegmentedLinearParams.segment_params`
-    defines a segmented container to mean."""
+    defines a segmented container to mean. On a mesh each run shards
+    on its own output channels."""
 
     runs: Tuple[Tuple[int, int, int], ...]
     parts: Tuple[QConv2D, ...]
 
-    def apply(self, x_hat, *, pipeline: Optional[str] = None):
-        return torch.cat([p.apply(x_hat, pipeline=pipeline)
+    def apply(self, x_hat, *, pipeline: Optional[str] = None, mesh=None):
+        return torch.cat([p.apply(x_hat, pipeline=pipeline, mesh=mesh)
                           for p in self.parts], dim=-1)
 
 
@@ -184,8 +185,10 @@ class QDepthwiseConv2D:
     * ``per_group``: C standard convs (cin = cout = 1) through
       `api.qconv`, each on its channel's slice of the shared fold.
 
-    ``lowering='auto'`` is `AUTO_LOWERING`. ``pipeline`` comes from the
-    plan; a call-time value wins."""
+    ``lowering='auto'`` is `AUTO_LOWERING`; on a mesh it is ``qdot``, and
+    ``per_group`` is refused there (cout = 1 per-channel convs have no
+    tensor-parallel axis). ``pipeline`` comes from the plan; a call-time
+    value wins."""
 
     gemm: QuantizedLinearParams            # block-diagonal (fh*fw*C -> C)
     per_group: Tuple[QuantizedConvParams, ...]
@@ -197,21 +200,26 @@ class QDepthwiseConv2D:
     pipeline: Optional[str] = None
 
     def apply(self, x_hat, *, pipeline: Optional[str] = None,
-              lowering: str = "auto"):
+              lowering: str = "auto", mesh=None):
         pipeline = pipeline or self.pipeline
         if lowering not in LOWERINGS:
             raise ValueError(f"unknown depthwise lowering {lowering!r}; "
                              "expected 'auto', 'qdot' or 'per_group'")
         if lowering == "auto":
-            lowering = AUTO_LOWERING
+            lowering = AUTO_LOWERING if mesh is None else "qdot"
         if lowering == "per_group":
+            if mesh is not None:
+                raise ValueError(
+                    "depthwise lowering 'per_group' cannot run on a mesh "
+                    "(cout=1 per-group convs have no tensor-parallel "
+                    "axis); use lowering='qdot' or 'auto'")
             return torch.cat([api.qconv(pg, x_hat[..., c:c + 1],
                                         pipeline=pipeline)
                               for c, pg in enumerate(self.per_group)],
                              dim=-1)
         cols, _, _ = im2col_hwc(x_hat, self.fh, self.fw, self.stride,
                                 self.padding)
-        return api.qdot(self.gemm, cols, pipeline=pipeline)
+        return api.qdot(self.gemm, cols, pipeline=pipeline, mesh=mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,9 +231,9 @@ class QLinear:
     epilogue: str = "raw"
     pipeline: Optional[str] = None
 
-    def apply(self, x_hat, *, pipeline: Optional[str] = None):
+    def apply(self, x_hat, *, pipeline: Optional[str] = None, mesh=None):
         return api.qdot(self.gemm, x_hat, epilogue=self.epilogue,
-                        pipeline=pipeline or self.pipeline)
+                        pipeline=pipeline or self.pipeline, mesh=mesh)
 
 
 @dataclasses.dataclass(frozen=True)

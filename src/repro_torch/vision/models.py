@@ -25,6 +25,8 @@ from repro_torch.deploy.policy import PrecisionPlan, resolve_qcfg
 from repro_torch.device import resolve_device
 from repro_torch.kernels.api import check_backend
 from repro_torch.nn.layers import QuantConfig
+from repro_torch.parallel.sharding import (shard_packed_conv,
+                                           shard_packed_linear)
 from repro_torch.vision import layers as vl
 
 COMPUTE_KINDS = ("conv", "dwconv", "linear")    # plan-addressable layers
@@ -358,20 +360,25 @@ def quantize_input(qnet: QuantizedVisionNet, x) -> torch.Tensor:
 
 def forward_int(qnet: QuantizedVisionNet, x_hat: torch.Tensor, *,
                 pipeline: Optional[str] = None, lowering: str = "auto",
-                collect: Optional[Callable] = None) -> torch.Tensor:
+                mesh=None, collect: Optional[Callable] = None
+                ) -> torch.Tensor:
     """Integer-only forward: uint{a_bits} images in, int32 logits out, on
     the images' device (kernels on CUDA, plain versions on the CPU).
     ``pipeline`` forces one pipeline net-wide, ``lowering`` one depthwise
-    lowering (`QDepthwiseConv2D.apply`); ``collect(path, y_hat)``
-    observes every integer edge."""
+    lowering (`QDepthwiseConv2D.apply`). ``mesh`` runs every conv and
+    linear on the cluster path (`api.qconv_sharded` / `qdot_sharded`:
+    images data-parallel, output channels tensor-parallel, equal to the
+    meshless forward); the pools and adds run on the gathered edges.
+    ``collect(path, y_hat)`` observes every integer edge."""
     stream = x_hat
     edges: Dict[str, torch.Tensor] = {}
     for L, q in qnet.qlayers:
         xin = edges[L.input_from] if L.input_from else stream
         if L.kind == "dwconv":
-            y = q.apply(xin, pipeline=pipeline, lowering=lowering)
+            y = q.apply(xin, pipeline=pipeline, lowering=lowering,
+                        mesh=mesh)
         elif L.kind in COMPUTE_KINDS:
-            y = q.apply(xin, pipeline=pipeline)
+            y = q.apply(xin, pipeline=pipeline, mesh=mesh)
         elif L.kind == "add":
             y = q.apply(xin, edges[L.skip_from])
         else:
@@ -383,6 +390,27 @@ def forward_int(qnet: QuantizedVisionNet, x_hat: torch.Tensor, *,
         if not L.branch:
             stream = y
     return stream
+
+
+def shard_net(qnet: QuantizedVisionNet, mesh) -> QuantizedVisionNet:
+    """``qnet`` with every compute layer's packed weights and epilogue
+    vectors placed on ``mesh`` once (`shard_packed_conv` /
+    `shard_packed_linear`), so a mesh forward reads them as they are. A
+    depthwise layer's per-channel convs stay as they are: they never run
+    on a mesh."""
+    def one(q):
+        if isinstance(q, vl.QSegmentedConv2D):
+            return dataclasses.replace(q, parts=tuple(one(p)
+                                                      for p in q.parts))
+        if isinstance(q, vl.QConv2D):
+            return dataclasses.replace(
+                q, conv=shard_packed_conv(q.conv, mesh))
+        return dataclasses.replace(
+            q, gemm=shard_packed_linear(q.gemm, mesh))
+
+    return dataclasses.replace(qnet, qlayers=tuple(
+        (L, one(q) if L.kind in COMPUTE_KINDS else q)
+        for L, q in qnet.qlayers))
 
 
 def _nbytes(t: torch.Tensor) -> int:

@@ -963,3 +963,182 @@ def test_deploy_cli_on_the_card_matches_cpu(dev, tmp_path):
                 for f in sorted(d.rglob("*")) if f.is_file()}
 
     assert files(tmp_path / "card") == files(tmp_path / "cpu")
+
+
+# ------------------------------------------------------ the mesh path ---
+
+def _mesh_linear(rng, a_bits, w_bits, k, n, dev):
+    from repro_torch.core.quantize import QuantizedLinearParams
+    kappa, lam, m = (v.to(dev) for v in _epilogue_vectors(rng, n, dev))
+    return QuantizedLinearParams(
+        w_packed=packing.pack(packing.pad_to_chunk(
+            _ints(rng, w_bits, True, (k, n), dev), axis=0), w_bits, axis=0),
+        w_bits=w_bits, a_bits=a_bits,
+        a_signed=False, kappa=kappa, lam=lam, m=m, d=20, out_bits=a_bits,
+        k_logical=k)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qdot_on_a_card_mesh_equals_meshless(dev, a_bits, w_bits, pipeline):
+    """Every shard on cuda:0, each on its own stream; run twice (a stream
+    race shows as a mismatch at random)."""
+    from repro_torch.kernels import api
+    from repro_torch.launch.mesh import make_cluster_mesh
+
+    rng = np.random.default_rng(a_bits * 10 + w_bits)
+    p = _mesh_linear(rng, a_bits, w_bits, 200, 128, dev)
+    for m in (64, 61, 1):
+        x = _ints(rng, a_bits, False, (m, 200), dev)
+        want = api.qdot(p, x, pipeline=pipeline)
+        for s in ((1, 1), (1, 4), (4, 1), (2, 2), (8, 1)):
+            mesh = make_cluster_mesh(*s, device=dev)
+            for _ in range(2):
+                got = api.qdot(p, x, pipeline=pipeline, mesh=mesh)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (m, s)
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("w_bits", [8, 4, 2])
+def test_qconv_on_a_card_mesh_equals_meshless(dev, w_bits, pipeline):
+    from repro_torch.core.quantize import QuantSpec
+    from repro_torch.kernels import api
+    from repro_torch.kernels.qconv.ops import quantize_conv
+    from repro_torch.launch.mesh import make_cluster_mesh
+
+    rng = np.random.default_rng(w_bits)
+    w = torch.from_numpy(rng.normal(size=(3, 3, 24, 32)).astype(
+        np.float32) * 0.08).to(dev)
+    conv = quantize_conv(
+        w, QuantSpec.weight(w_bits, float(w.abs().max())),
+        torch.full((32,), 0.3, device=dev), torch.zeros(32, device=dev),
+        QuantSpec.activation(8, 4.0), QuantSpec.activation(8, 8.0), 1, 1)
+    for b in (8, 5):
+        x = _ints(rng, 8, False, (b, 8, 8, 24), dev)
+        want = api.qconv(conv, x, pipeline=pipeline)
+        for s in ((1, 4), (4, 1), (2, 2), (8, 1)):
+            mesh = make_cluster_mesh(*s, device=dev)
+            for _ in range(2):
+                got = api.qconv(conv, x, pipeline=pipeline, mesh=mesh)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (b, s)
+
+
+def test_vision_and_lm_engines_on_a_card_mesh_match_meshless(dev):
+    import dataclasses
+
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.launch.vision import uniform_plan
+    from repro_torch.models import api as mapi
+    from repro_torch.nn.layers import QuantConfig
+    from repro_torch.serve.engine import Engine, Request, VisionEngine
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import (collect_absmax, init_fp,
+                                           quantize_net)
+
+    rng = np.random.default_rng(0)
+    cfg = get_vision_config("resnet8", smoke=True)
+    fp = init_fp(cfg, seed=0, device=dev)
+    imgs = rng.uniform(0, 1, (11, *cfg.in_hw, 3)).astype(np.float32)
+    q = quantize_net(cfg, fp, collect_absmax(cfg, fp, [imgs[:4]]),
+                     plan=uniform_plan(cfg, 4, 8), device=dev)
+    want = VisionEngine(q, 4, device=dev).run(imgs)
+    for s in ((2, 2), (4, 1)):
+        eng = VisionEngine(q, 4, device=dev,
+                           mesh=make_cluster_mesh(*s, device=dev))
+        for _ in range(2):
+            np.testing.assert_array_equal(eng.run(imgs), want)
+    base = mapi.get_smoke_config("qwen2.5-3b")
+    model = mapi.build(dataclasses.replace(
+        base, quant=QuantConfig(mode="int", w_bits=4, a_bits=8)))
+    params = convert_params(model.init(0, device=dev),
+                            mapi.build(base).init(1, device=dev), 4)
+    prompts = [rng.integers(2, 128, size=int(n)).astype(np.int32)
+               for n in (3, 6, 2, 5, 4)]
+
+    def run(mesh):
+        eng = Engine(model, params, 3, 32, device=dev, mesh=mesh)
+        return [r.out.tolist() for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=6) for p in prompts])]
+
+    want = run(None)
+    mesh = make_cluster_mesh(4, 1, device=dev)
+    assert run(mesh) == want and run(mesh) == want
+
+
+def test_collectives_and_restore_on_a_card_mesh(dev, tmp_path):
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.ring import (collective_matmul,
+                                           ring_decode_attention)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((2, 4, 16), (2, 32, 4, 16), (2, 32, 4, 16)))
+    mask = torch.arange(32)[None, :] < torch.tensor([[20], [3]])
+    x = torch.from_numpy(rng.normal(size=(8, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(64, 48)).astype(np.float32))
+    card = make_cluster_mesh(1, 4, device=dev)
+    cpu = make_cluster_mesh(1, 4, device="cpu")
+    for _ in range(2):
+        got = ring_decode_attention(q.to(dev), k.to(dev), v.to(dev),
+                                    mask.to(dev), card).cpu()
+        torch.testing.assert_close(
+            got, ring_decode_attention(q, k, v, mask, cpu), rtol=1e-4,
+            atol=1e-5)
+        got = collective_matmul(x.to(dev), w.to(dev), card).cpu()
+        torch.testing.assert_close(got, collective_matmul(x, w, cpu),
+                                   rtol=1e-4, atol=1e-4)
+    tree = {"w": torch.from_numpy(rng.normal(size=(8, 12)).astype(
+        np.float32))}
+    ckpt.save(tmp_path, 0, tree)
+    mesh = make_cluster_mesh(2, 2, device=dev)
+    got, _ = ckpt.restore(tmp_path, shardings={"w": pm.NamedSharding(
+        mesh, pm.P("data", "model"))})
+    assert got["w"].device.type == "cuda"
+    assert torch.equal(pm.gather(got["w"]).cpu(), tree["w"])
+
+
+def test_mesh_across_cards_matches_meshless(dev):
+    """Positions on every card of the host (skips with fewer than two):
+    each kernel instantiation sets its shared-memory attribute on each
+    device it launches on, at shapes whose tiles need more than 48 KB."""
+    from repro_torch.core.quantize import QuantSpec
+    from repro_torch.kernels import api
+    from repro_torch.kernels.qconv.ops import quantize_conv
+    from repro_torch.launch.mesh import make_cluster_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    rng = np.random.default_rng(7)
+    for pipeline in ("off", "double_buffer"):
+        for m, k, n in ((64, 1024, 256), (4096, 576, 128)):
+            p = _mesh_linear(rng, 8, 4, k, n, dev)
+            x = _ints(rng, 8, False, (m, k), dev)
+            want = api.qdot(p, x, pipeline=pipeline)
+            for s in ((2, 2), (4, 1), (1, 4)):
+                mesh = make_cluster_mesh(*s, device=dev)
+                assert len({str(d) for d in mesh.flat}) > 1
+                for _ in range(2):
+                    got = api.qdot(p, x, pipeline=pipeline, mesh=mesh)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (m, k, n, s, pipeline)
+        w = torch.from_numpy(rng.normal(size=(3, 3, 64, 64)).astype(
+            np.float32) * 0.05).to(dev)
+        conv = quantize_conv(
+            w, QuantSpec.weight(4, float(w.abs().max())),
+            torch.full((64,), 0.3, device=dev), torch.zeros(64, device=dev),
+            QuantSpec.activation(8, 4.0), QuantSpec.activation(8, 8.0), 1,
+            1)
+        x = _ints(rng, 8, False, (8, 16, 16, 64), dev)
+        want = api.qconv(conv, x, pipeline=pipeline)
+        for s in ((2, 2), (4, 1), (1, 4)):
+            mesh = make_cluster_mesh(*s, device=dev)
+            for _ in range(2):
+                got = api.qconv(conv, x, pipeline=pipeline, mesh=mesh)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (s, pipeline)

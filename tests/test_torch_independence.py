@@ -53,6 +53,14 @@ def test_port_covers_the_lm_modules_and_configs():
             "launch/deploy.py"} <= names
 
 
+def test_port_covers_the_parallel_modules():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES}
+    assert {"parallel/mesh.py", "parallel/sharding.py", "parallel/ctx.py",
+            "parallel/ring.py", "parallel/pipeline.py",
+            "launch/mesh.py"} <= names
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.vision, "
             "repro_torch.convert, repro_torch.serve.engine, "
