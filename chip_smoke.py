@@ -111,8 +111,9 @@
    memory on each serve line; qmatmul must have launched at both STAGES.
    At W4A8: every dense call of one decode step at per-slot positions
    (`dense_tap`: 48 x 2 and 26 x 8 + 12 x 7) identical to the CPU's, one
-   profiled decode step, and the last requests of the two waves (all 8
-   for mamba, 3 for rgemma), which ran on reused slots, each equal to
+   profiled decode step, and the last requests of the two waves (4 for
+   mamba, the second wave's; 3 for rgemma), which ran on reused slots,
+   each equal to
    the same request served alone by a one-slot `Engine` (the carried
    SSM / RG-LRU state is cleared on admission). rgemma serves one more
    plan, every rec_layers/mlp/wi split W8 | W4 (kernel 3 must launch),
@@ -125,7 +126,7 @@
    that.
 10. [xattn]: cross attention, seamless-m4t-large-v2 (enc-dec: 24 encoder
    + 24 decoder layers) and llama-3.2-vision-90b (full width, its depth
-   cut from 100 layers to 10: two groups of four self layers and a cross
+   cut from 100 layers to 5: one group of four self layers and a cross
    layer; the W8 artifact of 100 layers outgrows the card). Kernels 1-2
    at the eleven (M, K, N) shapes these give (seamless's 1024x1024,
    1024x8192, 8192x1024 at M = 4 and over the encoder's 4 x 4096 frames,
@@ -136,7 +137,7 @@
    served like qwen2.5-3b at W8A8, W4A8, W4A8 double-buffered and W2A8
    (the cross cache at zero, as the reference's `Engine` leaves it), with
    peak memory; at W4A8 every int dense call of one decode step (24 x 8,
-   and 8 x 7 + 2 x 5) and, for seamless, of one encoder layer at M =
+   and 4 x 7 + 1 x 5) and, for seamless, of one encoder layer at M =
    16,384 and one cross_kv_project (6 + 2) identical to the CPU's; a
    profiled decode step; `Model.prefill` of seamless at 4 x 4096 source
    frames and 256 tokens, profiled, beside the bound of its int GEMMs;
@@ -144,7 +145,7 @@
    `fill_cross_kv` fills (float32, quantization off, within 1e-3 of the
    largest |logit|; W4A8 reported beside it); seamless's plan with every
    dec_layers/mlp/wi split W8 | W4 (kernel 3 must launch) and each CLI at
-   W4A8 (vision with ``--layers 10``). At 2 + 2 layers and 64 source
+   W4A8 (vision with ``--layers 5``). At 2 + 2 layers and 64 source
    frames (cut from 4096), float32: seamless's W4A8 artifact packed on
    the card equals the CPU's byte for byte; the forward and 16 decode
    steps over each device's filled cross cache stay within 1e-3 of the
@@ -218,7 +219,40 @@
    largest |y|) of the same calls on CPU meshes, twice; a checkpoint of
    ResNet-8's fp tree saved meshless and restored onto a (2,2) mesh of
    the card (replicated, and split on the last dim) equal leaf for leaf.
-14. Times each kernel (CUDA events and profiler device time) beside its
+14. [qat]: QAT on the card, qat-cnn at full width. Every fake-quant
+   function at W{8,4,2} (per-tensor, per-channel, segmented weights;
+   EMA and PACT activations with exact ties at 0 and beta) gives the
+   CPU's values and gradients bit for bit (a scalar beta's gradient, a
+   sum in another order, within 1e-6). The reference's W2 recipe on
+   `SyntheticDigits(noise=0.45, jitter=3)`: 400 float steps, PTQ at W2,
+   600 W2 QAT steps from the float params; the integer-path QAT accuracy
+   must beat PTQ's by more than 0.05 (500 test images). Then the CLI
+   `python -m repro_torch.launch.qat --steps 300` (W4 training,
+   task-loss calibration, a channel-group plan, saved; the uniform and
+   planned deployments evaluated on the card), `fold_check` on its
+   result, and its uniform deployment evaluated again with the
+   double-buffered kernels (equal accuracy). Kernels 1, 2, 4 and 5 must
+   launch in the phase (kernel 3 is not on this path: a segmented conv
+   runs one conv per run). The card-trained result, deployed again on
+   the CPU, gives byte-identical artifacts and identical integer logits
+   for both deployments. Steps/s, training and evaluation images/s and
+   both accuracies are printed beside the card's name and power limit.
+15. [train]: olmo-1b at full width and depth (16 layers, d 2048, vocab
+   50304, bf16 compute, remat) trained by `python -m
+   repro_torch.launch.train --steps 20 --batch 8 --seq 256 --ckpt-every
+   10` under ``build/`` (the free disk printed first): the loss finite
+   and falling. With the step-20 checkpoint removed (a run cut after step
+   10), the same command resumes at step 10, replays step 10's batch,
+   and its first loss equals the first run's (within 1e-6; later steps
+   within 1e-2: the embedding's backward adds with atomics). The
+   checkpoint's GB/s from the CLI's own save and restore, one step
+   profiled (wall, device busy and idle, top device ops,
+   tokens/s, peak memory), 3 steps each with ``--opt-state-bits 8`` and
+   ``--qat w4a8``. At 2 of 16 layers, float32, from one CPU-drawn state:
+   one step's loss on the card within 1e-4 of the CPU's, its gradients
+   within 1e-4 x each leaf's largest |g|, three steps' losses within
+   1e-4. The files are deleted.
+16. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -237,7 +271,8 @@
    shapes at M = 4, beside its bound and `torch.matmul` in bf16 on
    dequantized weights.
 
-The last line is ``{"ok": true, "device": {...}}``. Any failure raises,
+A ``[phases]`` line gives each phase's seconds. The last line is
+``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -2214,7 +2249,7 @@ REC_SHAPES = ((1024, 4384), (2048, 1024), (4096, 4096), (4096, 256),
 REC_RUNS = ((0, 6144, 8), (6144, 12288, 4))
 # requests of the served W4A8 run each checked against the same request
 # served alone: the last ones, which the second wave puts on reused slots
-REC_ALONE = {"mamba2-370m": 8, "recurrentgemma-9b": 3}
+REC_ALONE = {"mamba2-370m": 4, "recurrentgemma-9b": 3}
 # the CPU cross-check: the full widths at a reduced depth (rgemma: one
 # rec, rec, attn group), float32 compute; rgemma's window cut from 2048 to
 # 16 so that its ring of min(24, 16) slots wraps within the 8 prompt
@@ -2426,9 +2461,10 @@ def rec_cpu_check(dev, arch, report):
 
 XATTN_ARCHS = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
 # llama-3.2-vision-90b keeps its widths with its depth cut from 100 layers
-# to 10 (two groups of four self layers and a cross layer): at 100 layers
-# its W8 artifact alone (85.6 GB) is larger than the card
-XATTN_LAYERS = {"llama-3.2-vision-90b": 10}
+# to 5 (one group of four self layers and a cross layer): at 100 layers
+# its W8 artifact alone (85.6 GB) is larger than the card, and 5 rather
+# than 10 leaves the script's time limit room for [qat] and [train]
+XATTN_LAYERS = {"llama-3.2-vision-90b": 5}
 # (M, K, N) the cross-attention archs give kernels 1-2: seamless's wq / wk
 # / wv / wo (1024x1024), mlp wi (1024x8192) and wo (8192x1024) at a decode
 # step of the served batch (M = 4) and over the encoder's batch of 4 x
@@ -3843,6 +3879,463 @@ def mesh_path(dev, report):
     return launches
 
 
+# ------------------------------------------------------------------ [qat] ---
+QAT_FLOAT_STEPS, QAT_W2_STEPS = 400, 600    # tests/test_qat.py's recipe
+QAT_MARGIN = 0.05           # QAT must beat PTQ at W2 by more than this
+QAT_CLI_STEPS = 300
+QAT_CLI_EVAL_BATCHES = 4    # the CLI's --eval-batches default
+QAT_TEST_BATCHES, QAT_TEST_BATCH = 5, 100
+
+
+def _fakequant_card_vs_cpu(dev) -> int:
+    """Every fake-quant function at W{8,4,2} on the same inputs on the card
+    and the CPU: values and gradients equal bit for bit (weights with one
+    on the clip edge, activations with exact ties at 0 and beta, beta per
+    element; a scalar beta's gradient, a sum in another order, within
+    1e-6). Returns the number of tensors compared."""
+    import numpy as np
+    import torch
+    from repro_torch.qat import fakequant as fq
+
+    rng = np.random.default_rng(SEED + 30)
+    compared = 0
+
+    def both(fn, *arrays):
+        outs = []
+        for d in ("cpu", dev):
+            xs = [torch.from_numpy(a).to(d).requires_grad_(True)
+                  for a in arrays]
+            y = fn(*xs)
+            cot = torch.from_numpy(rng_cot[y.shape]).to(d)
+            y.backward(cot)
+            outs.append([y.detach().cpu()] + [
+                None if x.grad is None else x.grad.cpu() for x in xs])
+        return outs
+
+    rng_cot = {}
+    w4 = rng.normal(size=(3, 3, 64, 256)).astype(np.float32)
+    w4[0, 0, 0, 0] = np.abs(w4).max()
+    w2 = w4.reshape(-1, 256)
+    x = rng.uniform(-0.5, 2.5, size=(64, 8, 8, 32)).astype(np.float32)
+    beta = np.float32(1.7)
+    x.reshape(-1)[:4] = beta, 0.0, beta, 0.0
+    for shape in (w4.shape, w2.shape, x.shape):
+        rng_cot[shape] = rng.normal(size=shape).astype(np.float32)
+    rng_cot[()] = np.float32(1.0)
+    cases = []
+    for b in WIDTHS:
+        cases += [
+            (lambda w, b=b: fq.fake_quant_weight(w, b), (w4,), True),
+            (lambda w, b=b: fq.fake_quant_weight(w, b, per_channel=True),
+             (w2,), True),
+            (lambda w, b=b: fq.fake_quant_weight_segmented(
+                w, ((0, 128, 8), (128, 256, b))), (w4,), True),
+            (lambda v, bb, b=b: fq.fake_quant_act(v, bb, b), (
+                x, np.full(x.shape, beta, np.float32)), True),
+            (lambda v, bb, b=b: fq.fake_quant_act(v, bb, b, learned=True),
+             (x, np.full(x.shape, beta, np.float32)), True),
+            (lambda v, bb, b=b: fq.fake_quant_act(v, bb, b, learned=True),
+             (x, np.array(beta)), False)]
+    for fn, arrays, exact in cases:
+        cpu, card = both(fn, *arrays)
+        for i, (a, g) in enumerate(zip(cpu, card)):
+            if a is None and g is None:
+                continue
+            last = i == len(cpu) - 1 and not exact
+            if last:
+                if not torch.allclose(g, a, rtol=1e-6, atol=0):
+                    raise AssertionError("[qat] a scalar beta's gradient "
+                                         f"differs: {g} vs {a}")
+            elif not torch.equal(g.view(torch.int32), a.view(torch.int32)):
+                raise AssertionError(
+                    f"[qat] fake-quant output {i} differs on the card: max "
+                    f"{float((g - a).abs().max())}")
+            compared += 1
+    return compared
+
+
+def qat_path(dev, work, report):
+    """[qat]: qat-cnn at full width trained on the card. Returns the
+    kernels' launch counts over the phase's training, evaluations and
+    CLI (the comparisons and the CPU deployment outside)."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import to_device
+    from repro_torch.launch import qat as qat_cli
+    from repro_torch.qat.data import SyntheticDigits, make_dataset
+    from repro_torch.qat.evaluate import deploy, evaluate_int, fold_check
+    from repro_torch.qat.train import QATConfig, train_qat
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import (forward_int, quantize_input,
+                                           streamed_weight_bytes)
+
+    t_phase = time.perf_counter()
+    card = report["nvidia_smi"]
+    n = _fakequant_card_vs_cpu(dev)
+    say("qat", check="fakequant card_vs_cpu", widths=list(WIDTHS),
+        tensors_compared=n, all_equal=True)
+
+    cfg = get_vision_config("qat-cnn")
+    data = SyntheticDigits(split="train", seed=SEED, noise=0.45, jitter=3)
+    test = SyntheticDigits(split="test", seed=SEED, noise=0.45, jitter=3)
+
+    def trained(qc, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_qat(cfg, data, qc, device=dev, **kw)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        return res, {"steps": qc.steps, "seconds": s,
+                     "steps_per_s": qc.steps / s,
+                     "train_images_per_s": qc.steps * qc.batch / s}
+
+    def evaluated(qnet, on=test, batches=QAT_TEST_BATCHES, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = evaluate_int(qnet, on.batches(QAT_TEST_BATCH, batches), **kw)
+        torch.cuda.synchronize()
+        return ev, ev["n"] / (time.perf_counter() - t0)
+
+    reset_launches()
+    res_f, row_f = trained(QATConfig(steps=QAT_FLOAT_STEPS, batch=64,
+                                     w_bits=None, log_every=200, seed=SEED))
+    ptq, ptq_ips = evaluated(deploy(res_f, default_w_bits=2, device=dev))
+    res2, row_q = trained(QATConfig(steps=QAT_W2_STEPS, batch=64, lr=1e-2,
+                                    w_bits=2, warmup=30, log_every=300,
+                                    seed=SEED), init_params=res_f.params)
+    fold_check(res2)
+    qnet2 = deploy(res2, device=dev)
+    qat, qat_ips = evaluated(qnet2)
+    row = {"float": row_f, "w2_qat": row_q,
+           "ptq_w2_accuracy": ptq["accuracy"],
+           "qat_w2_accuracy": qat["accuracy"], "test_images": qat["n"],
+           "eval_images_per_s": qat_ips, "card": card}
+    say("qat", recipe="W2 float->PTQ vs QAT (noise=0.45 jitter=3)",
+        float_steps=QAT_FLOAT_STEPS, qat_steps=QAT_W2_STEPS,
+        ptq_w2_accuracy=ptq["accuracy"], qat_w2_accuracy=qat["accuracy"],
+        margin=round(qat["accuracy"] - ptq["accuracy"], 4),
+        float_steps_per_s=round(row_f["steps_per_s"], 2),
+        float_train_images_per_s=round(row_f["train_images_per_s"], 1),
+        qat_steps_per_s=round(row_q["steps_per_s"], 2),
+        qat_train_images_per_s=round(row_q["train_images_per_s"], 1),
+        eval_images_per_s=round(qat_ips, 1), card=card)
+    report["qat_w2"] = row
+    if not qat["accuracy"] > ptq["accuracy"] + QAT_MARGIN:
+        raise AssertionError(
+            f"[qat] QAT {qat['accuracy']} does not beat PTQ "
+            f"{ptq['accuracy']} by more than {QAT_MARGIN} at W2")
+
+    plan_path = work / "qat_plan.json"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = _captured(qat_cli.main, [
+        "--steps", str(QAT_CLI_STEPS), "--out", str(plan_path),
+        "--report", str(work / "qat_report.json")])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    result, plan = out["result"], out["plan"]
+    fold_check(result)
+    if not plan_path.exists():
+        raise AssertionError("[qat] the CLI saved no plan")
+    rows = {r["deployment"]: r for r in out["rows"]}
+    # the CLI's uniform deployment on its own test set (the default
+    # noise), once more with each pipeline
+    cli_test = make_dataset("synthetic", split="test", seed=SEED)
+    qnet = deploy(result, device=dev)
+    ev_off, ips_off = evaluated(qnet, cli_test, QAT_CLI_EVAL_BATCHES)
+    ev_db, ips_db = evaluated(qnet, cli_test, QAT_CLI_EVAL_BATCHES,
+                              pipeline="double_buffer")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if ev_db != ev_off or ev_off["accuracy"] != rows["uniform_w4"][
+            "accuracy"]:
+        raise AssertionError(f"[qat] evaluations disagree: {ev_off} "
+                             f"{ev_db} {rows['uniform_w4']}")
+    segments = any(r.segments for r in plan.rules)
+    say("qat", cli=f"python -m repro_torch.launch.qat --steps "
+        f"{QAT_CLI_STEPS}", seconds=round(cli_s, 1),
+        final_loss=round(result.log[-1]["loss"], 4), fold_check=True,
+        plan_rules=json.dumps({r.pattern: [r.w_bits, r.segments]
+                               for r in plan.rules}),
+        plan_segments=segments,
+        uniform_w4_accuracy=rows["uniform_w4"]["accuracy"],
+        plan_accuracy=rows["task_loss_plan"]["accuracy"],
+        uniform_w4_bytes=rows["uniform_w4"]["packed_weight_bytes"],
+        plan_bytes=rows["task_loss_plan"]["packed_weight_bytes"],
+        eval_images_per_s=round(ips_off, 1),
+        eval_images_per_s_double_buffer=round(ips_db, 1),
+        double_buffer_equal=True, card=card)
+    report["qat_cli"] = {"seconds": cli_s, "rows": out["rows"],
+                         "plan": json.loads(plan.to_json()),
+                         "eval_images_per_s": ips_off,
+                         "eval_images_per_s_double_buffer": ips_db}
+    # kernel 3 is the GEMM over a SegmentedLinearParams; a segmented conv
+    # runs each run's own conv (kernel 4), as the reference's does
+    require_launches("qat", launches, ("qmatmul", "qconv"))
+    report.setdefault("launches", {})["qat"] = launches
+
+    # the card-trained result deployed again on the CPU
+    x, _ = next(test.batches(QAT_TEST_BATCH, 1))
+    for tag, p in (("uniform_w4", None), ("task_loss_plan", plan)):
+        q_card = deploy(result, plan=p, device=dev)
+        q_cpu = deploy(result, plan=p, device="cpu")
+        diff = first_difference(to_device(q_card, "cpu"), q_cpu)
+        if diff is not None:
+            raise AssertionError(f"[qat] {tag}: the card-trained artifact "
+                                 f"packed on the CPU differs at {diff}")
+        want = forward_int(q_cpu, quantize_input(q_cpu, x))
+        got = forward_int(q_card, quantize_input(q_card, x)).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[qat] {tag}: integer logits differ "
+                                 "between the card and the CPU")
+        say("qat", check=f"card_vs_cpu {tag}", artifact_equal_cpu=True,
+            logits_equal_cpu=True, images=len(x),
+            packed_weight_bytes=streamed_weight_bytes(q_cpu))
+    say("qat", phase_seconds=round(time.perf_counter() - t_phase, 1))
+    return launches
+
+
+# ---------------------------------------------------------------- [train] ---
+TRAIN_ARCH = "olmo-1b"
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_VARIANT_STEPS = 3
+TRAIN_LOSS_RTOL = 1e-2      # a resumed run against the first: the
+                            # embedding's backward adds with atomics
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 1, 32
+TRAIN_CPU_RTOL, TRAIN_CPU_GRAD_TOL = 1e-4, 1e-4
+# free disk the phase needs: two float32 train states of olmo-1b (params,
+# m and v, 14.2 GB each) at a time
+TRAIN_DISK_BYTES = 32e9
+
+
+def _train_cli(ckpt, steps=TRAIN_STEPS, every=TRAIN_CKPT_EVERY, extra=()):
+    """The train CLI in this process: (its return, its seconds)."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = _captured(train_cli.main, [
+        "--arch", TRAIN_ARCH, "--steps", str(steps), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt", str(ckpt),
+        "--ckpt-every", str(every), "--lr", "1e-3", "--warmup", "5",
+        *extra])
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_path(dev, work, report):
+    """[train]: olmo-1b at full width and depth trained on the card
+    through the CLI, resumed, in its 8-bit-state and QAT variants, one
+    step profiled, the checkpoint timed; then the card against the CPU at
+    2 layers. Returns the kernels' launch counts over the CLI runs."""
+    import numpy as np
+    import shutil
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import build, get_config
+    from repro_torch.nn.module import param_bytes
+    from repro_torch.train.step import TrainStepConfig, make_train_fns
+    from repro_torch.train.optimizer import OptConfig
+
+    t_phase = time.perf_counter()
+    card = report["nvidia_smi"]
+    free = shutil.disk_usage(work).free
+    say("train", disk_free_bytes=free, work_dir=work.relative_to(ROOT))
+    if free < TRAIN_DISK_BYTES:
+        raise AssertionError(f"[train] {free} bytes free under {work}; "
+                             f"the phase writes ~{TRAIN_DISK_BYTES:.0f}")
+    ckpt = work / "ckpt"
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    first, s1 = _train_cli(ckpt)
+    losses = [r["loss"] for r in first["log"]]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"[train] the loss does not fall: {losses}")
+    state_bytes = param_bytes(first["state"])
+    say("train", cli=f"python -m repro_torch.launch.train --arch "
+        f"{TRAIN_ARCH} --steps {TRAIN_STEPS} --batch {TRAIN_BATCH} --seq "
+        f"{TRAIN_SEQ} --ckpt-every {TRAIN_CKPT_EVERY}",
+        seconds=round(s1, 1), first_loss=round(losses[0], 4),
+        last_loss=round(losses[-1], 4), loss_falls=True,
+        state_bytes=state_bytes,
+        steps=list(checkpoint.list_steps(ckpt)),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+
+    # a run cut after step 10's checkpoint: the same command resumes there
+    shutil.rmtree(ckpt / f"step_{TRAIN_STEPS:08d}")
+    second, s2 = _train_cli(ckpt)
+    start = second["trainer"].restored_step
+    if start != TRAIN_CKPT_EVERY or [r["step"] for r in second["log"]] != \
+            list(range(start + 1, TRAIN_STEPS + 1)):
+        raise AssertionError(f"[train] the rerun did not resume at step "
+                             f"{TRAIN_CKPT_EVERY}: {start}")
+    replayed = second["data"]._batch_at(start)
+    if not all(np.array_equal(replayed[k], v) for k, v in
+               first["data"]._batch_at(start).items()):
+        raise AssertionError("[train] the replayed batch differs")
+    rel = [abs(b["loss"] - a["loss"]) / abs(a["loss"]) for a, b in
+           zip(first["log"][start:], second["log"])]
+    if rel[0] > 1e-6 or max(rel) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"[train] resumed losses differ: {rel}")
+    say("train", resume=f"same command again, step {TRAIN_STEPS} "
+        "checkpoint removed", resumed_at=start, replayed_batch_equal=True,
+        first_step_loss_rel_err=rel[0], max_loss_rel_err=max(rel),
+        tol=TRAIN_LOSS_RTOL, seconds=round(s2, 1))
+
+    # the checkpoint timed on the CLI's own I/O: the first run's last save
+    # (host copy, then the worker's writes) and the resume's restore (its
+    # state proven by the replayed losses above)
+    saved = first["trainer"].ckpt.last_save
+    state = second["state"]
+    shutil.rmtree(ckpt)
+    save_s = saved["copy_s"] + saved["write_s"]
+    restore_s = second["trainer"].restore_s
+    say("train", ckpt=f"{TRAIN_ARCH} train state", bytes=saved["bytes"],
+        save_s=round(save_s, 2), save_copy_s=round(saved["copy_s"], 2),
+        save_gb_per_s=round(saved["bytes"] / save_s / 1e9, 3),
+        restore_s=round(restore_s, 2),
+        restore_gb_per_s=round(saved["bytes"] / restore_s / 1e9, 3))
+
+    # one step profiled, from the trained state
+    model = build(get_config(TRAIN_ARCH))
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    _, step, _ = make_train_fns(model, None, shape, TrainStepConfig(
+        opt=OptConfig(lr=1e-3, warmup=5, total_steps=TRAIN_STEPS)),
+        device=dev)
+    batch = second["data"].place(second["data"]._batch_at(TRAIN_STEPS))
+    del first, second
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _device_us(prof) / 1e6 or None
+    by_op = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = e.key[:72]
+            by_op[k] = by_op.get(k, 0.0) + e.self_device_time_total / 1e3
+    ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+    row = {"wall_ms": wall * 1e3,
+           "device_busy_ms": None if busy is None else busy * 1e3,
+           "device_idle_share": None if busy is None
+           else max(0.0, 1 - busy / wall),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "top_device_ops_ms": {k: round(v, 3) for k, v in ops},
+           "loss": float(m["loss"]), "card": card}
+    say("train", profile="train step", arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, **{k: (round(v, 4) if isinstance(v, float) else
+                             (json.dumps(v) if isinstance(v, dict) else v))
+                          for k, v in row.items()})
+    report["train_profile"] = row
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for tag, extra in (("opt_state_bits_8", ["--opt-state-bits", "8"]),
+                       ("qat_w4a8", ["--qat", "w4a8"])):
+        out, s = _train_cli(work / tag, steps=TRAIN_VARIANT_STEPS,
+                            every=1000, extra=extra)
+        ls = [r["loss"] for r in out["log"]]
+        if not np.isfinite(ls).all():
+            raise AssertionError(f"[train] {tag}: losses {ls}")
+        say("train", variant=" ".join(extra), steps=TRAIN_VARIANT_STEPS,
+            losses=json.dumps([round(v, 4) for v in ls]),
+            state_bytes=param_bytes(out["state"]), seconds=round(s, 1))
+        del out
+        shutil.rmtree(work / tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    report.setdefault("launches", {})["train"] = launches
+    train_cpu_check(dev, report)
+    say("train", phase_seconds=round(time.perf_counter() - t_phase, 1))
+    return launches
+
+
+def train_cpu_check(dev, report):
+    """olmo-1b's full width at TRAIN_CPU_LAYERS layers, float32 compute,
+    from one CPU-drawn state on both devices: one step's loss within
+    TRAIN_CPU_RTOL, its gradients within TRAIN_CPU_GRAD_TOL x each leaf's
+    largest |g|, and the losses of three steps within TRAIN_CPU_RTOL."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import to_device
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.api import build, get_config
+    from repro_torch.nn.module import leaf_paths
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (TrainStepConfig, loss_and_grads,
+                                        make_train_fns)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CPU_LAYERS,
+                              compute_dtype="float32")
+    model = build(cfg)
+    shape = ShapeConfig("t", TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, "train")
+    tcfg = TrainStepConfig(opt=OptConfig(lr=1e-3, warmup=1, total_steps=10))
+    init_cpu, step_cpu, _ = make_train_fns(model, None, shape, tcfg,
+                                           device="cpu")
+    _, step_gpu, _ = make_train_fns(model, None, shape, tcfg, device=dev)
+    s_cpu = init_cpu(SEED)
+    s_gpu = to_device(s_cpu, dev)
+    data = SyntheticLM(cfg.vocab, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ,
+                       seed=SEED, device=None)
+    batches = [data._batch_at(i) for i in range(3)]
+
+    def place(b, d):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(d)
+                for k, v in b.items()}
+
+    l_cpu, g_cpu = loss_and_grads(model, s_cpu["params"],
+                                     place(batches[0], "cpu"), None)
+    l_gpu, g_gpu = loss_and_grads(model, s_gpu["params"],
+                                     place(batches[0], dev), None)
+    loss_rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    worst = 0.0
+    for (path, _), gc_, gg in zip(leaf_paths(s_cpu["params"]), g_cpu, g_gpu):
+        scale = float(gc_.abs().max()) or 1.0
+        err = float((gg.cpu() - gc_).abs().max()) / scale
+        worst = max(worst, err)
+        if err > TRAIN_CPU_GRAD_TOL:
+            raise AssertionError(f"[train] grad {'/'.join(path)}: "
+                                 f"{err} x its max |g|")
+    del g_cpu, g_gpu
+    steps = []
+    for b in batches:
+        s_cpu, m_cpu = step_cpu(s_cpu, place(b, "cpu"))
+        s_gpu, m_gpu = step_gpu(s_gpu, place(b, dev))
+        steps.append(abs(float(m_gpu["loss"]) - float(m_cpu["loss"]))
+                     / abs(float(m_cpu["loss"])))
+    if loss_rel > TRAIN_CPU_RTOL or max(steps) > TRAIN_CPU_RTOL:
+        raise AssertionError(f"[train] card vs CPU losses: {loss_rel} "
+                             f"{steps}")
+    row = {"tokens": TRAIN_CPU_BATCH
+           * TRAIN_CPU_SEQ, "loss_rel_err": loss_rel,
+           "grad_max_err_over_max_g": worst, "step_loss_rel_errs": steps,
+           "rtol": TRAIN_CPU_RTOL, "grad_tol": TRAIN_CPU_GRAD_TOL,
+           "seconds": round(time.perf_counter() - t0, 1)}
+    say("train", check="card_vs_cpu", arch=TRAIN_ARCH,
+        layers=f"{TRAIN_CPU_LAYERS} (cut from 16)", compute="float32",
+        **{k: (json.dumps(v) if isinstance(v, list) else v)
+           for k, v in row.items()})
+    report["train_card_vs_cpu"] = row
+    del s_cpu, s_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def write_report(report, name: str):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3873,8 +4366,14 @@ def main() -> int:
     report = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0)}
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     kernels_all = kernels_by_name()
     build_s = build_all(list(kernels_all.values()))
+    mark("build")
     say("build", seconds=round(build_s, 1), arch="sm_90a",
         sources=",".join(f"{k}.cu" for k in kernels_all))
     report["build_s"] = build_s
@@ -3892,29 +4391,34 @@ def main() -> int:
     by_path["mobilenet-tiny"], mnet, m_wave = mobilenet_path(dev, report)
     by_path["tune"] = tune_phase(dev, [shapes, m_shapes], report)
     by_path["obs"] = obs_phase(dev, report)
+    mark("vision+tune+obs")
     for key, err in lm_kernel_phase(dev, report).items():
         worst[key] = max(worst[key], err)
     by_path[LM_ARCH] = lm_path(dev, report)
     gc.collect()
     torch.cuda.empty_cache()
     lm_cpu_check(dev, report)
+    mark("lm")
     for key, err in rec_kernel_phase(dev, report).items():
         worst[key] = max(worst[key], err)
     for arch in REC_ARCHS:
         by_path[arch] = rec_path(dev, arch, report)
     for arch in REC_ARCHS:
         rec_cpu_check(dev, arch, report)
+    mark("rec")
     for key, err in xattn_kernel_phase(dev, report).items():
         worst[key] = max(worst[key], err)
     for arch in XATTN_ARCHS:
         by_path[arch] = xattn_path(dev, arch, report)
     xattn_cpu_check(dev, report)
+    mark("xattn")
     for key, err in moe_kernel_phase(dev, report).items():
         worst[key] = max(worst[key], err)
     for arch in MOE_ARCHS:
         by_path[arch] = moe_path(dev, arch, report)
     for arch in MOE_ARCHS:
         moe_cpu_check(dev, arch, report)
+    mark("moe")
     gc.collect()
     torch.cuda.empty_cache()
     (ROOT / "build").mkdir(exist_ok=True)
@@ -3927,9 +4431,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     deploy_cpu_check(dev, report)
+    mark("deploy")
     gc.collect()
     torch.cuda.empty_cache()
     by_path["mesh"] = mesh_path(dev, report)
+    mark("mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="qat_", dir=ROOT / "build"))
+    try:
+        by_path["qat"] = qat_path(dev, work, report)
+        mark("qat")
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_path(dev, work, report)
+        mark("train")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     lm_timing_phase(dev, report, [(4, k, n) for k, n in LM_SHAPES],
                     "lm_shape", SEED + 7)
     lm_timing_phase(dev, report, [(4, k, n) for k, n in REC_SHAPES],
@@ -3941,6 +4461,11 @@ def main() -> int:
     conv_rows = timing_phase(dev, convs, report)
     seg_rows = segmented_timing_phase(dev, report)
     depthwise_timing_phase(dev, mnet, m_wave, report)
+    mark("timing")
+    phase_s = {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}
+    say("phases", seconds=json.dumps(phase_s),
+        total=round(marks[-1][1] - marks[0][1], 1))
+    report["phase_seconds"] = phase_s
 
     kernels = []
     for kind in kernels_all:

@@ -29,6 +29,7 @@ import os
 import pathlib
 import shutil
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -121,21 +122,33 @@ def _save_host(ckpt_dir, step: int, leaves) -> pathlib.Path:
 class AsyncCheckpointer:
     """Overlap checkpoint I/O with the caller: the copy to the host
     happens on the call (blocking), the file writes on a worker thread.
-    A failed write is raised by the next `wait` (or `save_async`)."""
+    A failed write is raised by the next `wait` (or `save_async`).
+    After `wait`, ``last_save`` holds the last save's step, bytes and
+    seconds of host copy and of file writes."""
 
     def __init__(self, ckpt_dir, keep: int = 3):
         self.ckpt_dir = pathlib.Path(ckpt_dir)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self.last_error: Optional[BaseException] = None
+        self.last_save: Optional[dict] = None
 
     def save_async(self, step: int, tree) -> None:
         self.wait()
+        t0 = time.perf_counter()
         leaves = [(p, _host(leaf, copy=True)) for p, leaf in _flatten(tree)]
+        copy_s = time.perf_counter() - t0
 
         def _work():
             try:
+                t1 = time.perf_counter()
                 _save_host(self.ckpt_dir, step, leaves)
+                self.last_save = {
+                    "step": step, "copy_s": copy_s,
+                    "write_s": time.perf_counter() - t1,
+                    "bytes": sum(a.numel() * a.element_size()
+                                 if isinstance(a, torch.Tensor) else a.nbytes
+                                 for _, a in leaves)}
                 self._gc()
             except BaseException as e:  # surfaced on the next wait()
                 self.last_error = e

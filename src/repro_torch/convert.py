@@ -18,6 +18,9 @@ reference package:
   device's backend or be None, and is then dropped.
 * `segmented_params_from_numpy(spec, device)` — a `SegmentedLinearParams`
   description -> the port's mixed-width GEMM artifact.
+* `train_state_from_numpy(state, device)` — a QAT or LM training state
+  (params, optimizer state, error feedback) -> tensors, so both packages
+  can start from one state.
 """
 from __future__ import annotations
 
@@ -46,7 +49,11 @@ _TYPES = {cls.__name__: cls for cls in (
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":     # ml_dtypes: the 2-byte words
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def fp_params_from_numpy(tree, device="cuda"):
@@ -55,6 +62,22 @@ def fp_params_from_numpy(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: fp_params_from_numpy(v, dev) for k, v in tree.items()}
     return _tensor(np.asarray(tree), dev)
+
+
+def train_state_from_numpy(state: dict, device="cuda") -> dict:
+    """A reference training state as numpy arrays -> the port's tree, every
+    leaf's dtype and bytes as they are: a QAT state (``params``,
+    ``absmax``, ``opt`` = {``step``, ``m``, ``v``}, int8 ``codes`` /
+    ``scale`` / ``lmin`` / ``lrange`` leaves under 8-bit optimizer
+    states) or an LM train state (``params``, ``opt``, and ``ef``, the
+    bfloat16 error feedback). `train.step` and `qat.train` step it as
+    they step their own."""
+    missing = {"params", "opt"} - set(state)
+    if missing or not {"step", "m", "v"} <= set(state["opt"]):
+        raise ValueError("a training state holds 'params' and 'opt' "
+                         "({'step', 'm', 'v'}); got keys "
+                         f"{sorted(state)}")
+    return fp_params_from_numpy(state, device)
 
 
 def _build(obj, dev):

@@ -98,6 +98,54 @@ def fake_quantize(t: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     return t_clip + (q - t_clip).detach()
 
 
+# --- int8 side-channel codecs (optimizer state, gradient wire) ---------
+# Symmetric absmax int8 with tensor scales, the reference's codes and
+# scales exactly: rowwise keeps the param shape (one scale per last-axis
+# row: the optimizer's m), blockwise runs over the flat tensor in BLOCK
+# runs (the gradient compression wire).
+
+BLOCK = 256          # blockwise run length (gradient wire)
+
+
+def _f32(v, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def quantize_int8_rowwise(x: torch.Tensor) -> dict:
+    """Per-row (last axis) symmetric int8: {"codes", "scale"}."""
+    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True) / _f32(127.0, x)
+    scale = torch.maximum(scale, _f32(1e-12, x))
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return {"codes": codes, "scale": scale[..., 0]}
+
+
+def dequantize_int8_rowwise(s: dict, shape=None) -> torch.Tensor:
+    """Inverse of `quantize_int8_rowwise` (``shape`` is accepted as the
+    log-scale codec takes it; the codes carry it)."""
+    return s["codes"].to(torch.float32) * s["scale"][..., None]
+
+
+def quantize_int8_blockwise(x: torch.Tensor):
+    """Flat BLOCK-run symmetric int8 -> (codes (n/BLOCK, BLOCK), scale
+    (n/BLOCK, 1))."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % BLOCK
+    xb = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, BLOCK)
+    scale = torch.maximum(
+        torch.amax(torch.abs(xb), dim=1, keepdim=True) / _f32(127.0, x),
+        _f32(1e-12, x))
+    codes = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def dequantize_int8_blockwise(codes: torch.Tensor, scale: torch.Tensor,
+                              shape) -> torch.Tensor:
+    """Inverse of `quantize_int8_blockwise`, the pad cropped."""
+    n = int(np.prod(shape, dtype=np.int64))
+    x = codes.to(torch.float32) * scale
+    return x.reshape(-1)[:n].reshape(tuple(shape))
+
+
 def wrap_int32(v: torch.Tensor) -> torch.Tensor:
     """int64 values reduced mod 2^32 into the int32 range (two's
     complement), still as int64 — how int32 arithmetic wraps."""

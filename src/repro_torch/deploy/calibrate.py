@@ -357,18 +357,27 @@ def _vision_stats_geom(cfg, fp_params):
 
 def calibrate_vision(cfg, fp_params, image_batches: Sequence[np.ndarray], *,
                      bits: Sequence[int] = CANDIDATE_BITS, a_bits: int = 8,
-                     max_images: int = 64, sensitivity: str = "mse"):
+                     max_images: int = 64, sensitivity: str = "mse",
+                     labels: Optional[Sequence[np.ndarray]] = None,
+                     group_size: int = packing.CHUNK):
     """Calibrate a vision net on (B, H, W, C) float image batches, on the
     fp params' device: returns (per-layer `CalibStats`, per-edge absmax).
 
-    ``sensitivity="mse"`` is the output-error proxy above. The reference's
-    ``"task_loss"`` (cross-entropy loss on labeled batches per quantized
-    layer or channel group) comes with the QAT slice.
+    ``sensitivity`` selects the per-layer cost signal:
+
+    * ``"mse"`` (default): the output-error proxy of `_ConvCollector`,
+      label-free, pricing local layer error.
+    * ``"task_loss"``: the cross-entropy degradation on labeled batches
+      when that layer (or one CHUNK-wide output-channel group of it)
+      alone is quantized to the candidate width: sens(b) =
+      max(loss_quantized(b) - loss_float, 0), sq_ref = 1. Needs
+      ``labels`` (one int array per image batch). Deterministic: pure
+      forwards, no sampling.
     """
     if sensitivity == "task_loss":
-        raise NotImplementedError(
-            "calibrate_vision(sensitivity='task_loss') comes with the QAT "
-            "slice (ROADMAP Queue 1, item 2); use sensitivity='mse'")
+        return _calibrate_vision_task_loss(
+            cfg, fp_params, image_batches, labels, bits=bits,
+            a_bits=a_bits, group_size=group_size)
     if sensitivity != "mse":
         raise ValueError(f"unknown sensitivity {sensitivity!r}; expected "
                          "'mse' or 'task_loss'")
@@ -392,4 +401,123 @@ def calibrate_vision(cfg, fp_params, image_batches: Sequence[np.ndarray], *,
                           images=int(imgs.shape[0])):
                 forward_fp(cfg, fp_params, torch.from_numpy(imgs).to(dev),
                            edge_tap=edge_tap)
+    return stats, absmax
+
+
+def _mean_ce_loss(cfg, params, xs, ys) -> float:
+    """Mean cross-entropy of the fp forward over the labeled batches (a
+    host float64 sum of per-batch float32 sums)."""
+    from repro_torch.vision.models import forward_fp
+
+    total = n = 0.0
+    for x, y in zip(xs, ys):
+        logits = forward_fp(cfg, params, x)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        picked = torch.gather(logp, -1, y[:, None])
+        total += float(-torch.sum(picked))
+        n += picked.numel()
+    return total / max(n, 1.0)
+
+
+def _with_quantized_path(fp_params, path: str, w_q):
+    """A shallow copy of the param tree with ``path``'s weight replaced."""
+    parts = path.split("/")
+    out = dict(fp_params)
+    node = out
+    for p in parts[:-1]:
+        node[p] = dict(node[p])
+        node = node[p]
+    leaf = dict(node[parts[-1]])
+    leaf["w"] = w_q
+    node[parts[-1]] = leaf
+    return out
+
+
+@torch.no_grad()
+def _calibrate_vision_task_loss(cfg, fp_params, image_batches, labels, *,
+                                bits, a_bits, group_size):
+    """Task-loss sensitivity: the loss degradation per (layer, width) and
+    per (channel group, width), on the deployed per-tensor / per-run
+    grids. Only weights are quantized (the planner's one degree of
+    freedom is weight width). A group quantizes one CHUNK-aligned
+    output-channel slice on its own per-run grid, as the segmented conv
+    deploys it; group sensitivities are rescaled to sum to the layer's,
+    so the knapsack budget is the same at either granularity."""
+    from repro_torch.vision.layers import conv_tap
+    from repro_torch.vision.models import forward_fp, get_path
+
+    if labels is None:
+        raise ValueError("sensitivity='task_loss' needs labels= (one int "
+                         "label array per image batch)")
+    if len(labels) != len(image_batches):
+        raise ValueError(f"{len(image_batches)} image batches but "
+                         f"{len(labels)} label batches")
+    stats, geom, _ = _vision_stats_geom(cfg, fp_params)
+    dev = get_path(fp_params, next(iter(stats)))["w"].device
+    xs = [torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+          for x in image_batches]
+    ys = [torch.from_numpy(np.asarray(y).astype(np.int64)).to(dev)
+          for y in labels]
+
+    # one taped pass: the edge absmax (the activation grids) and each
+    # layer's input absmax (PlanRule.a_absmax)
+    absmax: Dict[str, float] = {}
+
+    def edge_tap(path, tensor):
+        absmax[path] = max(absmax.get(path, 0.0),
+                           float(torch.max(torch.abs(tensor))))
+
+    def input_tap(p, x):
+        w = p.get("w")
+        if w is None:
+            return
+        for path, st in stats.items():
+            if get_path(fp_params, path)["w"] is w:
+                st.a_absmax = max(st.a_absmax,
+                                  float(torch.max(torch.abs(x))))
+
+    with conv_tap(input_tap):
+        for x in xs:
+            forward_fp(cfg, fp_params, x, edge_tap=edge_tap)
+        base_loss = _mean_ce_loss(cfg, fp_params, xs, ys)
+
+    with obs.span("calibrate.task_loss", cat="deploy", arch=cfg.name,
+                  paths=len(stats), batches=len(xs),
+                  base_loss=base_loss) as sp:
+        evals = 0
+        for path, st in stats.items():
+            st.sq_ref = 1.0
+            w = get_path(fp_params, path)["w"].to(torch.float32)
+            d_out = st.d_out
+            n_groups = -(-d_out // group_size)
+            for b in bits:
+                w_q = _sim_quant_weights(w, b)
+                loss_b = _mean_ce_loss(
+                    cfg, _with_quantized_path(fp_params, path, w_q), xs, ys)
+                evals += 1
+                sens = max(loss_b - base_loss, 0.0)
+                st.sq_err[b] = sens
+                cols = np.zeros((d_out,), np.float64)
+                if n_groups > 1 and geom[path]["kind"] == "conv":
+                    for s in range(0, d_out, group_size):
+                        e = min(s + group_size, d_out)
+                        w_g = w.clone()
+                        w_g[..., s:e] = _sim_quant_weights(w[..., s:e], b)
+                        loss_g = _mean_ce_loss(
+                            cfg, _with_quantized_path(fp_params, path, w_g),
+                            xs, ys)
+                        evals += 1
+                        cols[s:e] = max(loss_g - base_loss, 0.0) / (e - s)
+                    gsum = cols.sum()
+                    if gsum > 0 and sens > 0:
+                        cols *= sens / gsum
+                    elif sens > 0:
+                        cols[:] = sens / d_out
+                else:
+                    # one group (or depthwise / the head): channel detail
+                    # adds nothing; apportion uniformly
+                    cols[:] = sens / max(d_out, 1)
+                st.col_sq_err[b] = cols
+            st.taps = len(xs)
+        sp.set(loss_evals=evals)
     return stats, absmax

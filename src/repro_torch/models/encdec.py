@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (_attn_cfg, _compute_dtype, _logits,
-                                   _mlp_cfg, layer_params)
+                                   _mlp_cfg, layer_params, remat,
+                                   unstack_layers)
 from repro_torch.nn.attention import (attn_apply, attn_decode, attn_def,
                                       cross_kv_project, init_cache)
 from repro_torch.nn.layers import (embedding_apply, embedding_def,
@@ -58,15 +59,31 @@ def encode(params, src_embed, cfg: ModelConfig):
                            x.device)
     acfg = _attn_cfg(cfg, "enc_layers/attn")
     mcfg = _mlp_cfg(cfg, "enc_layers/mlp")
-    for i in range(cfg.enc_layers):
-        lp = layer_params(params["enc_layers"], i)
-        h, _ = attn_apply(lp["attn"], norm_apply(lp.get("ln1", {}), x,
-                                                 cfg.norm),
-                          acfg, cos=cos, sin=sin, mode="bidir")
-        x = x + h
-        x = x + mlp_apply(lp["mlp"], norm_apply(lp.get("ln2", {}), x,
-                                                cfg.norm), mcfg)
+    for lp in unstack_layers(params["enc_layers"])[:cfg.enc_layers]:
+        x = remat(cfg, _enc_layer, cfg, acfg, mcfg, lp, x, cos, sin)
     return norm_apply(params.get("enc_norm", {}), x, cfg.norm)
+
+
+def _enc_layer(cfg, acfg, mcfg, lp, x, cos, sin):
+    h, _ = attn_apply(lp["attn"], norm_apply(lp.get("ln1", {}), x, cfg.norm),
+                      acfg, cos=cos, sin=sin, mode="bidir")
+    x = x + h
+    return x + mlp_apply(lp["mlp"], norm_apply(lp.get("ln2", {}), x,
+                                               cfg.norm), mcfg)
+
+
+def _dec_layer(cfg, acfg, acfg_x, mcfg, lp, x, enc_out, cos, sin):
+    h, _ = attn_apply(lp["attn"], norm_apply(lp.get("ln1", {}), x, cfg.norm),
+                      acfg, cos=cos, sin=sin, mode="causal")
+    x = x + h
+    src_kv = cross_kv_project(lp["xattn"], enc_out, acfg_x)
+    h, _ = attn_apply(lp["xattn"], norm_apply(lp.get("lnx", {}), x,
+                                              cfg.norm),
+                      acfg_x, cos=None, sin=None, mode="bidir",
+                      cross_kv=src_kv)
+    x = x + h
+    return x + mlp_apply(lp["mlp"], norm_apply(lp.get("ln2", {}), x,
+                                               cfg.norm), mcfg)
 
 
 def decode_train(params, enc_out, tokens, cfg: ModelConfig):
@@ -79,20 +96,9 @@ def decode_train(params, enc_out, tokens, cfg: ModelConfig):
     acfg = _attn_cfg(cfg, "dec_layers/attn")
     acfg_x = _attn_cfg(cfg, "dec_layers/xattn")
     mcfg = _mlp_cfg(cfg, "dec_layers/mlp")
-    for i in range(cfg.dec_layers):
-        lp = layer_params(params["dec_layers"], i)
-        h, _ = attn_apply(lp["attn"], norm_apply(lp.get("ln1", {}), x,
-                                                 cfg.norm),
-                          acfg, cos=cos, sin=sin, mode="causal")
-        x = x + h
-        src_kv = cross_kv_project(lp["xattn"], enc_out, acfg_x)
-        h, _ = attn_apply(lp["xattn"], norm_apply(lp.get("lnx", {}), x,
-                                                  cfg.norm),
-                          acfg_x, cos=None, sin=None, mode="bidir",
-                          cross_kv=src_kv)
-        x = x + h
-        x = x + mlp_apply(lp["mlp"], norm_apply(lp.get("ln2", {}), x,
-                                                cfg.norm), mcfg)
+    for lp in unstack_layers(params["dec_layers"])[:cfg.dec_layers]:
+        x = remat(cfg, _dec_layer, cfg, acfg, acfg_x, mcfg, lp, x, enc_out,
+                  cos, sin)
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
     return _logits(params, x, cfg)
 

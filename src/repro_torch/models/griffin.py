@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (_attn_cfg, _compute_dtype, _embed,
-                                   _logits, _mlp_cfg, layer_params)
+                                   _logits, _mlp_cfg, layer_params, remat,
+                                   unstack_layers)
 from repro_torch.nn.attention import (attn_apply, attn_decode, attn_def,
                                       init_cache)
 from repro_torch.nn.layers import (embedding_def, norm_apply, norm_def,
@@ -86,6 +87,18 @@ def _mlp(cfg, lp, x, path):
                          _mlp_cfg(cfg, path))
 
 
+def _rec_layer(cfg, rcfg, lp, x):
+    x = x + rglru_block_apply(
+        lp["rec"], norm_apply(lp.get("ln", {}), x, cfg.norm), rcfg)
+    return _mlp(cfg, lp, x, "rec_layers/mlp")
+
+
+def _attn_layer(cfg, acfg, lp, x, cos, sin):
+    h, _ = attn_apply(lp["attn"], norm_apply(lp.get("ln", {}), x, cfg.norm),
+                      acfg, cos=cos, sin=sin, mode="local", window=cfg.window)
+    return _mlp(cfg, lp, x + h, "attn_layers/mlp")
+
+
 def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
             collect_kv: bool = False):
     """Full-sequence forward. tokens (B,S) -> (logits (B,S,V), aux_loss,
@@ -95,19 +108,13 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
     cos, sin = rope_tables(tokens.shape[1], cfg.head_dim_, cfg.rope_theta,
                            dtype, x.device)
     rcfg, acfg = _rcfg(cfg), _attn_cfg(cfg, "attn_layers/attn")
+    rec = unstack_layers(params["rec_layers"])
+    att = unstack_layers(params["attn_layers"])
     for kind, i in _order(cfg):
         if kind == "rec":
-            lp = layer_params(params["rec_layers"], i)
-            x = x + rglru_block_apply(
-                lp["rec"], norm_apply(lp.get("ln", {}), x, cfg.norm), rcfg)
-            x = _mlp(cfg, lp, x, "rec_layers/mlp")
+            x = remat(cfg, _rec_layer, cfg, rcfg, rec[i], x)
         else:
-            lp = layer_params(params["attn_layers"], i)
-            h, _ = attn_apply(lp["attn"],
-                              norm_apply(lp.get("ln", {}), x, cfg.norm),
-                              acfg, cos=cos, sin=sin, mode="local",
-                              window=cfg.window)
-            x = _mlp(cfg, lp, x + h, "attn_layers/mlp")
+            x = remat(cfg, _attn_layer, cfg, acfg, att[i], x, cos, sin)
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
     return _logits(params, x, cfg), torch.zeros((), device=x.device), None
 

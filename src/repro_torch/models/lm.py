@@ -97,6 +97,30 @@ def layer_params(stacked, i: int):
     return stacked[i]
 
 
+def unstack_layers(stacked) -> list:
+    """Every layer of a stacked (L, ...) tree, sliced once per leaf with
+    ``torch.unbind`` (views, as `layer_params` gives): its backward is one
+    ``stack``, where indexing per layer would make one zero gradient the
+    size of the whole stack per layer."""
+    if isinstance(stacked, dict):      # an empty subtree (a norm without
+        per = {k: unstack_layers(v)     # params) stays {} in every layer
+               for k, v in stacked.items()}
+        n = max((len(v) for v in per.values()), default=0)
+        return [{k: v[i] if v else {} for k, v in per.items()}
+                for i in range(n)]
+    return list(torch.unbind(stacked, 0))
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; with ``cfg.remat`` and autograd recording, its
+    activations are recomputed in the backward instead of kept (the
+    reference's ``jax.checkpoint``: memory changes, values do not)."""
+    if cfg.remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _schedule(cfg: ModelConfig, seq_len: int):
     """Per layer (window, uses the local rope): global layers attend over
     ``seq_len``, so one local mask covers pattern schedules."""
@@ -158,6 +182,14 @@ def _block(cfg: ModelConfig, lp, x, cos, sin, window):
     return x, aux, kv
 
 
+def _cross_block(cfg: ModelConfig, xp, x, src, acfg_x):
+    """One cross layer on the residual ``x`` attending into ``src``."""
+    h, _ = attn_apply(xp["xattn"], norm_apply(xp.get("ln1", {}), x, cfg.norm),
+                      acfg_x, cos=None, sin=None, mode="bidir",
+                      cross_kv=cross_kv_project(xp["xattn"], src, acfg_x))
+    return _cross_mlp(cfg, xp, x, h)
+
+
 def _order(cfg: ModelConfig):
     """The layer order: ("self", i) | ("cross", g) over the stacked
     indices; a vision arch's group g is self rows g*ce .. g*ce + ce - 1,
@@ -191,21 +223,17 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
         src = src_embed.to(dtype)
     sched = _schedule(cfg, s)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
+    layers = unstack_layers(params["layers"])
+    xlayers = unstack_layers(params["cross_layers"]) if cross else []
     ks, vs = [], []
     for kind, i in _order(cfg):
         if kind == "cross":
-            xp = layer_params(params["cross_layers"], i)
-            h, _ = attn_apply(xp["xattn"],
-                              norm_apply(xp.get("ln1", {}), x, cfg.norm),
-                              acfg_x, cos=None, sin=None, mode="bidir",
-                              cross_kv=cross_kv_project(xp["xattn"], src,
-                                                        acfg_x))
-            x = _cross_mlp(cfg, xp, x, h)
+            x = remat(cfg, _cross_block, cfg, xlayers[i], x, src, acfg_x)
             continue
         window, local_rope = sched[i]
         cos, sin = loc if local_rope else glob
-        x, a, (k, v) = _block(cfg, layer_params(params["layers"], i), x,
-                              cos, sin, window)
+        x, a, (k, v) = remat(cfg, _block, cfg, layers[i], x, cos, sin,
+                             window)
         aux = aux + a
         if collect_kv:
             ks.append(k)

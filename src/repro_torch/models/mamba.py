@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import _compute_dtype, _logits, layer_params
+from repro_torch.models.lm import (_compute_dtype, _logits, layer_params,
+                                   remat, unstack_layers)
 from repro_torch.nn.layers import (embedding_apply, embedding_def,
                                    norm_apply, norm_def)
 from repro_torch.nn.module import stack_defs
@@ -34,16 +35,19 @@ def mamba_lm_def(cfg: ModelConfig, dtype=torch.float32):
     }
 
 
+def _layer(cfg, mcfg, lp, x):
+    return x + mamba_apply(lp["mixer"],
+                           norm_apply(lp.get("ln", {}), x, cfg.norm), mcfg)
+
+
 def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
             collect_kv: bool = False):
     """Full-sequence forward. tokens (B,S) -> (logits (B,S,V), aux_loss,
     None): there is no KV to collect."""
     x = embedding_apply(params["embed"], tokens).to(_compute_dtype(cfg))
     mcfg = _mcfg(cfg)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        x = x + mamba_apply(lp["mixer"],
-                            norm_apply(lp.get("ln", {}), x, cfg.norm), mcfg)
+    for lp in unstack_layers(params["layers"])[:cfg.n_layers]:
+        x = remat(cfg, _layer, cfg, mcfg, lp, x)
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
     return _logits(params, x, cfg), torch.zeros((), device=x.device), None
 

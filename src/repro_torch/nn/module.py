@@ -86,10 +86,31 @@ def stack_defs(defs, n: int, axis_name: str = "layers"):
     return {k: stack_defs(v, n, axis_name) for k, v in defs.items()}
 
 
-def tree_leaves(tree):
+def leaf_paths(tree, path=()):
+    """[(path tuple, leaf)] of a nested dict in sorted-key order (the order
+    ``jax.tree.leaves`` visits the reference's trees in)."""
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    return [tree]
+        return [pl for k in sorted(tree) for pl in leaf_paths(tree[k],
+                                                              path + (k,))]
+    return [(path, tree)]
+
+
+def get_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_like(paths_values) -> dict:
+    """A nested dict from (path tuple, value) pairs."""
+    out: dict = {}
+    for path, v in paths_values:
+        _set(out, path, v)
+    return out
+
+
+def tree_leaves(tree):
+    return [x for _, x in leaf_paths(tree)]
 
 
 def param_count(params) -> int:

@@ -1142,3 +1142,109 @@ def test_mesh_across_cards_matches_meshless(dev):
                 got = api.qconv(conv, x, pipeline=pipeline, mesh=mesh)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (s, pipeline)
+
+
+# ------------------------------------------------- QAT and training ---
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_fakequant_on_the_card_matches_cpu(dev, bits):
+    """Values and gradients bit for bit, ties at 0 and beta included
+    (beta per element: a scalar's gradient is a sum in another order)."""
+    from repro_torch.qat import fakequant as fq
+    rng = np.random.default_rng(bits)
+    w = rng.normal(size=(3, 3, 16, 256)).astype(np.float32)
+    w[0, 0, 0, 0] = np.abs(w).max()
+    x = rng.uniform(-0.5, 2.5, size=(4, 8, 8, 16)).astype(np.float32)
+    x.reshape(-1)[:4] = 1.7, 0.0, 1.7, 0.0
+    beta = np.full(x.shape, 1.7, np.float32)
+    cases = [(lambda a: fq.fake_quant_weight(a, bits), (w,)),
+             (lambda a: fq.fake_quant_weight(a, bits, per_channel=True),
+              (w.reshape(-1, 256),)),
+             (lambda a: fq.fake_quant_weight_segmented(
+                 a, ((0, 128, 8), (128, 256, bits))), (w,)),
+             (lambda a, b: fq.fake_quant_act(a, b, bits, learned=True),
+              (x, beta))]
+    for fn, arrays in cases:
+        outs = []
+        for d in ("cpu", dev):
+            ts = [torch.from_numpy(a).to(d).requires_grad_(True)
+                  for a in arrays]
+            y = fn(*ts)
+            y.backward(torch.ones_like(y) * 0.5)
+            outs.append([y.detach().cpu()] + [t.grad.cpu() for t in ts])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+
+
+def _artifacts_equal(a, b) -> bool:
+    """Two artifacts equal field for field, tensors byte for byte."""
+    import dataclasses
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b))
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return all(_artifacts_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_artifacts_equal, a, b))
+    return a == b
+
+
+def test_qat_on_the_card_deploys_as_on_the_cpu(dev):
+    """qat-cnn-smoke trained on the card: `fold_check` holds, and the
+    artifact packed on the CPU and its integer logits equal the card's."""
+    from repro_torch.convert import to_device
+    from repro_torch.qat.data import make_dataset
+    from repro_torch.qat.evaluate import deploy, fold_check
+    from repro_torch.qat.train import QATConfig, train_qat
+    from repro_torch.vision.configs import get_vision_config
+    from repro_torch.vision.models import forward_int, quantize_input
+
+    cfg = get_vision_config("qat-cnn", smoke=True)
+    res = train_qat(cfg, make_dataset(), QATConfig(steps=10, batch=16,
+                                                   w_bits=4, warmup=2),
+                    device=dev)
+    fold_check(res)
+    q_card, q_cpu = deploy(res, device=dev), deploy(res, device="cpu")
+    x, _ = next(make_dataset(split="test").batches(16, 1))
+    assert _artifacts_equal(to_device(q_card, "cpu"), q_cpu)
+    assert torch.equal(
+        forward_int(q_card, quantize_input(q_card, x)).cpu(),
+        forward_int(q_cpu, quantize_input(q_cpu, x)))
+
+
+def test_lm_train_step_on_the_card_matches_cpu(dev):
+    """olmo-smoke at float32 from one CPU-drawn state: the loss within
+    1e-5 and the gradients within 1e-4 x each leaf's largest |g|."""
+    import dataclasses
+    from repro_torch.convert import to_device
+    from repro_torch.models.api import build, get_smoke_config
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(get_smoke_config("olmo-1b"),
+                              compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    l_cpu, g_cpu = loss_and_grads(model, params, batch)
+    l_gpu, g_gpu = loss_and_grads(model, to_device(params, dev),
+                                  to_device(batch, dev))
+    assert abs(float(l_gpu) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    for a, b in zip(g_cpu, g_gpu):
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(
+            a.abs().max()) + 1e-30
+
+
+def test_train_cli_on_the_card_resumes(dev, tmp_path):
+    from repro_torch.launch import train as cli
+    args = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "4", "--batch",
+            "2", "--seq", "16", "--ckpt", str(tmp_path), "--ckpt-every",
+            "2"]
+    import shutil
+    cli.main(args)
+    shutil.rmtree(tmp_path / "step_00000004")
+    second = cli.main(args)
+    assert second["trainer"].restored_step == 2
+    assert [r["step"] for r in second["log"]] == [3, 4]

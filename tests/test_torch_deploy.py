@@ -115,9 +115,16 @@ def _check_calibration(calib, paths):
 
 
 def test_calibrate_vision_refuses_task_loss(calib):
-    with pytest.raises(NotImplementedError, match="QAT slice"):
+    """task_loss is ported (tests/test_torch_qat.py holds it against the
+    reference); without labels, or with a label batch short, it refuses as
+    the reference does."""
+    with pytest.raises(ValueError, match="labels"):
         p_cal.calibrate_vision(calib["pcfg"], calib["pfp"], [],
                                sensitivity="task_loss")
+    with pytest.raises(ValueError, match="label batches"):
+        p_cal.calibrate_vision(calib["pcfg"], calib["pfp"],
+                               [calib["images"]], sensitivity="task_loss",
+                               labels=[])
     with pytest.raises(ValueError, match="sensitivity"):
         p_cal.calibrate_vision(calib["pcfg"], calib["pfp"], [],
                                sensitivity="hessian")

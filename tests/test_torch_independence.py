@@ -61,6 +61,25 @@ def test_port_covers_the_parallel_modules():
             "launch/mesh.py"} <= names
 
 
+def test_port_covers_the_training_modules():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES}
+    assert {"qat/fakequant.py", "qat/data.py", "qat/train.py",
+            "qat/evaluate.py", "train/optimizer.py", "train/compress.py",
+            "train/step.py", "runtime/trainer.py", "data/pipeline.py",
+            "launch/qat.py", "launch/train.py"} <= names
+    code = ("import sys, repro_torch.qat, repro_torch.launch.qat, "
+            "repro_torch.launch.train, repro_torch.train.step, "
+            "repro_torch.runtime.trainer, repro_torch.data.pipeline; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'repro')))")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.vision, "
             "repro_torch.convert, repro_torch.serve.engine, "
