@@ -82,16 +82,18 @@
    4 and 64; kernel 3 under a two-run plan on 2048x11008, half W8, half
    W4) with signed activations, a per-channel dequant scale and both
    output dtypes (bfloat16, float32), A{8,4,2} x W{8,4,2}, both STAGES,
-   identical to the plain version. Then full width (36 layers) from
+   identical to the plain version. Then full width, its depth cut to 12
+   of 36 layers ([tp] serves all 36), from
    seeded weights made and quantized on the card at W8A8, W4A8 and W2A8,
    each served by `Engine` (8 requests of 2-8 prompt tokens, 16 new
    tokens, batch 4, max_len 128, bf16 compute as configured), W4A8 once
    more double-buffered (the same tokens); qmatmul must have launched at
    both STAGES. Every dense call of one W4A8 decode step (`dense_tap`,
-   36 x 7) is identical to the same call on the CPU; one decode step is
+   12 x 7) is identical to the same call on the CPU; one decode step is
    profiled. A plan with a segments rule on every layers/mlp/wi (half
    W8, half W4) is served and then the CLI `python -m
-   repro_torch.launch.serve --arch qwen2.5-3b --quant w4a8`; kernel 3 must
+   repro_torch.launch.serve --arch qwen2.5-3b --quant w4a8 --layers
+   12`; kernel 3 must
    have launched. At 2 layers of the full width, float32 compute, the
    W4A8 artifact packed on the card equals the CPU's byte for byte, and
    prefill plus 8 decode steps stay within 1e-3 of the largest logit of
@@ -104,13 +106,16 @@
    W{8,4,2}) and kernel 3 on 4096x12288 under a two-run plan (A{8,4,2}),
    signed activations, a per-channel scale, both output dtypes, both
    STAGES, identical to the plain version. Then each model at full width
+   (its depth cut to 6 of 48 layers for mamba, 8 of 38 for rgemma:
+   two (rec, rec, attn) groups and the two trailing rec layers; the
+   CLI with ``--layers``)
    from seeded weights made and quantized on the card one width at a
    time (the fp tree stays; each artifact is freed before the next),
    served by `Engine` like qwen2.5-3b at W8A8, W4A8, W4A8
    double-buffered (the same tokens) and W2A8, with the peak device
    memory on each serve line; qmatmul must have launched at both STAGES.
    At W4A8: every dense call of one decode step at per-slot positions
-   (`dense_tap`: 48 x 2 and 26 x 8 + 12 x 7) identical to the CPU's, one
+   (`dense_tap`: 12 x 2 and 8 x 8 + 3 x 7) identical to the CPU's, one
    profiled decode step, and the last requests of the two waves (4 for
    mamba, the second wave's; 3 for rgemma), which ran on reused slots,
    each equal to
@@ -124,8 +129,9 @@
    prompt tokens plus 16 greedy decode steps stay within 1e-3 of the
    largest CPU logit, with greedy tokens equal where the margin exceeds
    that.
-10. [xattn]: cross attention, seamless-m4t-large-v2 (enc-dec: 24 encoder
-   + 24 decoder layers) and llama-3.2-vision-90b (full width, its depth
+10. [xattn]: cross attention, seamless-m4t-large-v2 (enc-dec, its depth
+   cut from 24 encoder + 24 decoder layers to 6 + 6) and
+   llama-3.2-vision-90b (full width, its depth
    cut from 100 layers to 5: one group of four self layers and a cross
    layer; the W8 artifact of 100 layers outgrows the card). Kernels 1-2
    at the eleven (M, K, N) shapes these give (seamless's 1024x1024,
@@ -136,7 +142,7 @@
    output dtypes and STAGES, identical to the plain version. Each model
    served like qwen2.5-3b at W8A8, W4A8, W4A8 double-buffered and W2A8
    (the cross cache at zero, as the reference's `Engine` leaves it), with
-   peak memory; at W4A8 every int dense call of one decode step (24 x 8,
+   peak memory; at W4A8 every int dense call of one decode step (6 x 8,
    and 4 x 7 + 1 x 5) and, for seamless, of one encoder layer at M =
    16,384 and one cross_kv_project (6 + 2) identical to the CPU's; a
    profiled decode step; `Model.prefill` of seamless at 4 x 4096 source
@@ -204,7 +210,8 @@
    `VisionEngine(mesh=)` on (2,2), (4,1) and (1,1), each mesh twice:
    logits equal meshless, per-device utilization equal to its
    definition, wave p50 / p95 of each printed side by side. qwen2.5-3b
-   W4A8 at full width, 4 requests at batch 4: `Engine` meshless and on
+   W4A8 at full width and 12 of 36 layers, 4 requests at batch 4:
+   `Engine` meshless and on
    a (2,1) mesh, then the CLI with ``--mesh 2,1`` (its own `mesh:` and
    `cluster utilization:` lines), greedy tokens equal in all three, the
    (2,1) engine's logit rows within 1e-2 x max |row| of the meshless
@@ -219,7 +226,31 @@
    largest |y|) of the same calls on CPU meshes, twice; a checkpoint of
    ResNet-8's fp tree saved meshless and restored onto a (2,2) mesh of
    the card (replicated, and split on the last dim) equal leaf for leaf.
-14. [qat]: QAT on the card, qat-cnn at full width. Every fake-quant
+14. [tp]: explicit LM tensor parallelism over 'model'
+   (`repro_torch.parallel.tp`), every position on `cuda:0`. qwen2.5-3b
+   W4A8 at full width and depth, 4 requests at batch 4: `Engine`
+   meshless, then on (1,2) ('tp': kv-head blocks), (1,4) ('gp' weights,
+   'cp' over the cache at decode) and (2,2), W4A8 double-buffered on
+   (1,2), a plan with every layers/mlp/wi split W8 | W4 on (1,2) (the
+   segmented container runs whole, kernel 3), and the CLI with ``--mesh
+   2,2``: greedy tokens equal meshless in every run, logit rows within
+   1e-2 x max |row|; every packed call of one decode step on (1,2) and
+   on (1,4), column slices and row-parallel K-slices (raw int32) on
+   every position, identical to the CPU's plain version; one profiled
+   (1,2) decode step (wall, busy, idle, kernel 1 launches, the
+   reductions' device ms). Then each other family at full width and cut
+   depth on (1,2) against its own meshless run, the same checks: kimi
+   and llama4 at 1 layer (experts over the positions), seamless at 2 + 2
+   layers and 64 source frames, recurrentgemma at 3 layers with its
+   window cut to 16 (the ring wraps under 'cp'), mamba2 at 2 layers,
+   llama-3.2-vision at 5 (one cross layer). olmo-1b trains 3 steps at
+   batch 8 x 256, full width and depth, on (1,2) and (2,2) (step wall,
+   tokens/s, peak memory); at 2 layers in float32 its loss and gradients
+   on (1,2) and (2,2) are within 1e-5 / 1e-4 x max |g| of meshless on
+   the card, and a state stepped on (2,2), saved and restored, steps on
+   (2,4) as the meshless run does. Kernels 1 and 3 must launch in the
+   tensor-parallel serving runs alone.
+15. [qat]: QAT on the card, qat-cnn at full width. Every fake-quant
    function at W{8,4,2} (per-tensor, per-channel, segmented weights;
    EMA and PACT activations with exact ties at 0 and beta) gives the
    CPU's values and gradients bit for bit (a scalar beta's gradient, a
@@ -237,7 +268,7 @@
    the CPU, gives byte-identical artifacts and identical integer logits
    for both deployments. Steps/s, training and evaluation images/s and
    both accuracies are printed beside the card's name and power limit.
-15. [train]: olmo-1b at full width and depth (16 layers, d 2048, vocab
+16. [train]: olmo-1b at full width and depth (16 layers, d 2048, vocab
    50304, bf16 compute, remat) trained by `python -m
    repro_torch.launch.train --steps 20 --batch 8 --seq 256 --ckpt-every
    10` under ``build/`` (the free disk printed first): the loss finite
@@ -252,7 +283,7 @@
    one step's loss on the card within 1e-4 of the CPU's, its gradients
    within 1e-4 x each leaf's largest |g|, three steps' losses within
    1e-4. The files are deleted.
-16. Times each kernel (CUDA events and profiler device time) beside its
+17. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -1742,6 +1773,8 @@ LM_M = (1, 4, 64)
 # kernel 3's two-run plan on 2048 x 11008: half W8, half W4
 LM_RUNS = ((0, 5504, 8), (5504, 11008, 4))
 LM_REQUESTS, LM_BATCH, LM_MAX_NEW, LM_MAX_LEN = 8, 4, 16, 128
+# [lm]'s served depth, widths kept (of 36; [tp] serves all 36)
+LM_LAYERS = 12
 # the CPU cross-check: logits within this share of the largest |logit|
 # (float32 math on two devices; a flipped activation code at a .5
 # boundary moves a logit by far less)
@@ -2178,6 +2211,7 @@ def lm_path(dev, report):
     CPU plain path, a plan with a segments rule on every layers/mlp/wi
     (half W8, half W4), then the CLI `repro_torch.launch.serve` at W4A8.
     Returns the kernels' launch counts over the two serving windows."""
+    import dataclasses
     import torch
     from repro_torch.deploy.apply import apply_plan, int_skeleton
     from repro_torch.deploy.policy import PlanRule, PrecisionPlan
@@ -2185,7 +2219,8 @@ def lm_path(dev, report):
     from repro_torch.launch.convert import convert_params
     from repro_torch.models.api import build, get_config
 
-    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    label = f"{LM_ARCH} ({LM_LAYERS} of 36 layers)"
     torch.cuda.reset_peak_memory_stats()
     fp = build(cfg).init(SEED, device=dev)
     models = {w: _lm_model(cfg, w) for w in WIDTHS}
@@ -2195,9 +2230,9 @@ def lm_path(dev, report):
     # one untimed request first: torch loads its own CUDA kernels lazily
     serve_lm("warm-up", models[8], params[8], {})
     reset_launches()
-    outs = {w: serve_lm(f"{LM_ARCH} W{w}A8", models[w], params[w], report)
+    outs = {w: serve_lm(f"{label} W{w}A8", models[w], params[w], report)
             for w in WIDTHS}
-    out_db = serve_lm(f"{LM_ARCH} W4A8 double_buffer", db, params[4],
+    out_db = serve_lm(f"{label} W4A8 double_buffer", db, params[4],
                       report)
     torch.cuda.synchronize()
     first = read_launches()
@@ -2214,19 +2249,21 @@ def lm_path(dev, report):
     pp = apply_plan(int_skeleton(pm.defs()), fp, plan, 4)
     del fp, params
     reset_launches()
-    serve_lm(f"{LM_ARCH} plan wi W8|W4", pm, pp, report)
+    serve_lm(f"{label} plan wi W8|W4", pm, pp, report)
     del pp
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cli = serve_cli.main(["--arch", LM_ARCH, "--quant", "w4a8",
                           "--requests", str(LM_REQUESTS), "--batch",
-                          str(LM_BATCH), "--max-new", str(LM_MAX_NEW)])
+                          str(LM_BATCH), "--max-new", str(LM_MAX_NEW),
+                          "--layers", str(LM_LAYERS)])
     torch.cuda.synchronize()
     second = read_launches()
     if len(cli) != LM_REQUESTS or not all(len(r.out) for r in cli):
         raise AssertionError("[lm] the serve CLI returned no tokens")
     say("lm", cli="python -m repro_torch.launch.serve --arch qwen2.5-3b "
-        "--quant w4a8", seconds=round(time.perf_counter() - t0, 1))
+        f"--quant w4a8 --layers {LM_LAYERS}",
+        seconds=round(time.perf_counter() - t0, 1))
     require_launches(f"{LM_ARCH} plan + CLI", second,
                      ("qmatmul_segmented", "qmatmul"), stages_needed=(1,))
     launches = {k: {s: first[k][s] + second[k][s] for s in (1, 2)}
@@ -2250,6 +2287,10 @@ REC_RUNS = ((0, 6144, 8), (6144, 12288, 4))
 # requests of the served W4A8 run each checked against the same request
 # served alone: the last ones, which the second wave puts on reused slots
 REC_ALONE = {"mamba2-370m": 4, "recurrentgemma-9b": 3}
+# the served depth, widths kept (of 48 and 38 layers), room for [tp]:
+# rgemma keeps two (rec, rec, attn) groups and its two trailing rec
+# layers
+REC_LAYERS = {"mamba2-370m": 6, "recurrentgemma-9b": 8}
 # the CPU cross-check: the full widths at a reduced depth (rgemma: one
 # rec, rec, attn group), float32 compute; rgemma's window cut from 2048 to
 # 16 so that its ring of min(24, 16) slots wraps within the 8 prompt
@@ -2318,13 +2359,16 @@ def rec_path(dev, arch, report):
     one profiled decode step and the state-reset check; for rgemma a plan
     with every rec_layers/mlp/wi split W8 | W4; then the CLI at W4A8.
     Returns the kernels' launch counts over the two serving windows."""
+    import dataclasses
     import torch
     from repro_torch.deploy.apply import apply_plan, int_skeleton
     from repro_torch.deploy.policy import PlanRule, PrecisionPlan
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models.api import build, get_config
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=REC_LAYERS[arch])
+    label = f"{arch} ({REC_LAYERS[arch]} of {full.n_layers} layers)"
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2338,13 +2382,13 @@ def rec_path(dev, arch, report):
     params = pack(models[8], 8)
     _decode_once(dev, models[8], params)
     reset_launches()
-    outs = {8: serve_lm(f"{arch} W8A8", models[8], params, report, "rec")}
+    outs = {8: serve_lm(f"{label} W8A8", models[8], params, report, "rec")}
     del params
     p4 = pack(models[4], 4)
-    outs[4] = serve_lm(f"{arch} W4A8", models[4], p4, report, "rec")
-    out_db = serve_lm(f"{arch} W4A8 double_buffer", db, p4, report, "rec")
+    outs[4] = serve_lm(f"{label} W4A8", models[4], p4, report, "rec")
+    out_db = serve_lm(f"{label} W4A8 double_buffer", db, p4, report, "rec")
     params = pack(models[2], 2)
-    outs[2] = serve_lm(f"{arch} W2A8", models[2], params, report, "rec")
+    outs[2] = serve_lm(f"{label} W2A8", models[2], params, report, "rec")
     del params
     torch.cuda.synchronize()
     first = read_launches()
@@ -2365,7 +2409,7 @@ def rec_path(dev, arch, report):
                              default_w_bits=4)
         pm = _lm_model(cfg, 4, plan=plan)
         pp = pack(pm, 4, plan)
-        serve_lm(f"{arch} plan rec wi W8|W4", pm, pp, report, "rec")
+        serve_lm(f"{label} plan rec wi W8|W4", pm, pp, report, "rec")
         del pp
         needed = ("qmatmul_segmented", "qmatmul")
     del fp
@@ -2374,14 +2418,16 @@ def rec_path(dev, arch, report):
     t0 = time.perf_counter()
     cli = serve_cli.main(["--arch", arch, "--quant", "w4a8", "--requests",
                           str(LM_REQUESTS), "--batch", str(LM_BATCH),
-                          "--max-new", str(LM_MAX_NEW)])
+                          "--max-new", str(LM_MAX_NEW), "--layers",
+                          str(REC_LAYERS[arch])])
     torch.cuda.synchronize()
     second = read_launches()
     if len(cli) != LM_REQUESTS or not all(len(r.out) for r in cli):
         raise AssertionError(f"[rec] the serve CLI returned no tokens for "
                              f"{arch}")
     say("rec", cli=f"python -m repro_torch.launch.serve --arch {arch} "
-        "--quant w4a8", seconds=round(time.perf_counter() - t0, 1))
+        f"--quant w4a8 --layers {REC_LAYERS[arch]}",
+        seconds=round(time.perf_counter() - t0, 1))
     require_launches(f"{arch} plan + CLI" if len(needed) > 1
                      else f"{arch} CLI", second, needed, stages_needed=(1,))
     del cli
@@ -2463,8 +2509,10 @@ XATTN_ARCHS = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
 # llama-3.2-vision-90b keeps its widths with its depth cut from 100 layers
 # to 5 (one group of four self layers and a cross layer): at 100 layers
 # its W8 artifact alone (85.6 GB) is larger than the card, and 5 rather
-# than 10 leaves the script's time limit room for [qat] and [train]
-XATTN_LAYERS = {"llama-3.2-vision-90b": 5}
+# than 10 leaves the script's time limit room for [qat] and [train];
+# seamless-m4t-large-v2 keeps 6 of its 24 encoder and 24 decoder layers,
+# room for [tp] (the CLI's ``--layers`` counts each stack)
+XATTN_LAYERS = {"llama-3.2-vision-90b": 5, "seamless-m4t-large-v2": 6}
 # (M, K, N) the cross-attention archs give kernels 1-2: seamless's wq / wk
 # / wv / wo (1024x1024), mlp wi (1024x8192) and wo (8192x1024) at a decode
 # step of the served batch (M = 4) and over the encoder's batch of 4 x
@@ -2528,15 +2576,26 @@ def xattn_kernel_phase(dev, report):
 def _xattn_config(arch, **over):
     import dataclasses
     from repro_torch.models.api import get_config
+    full = get_config(arch)
     if arch in XATTN_LAYERS:
-        over = {"n_layers": XATTN_LAYERS[arch], **over}
-    return dataclasses.replace(get_config(arch), **over)
+        n = XATTN_LAYERS[arch]
+        cut = ({"enc_layers": n, "dec_layers": n, "n_layers": 2 * n}
+               if full.family == "encdec" else {"n_layers": n})
+        over = {**cut, **over}
+    return dataclasses.replace(full, **over)
 
 
 def _label(cfg):
     """The arch's name, with the depth where it was cut."""
+    from repro_torch.models.api import get_config
     cut = XATTN_LAYERS.get(cfg.name)
-    return cfg.name if cut is None else f"{cfg.name} ({cut} of 100 layers)"
+    if cut is None:
+        return cfg.name
+    full = get_config(cfg.name)
+    if full.family == "encdec":
+        return (f"{cfg.name} ({cut} + {cut} of {full.enc_layers} + "
+                f"{full.dec_layers} layers)")
+    return f"{cfg.name} ({cut} of {full.n_layers} layers)"
 
 
 def _check_encoder_calls(dev, model, params):
@@ -3343,6 +3402,9 @@ MESH_REQUESTS = 200
 # rows / images that no data axis above divides: padded, sliced back
 MESH_RAGGED = 61
 MESH_LM_REQUESTS, MESH_LM_BATCH = 4, 4
+# qwen2.5-3b's depth on the (2,1) mesh, widths kept (of 36; [tp] serves
+# all 36 on its meshes)
+MESH_LM_LAYERS = 12
 # logit rows of the (2,1) mesh against meshless serving: the float parts
 # of a decode step (bf16 compute) may round differently at 2 rows than
 # at 4; a wrong block's cache, position or row is off by O(max |row|)
@@ -3631,6 +3693,7 @@ def mesh_lm_path(dev, report, acc):
     rows of the (2,1) engine within MESH_LM_ROW_TOL x max |row| of the
     meshless ones, and one mesh decode step's dense calls equal to the
     CPU's. Only the mesh runs' launches go into ``acc``."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.deploy.apply import int_skeleton
@@ -3640,7 +3703,7 @@ def mesh_lm_path(dev, report, acc):
     from repro_torch.models.api import build, get_config
     from repro_torch.serve.engine import Engine
 
-    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_LM_LAYERS)
     model = _lm_model(cfg, 4)
     fp = build(cfg).init(SEED, device=dev)
     params = convert_params(int_skeleton(model.defs()), fp, 4)
@@ -3678,6 +3741,8 @@ def mesh_lm_path(dev, report, acc):
             raise AssertionError(f"[mesh] request {rid}: {len(got)} logit "
                                  f"rows on (2,1), {len(want)} meshless")
         for g, w in zip(got, want):
+            # the real vocab: the padded entries sit at -1e9
+            g, w = g[:cfg.vocab], w[:cfg.vocab]
             err = max(err, float(np.abs(g - w).max()))
             scale = max(scale, float(np.abs(w).max()))
             n_rows += 1
@@ -3698,7 +3763,7 @@ def mesh_lm_path(dev, report, acc):
     cli, text = _count_launches(acc, lambda: _captured(serve_cli.main, [
         "--arch", LM_ARCH, "--quant", "w4a8", "--requests",
         str(MESH_LM_REQUESTS), "--batch", str(MESH_LM_BATCH), "--max-new",
-        str(LM_MAX_NEW), "--mesh", "2,1"]))
+        str(LM_MAX_NEW), "--mesh", "2,1", "--layers", str(MESH_LM_LAYERS)]))
     outs["cli 2,1"] = [r.out.tolist() for r in cli]
     if "mesh: data=2 model=1" not in text or \
             "cluster utilization:" not in text:
@@ -3706,8 +3771,8 @@ def mesh_lm_path(dev, report, acc):
     if not outs["meshless"] == outs["2,1"] == outs["cli 2,1"]:
         raise AssertionError(f"[mesh] {LM_ARCH} tokens differ: {outs}")
     say("mesh", cli=f"python -m repro_torch.launch.serve --arch {LM_ARCH} "
-        "--quant w4a8 --mesh 2,1", seconds=round(time.perf_counter() - t0,
-                                                  1),
+        f"--quant w4a8 --mesh 2,1 --layers {MESH_LM_LAYERS}",
+        seconds=round(time.perf_counter() - t0, 1),
         tokens_equal_meshless=True)
 
 
@@ -4336,6 +4401,543 @@ def train_cpu_check(dev, report):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------- [tp] ---
+# explicit LM tensor parallelism over 'model', every position on cuda:0
+TP_MESHES = ((1, 2), (1, 4), (2, 2))
+# the other families at full width and cut depth, each on (1, 2) against
+# its own meshless run (vision keeps one group of four self layers and
+# its cross layer; rgemma's window is cut so its ring of 16 slots wraps
+# under 'cp'; seamless serves 64 source frames)
+TP_FAMILIES = (
+    ("kimi-k2-1t-a32b", {"n_layers": 1}),
+    ("llama4-maverick-400b-a17b", {"n_layers": 1}),
+    ("seamless-m4t-large-v2", {"enc_layers": 2, "dec_layers": 2,
+                               "n_layers": 4, "src_len": 64}),
+    ("recurrentgemma-9b", {"n_layers": 3, "window": 16}),
+    ("mamba2-370m", {"n_layers": 2}),
+    ("llama-3.2-vision-90b", {"n_layers": 5}),
+)
+# the float32 logit-row check: prompt tokens, then greedy decode steps
+TP_ROW_PROMPT, TP_ROW_STEPS = 8, 8
+# new tokens of the served tensor-parallel runs (the engines and the CLI)
+TP_MAX_NEW = 8
+TP_TRAIN_STEPS = 3
+TP_TRAIN_LAYERS = 2         # the float32 card check and the checkpoint
+TP_LOSS_RTOL, TP_GRAD_TOL = 1e-5, 1e-4
+
+
+def _tp_tap_equal_cpu(calls, qcfg):
+    """Each tapped local dense call of a tensor-parallel step (a column
+    slice with the dequant epilogue, or a `RowSlice` K-slice whose raw
+    int32 accumulators the step sums), run again on the card, identical
+    to the same call on the CPU. Returns (calls, row-parallel calls)."""
+    from repro_torch.convert import to_device
+    from repro_torch.nn.layers import RowSlice, dense_apply
+    rows = 0
+    for i, (p, x) in enumerate(calls):
+        cpu = to_device(dict(p), "cpu")
+        if isinstance(p, RowSlice):
+            cpu = RowSlice(cpu, p.k_full)
+            rows += 1
+        got = dense_apply(p, x, qcfg=qcfg)
+        want = dense_apply(cpu, x.cpu(), qcfg=qcfg)
+        err = max_abs_err(got.cpu(), want)
+        if err != 0.0 or got.dtype != want.dtype:
+            raise AssertionError(f"[tp] dense call {i} ({type(p).__name__}"
+                                 f" {tuple(x.shape)} x "
+                                 f"{tuple(p['w_packed'].shape)}): max abs "
+                                 f"err {err} against the CPU plain path")
+    return len(calls), rows
+
+
+def _tp_dense_tap(model, adapter, label):
+    """One decode step of a tensor-parallel adapter under `dense_tap`:
+    every packed call, column and row-parallel, on every position,
+    identical to the CPU's plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.nn.layers import dense_tap
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 25)
+    toks = rng.integers(2, cfg.vocab, size=(MESH_LM_BATCH, 5)).astype(
+        np.int32)
+    state = adapter.init_state(MESH_LM_BATCH)
+    for t in range(4):
+        _, state = adapter.step(state, toks[:, t:t + 1],
+                                np.full(MESH_LM_BATCH, t))
+    calls = []
+    with dense_tap(lambda p, x: calls.append((p, x)) if "w_packed" in p
+                   else None):
+        adapter.step(state, toks[:, 4:5], np.array([4, 3, 4, 2]))
+    torch.cuda.synchronize()
+    n, rows = _tp_tap_equal_cpu(calls, cfg.quant)
+    if n == 0:
+        raise AssertionError(f"[tp] {label}: tapped no dense call")
+    say("tp", check="dense_tap", arch=label,
+        mesh=",".join(str(v) for v in adapter.mesh.shape.values()),
+        dense_calls=n, row_parallel_calls=rows, all_equal_cpu_plain=True)
+    return n
+
+
+def _tp_strategies(model, mesh):
+    """The strategy each attention block runs at decode over the served
+    cache on ``mesh`` (`attn_strategy`, as the blocks call it), and its
+    weight layout."""
+    from repro_torch.models.lm import _attn_cfg
+    from repro_torch.nn.attention import attn_layout, attn_strategy
+    from repro_torch.parallel import tp
+    cfg = model.cfg
+    if cfg.family == "mamba":
+        return "no attention"
+    acfg = _attn_cfg(cfg)
+    t = min(LM_MAX_LEN, cfg.window) if cfg.family == "griffin" \
+        else LM_MAX_LEN
+    with tp.tp_scope(tp.TPGroup(mesh, 0)):
+        strat = attn_strategy(acfg.kv_heads, acfg.groups, 1, t)
+    lay = attn_layout(acfg, mesh.shape["model"])
+    return f"{strat} (weights {lay.kind}, wo {lay.wo})"
+
+
+def _tp_serve(model, params, mesh, label, acc, report):
+    """`Engine` over the CLI's requests; the mesh run's launches into
+    ``acc``. Returns (tokens, logit rows by request, row)."""
+    import torch
+    from repro_torch.serve.engine import Engine
+    dev = params["embed"]["table"].device
+    eng = Engine(model, params, batch_size=MESH_LM_BATCH,
+                 max_len=LM_MAX_LEN, device=dev, mesh=mesh)
+    rows = _record_rows(eng)
+    reqs = _cli_requests(model.cfg, MESH_LM_REQUESTS, TP_MAX_NEW)
+    t0 = time.perf_counter()
+    if mesh is None:
+        out = eng.generate(reqs)
+    else:
+        out = _count_launches(acc, lambda: eng.generate(reqs))
+    wall = time.perf_counter() - t0
+    rep = eng.utilization_report()
+    toks = sum(len(r.out) for r in out)
+    row = {"tok_per_s": toks / wall, "tokens": toks, "wall_s": wall,
+           "wave_p50_ms": rep["latency_us"]["p50"] / 1e3,
+           "wave_p95_ms": rep["latency_us"]["p95"] / 1e3,
+           "per_device": rep["per_device"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    mesh_s = "meshless" if mesh is None else ",".join(
+        str(v) for v in mesh.shape.values())
+    strat = "" if mesh is None else _tp_strategies(model, mesh)
+    say("tp", serve=label, mesh=mesh_s, strategy=strat,
+        **{k: (round(v, 3) if isinstance(v, float) else v)
+           for k, v in row.items()})
+    report.setdefault("tp_serve", {})[f"{label} {mesh_s}"] = row
+    return [r.out.tolist() for r in out], rows, eng
+
+
+def _tp_compare(label, base, got, mesh_s, vocab):
+    """Greedy tokens of a served mesh run equal the meshless run's (a
+    gate); the largest difference of their bf16 logit rows over the real
+    vocab is reported (`_tp_rows_f32` gates the rows: a bf16 GEMM of
+    another shape, a head's column block or a few heads' attention,
+    rounds its last bits otherwise)."""
+    import numpy as np
+    (t0, r0), (t1, r1) = base, got
+    if t0 != t1:
+        raise AssertionError(f"[tp] {label} on {mesh_s}: tokens {t1}, "
+                             f"meshless {t0}")
+    err, scale, n = 0.0, 0.0, 0
+    for rid, want in r0.items():
+        have = r1.get(rid, [])
+        if len(have) != len(want):
+            raise AssertionError(f"[tp] {label} on {mesh_s}: request {rid}"
+                                 f" {len(have)} rows, {len(want)} meshless")
+        for g, w in zip(have, want):
+            err = max(err, float(np.abs(g[:vocab] - w[:vocab]).max()))
+            scale = max(scale, float(np.abs(w[:vocab]).max()))
+            n += 1
+    say("tp", check="served vs meshless", arch=label, mesh=mesh_s,
+        tokens_equal=True, bf16_rows=n, bf16_max_abs_err=err,
+        max_abs_row=scale)
+    return {"rows": n, "bf16_max_abs_err": err, "max_abs_row": scale}
+
+
+def _tp_rows_f32(dev, cfg, fp, label, shapes, report):
+    """The logit rows of the fp model (quantization off, float32
+    compute) over TP_ROW_PROMPT prompt tokens and TP_ROW_STEPS greedy
+    steps, decoded on data block 0 of each mesh of ``shapes`` (params
+    and cache placed) against meshless: within MESH_LM_ROW_TOL x max
+    |row| over the real vocab, greedy tokens equal wherever meshless's
+    top-1 margin exceeds that. The packed path is held bit for bit per
+    call (`_tp_dense_tap`); its activation codes would turn a last-bit
+    float difference (a GEMM of another shape) into a flipped code, so
+    the rows of the composition are held on the continuous fp path."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.models.api import build
+    from repro_torch.nn.layers import QOFF
+    from repro_torch.parallel import tp
+    m32 = build(dataclasses.replace(cfg, compute_dtype="float32",
+                                    quant=QOFF, quant_plan=None))
+    vocab = m32.cfg.vocab
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 26)
+    prompt = torch.randint(2, vocab, (LM_BATCH, TP_ROW_PROMPT),
+                           generator=gen).to(dev)
+
+    def run(group, feed=None):
+        p = fp if group is None else m32.place(fp, group)
+        cache = m32.init_cache(LM_BATCH, LM_MAX_LEN, dtype=torch.float32,
+                               device=dev)
+        if group is not None:
+            cache = m32.place_cache(cache, group)
+        rows, fed, tok = [], [], prompt[:, :1]
+        with tp.tp_scope(group):
+            for t in range(TP_ROW_PROMPT + TP_ROW_STEPS):
+                if feed is not None:
+                    tok = feed[t]
+                elif t < TP_ROW_PROMPT:
+                    tok = prompt[:, t:t + 1]
+                fed.append(tok)
+                lg, cache = m32.decode(p, cache, tok, t)
+                rows.append(lg[:, -1, :vocab].float())
+                tok = lg[:, -1, :vocab].argmax(-1, keepdim=True)
+        return torch.stack(rows), fed
+
+    want, fed = run(None)
+    top2 = want.topk(2, dim=-1).values
+    out = {}
+    for shape in shapes:
+        got, _ = run(tp.TPGroup(make_cluster_mesh(*shape, device=dev), 0),
+                     fed)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        tol = MESH_LM_ROW_TOL * scale
+        sure = (top2[..., 0] - top2[..., 1]) > tol
+        agree = bool((got.argmax(-1) == want.argmax(-1))[sure].all())
+        mesh_s = f"{shape[0]},{shape[1]}"
+        if not (err <= tol and agree):
+            raise AssertionError(f"[tp] {label} fp float32 rows on {mesh_s}"
+                                 f": max abs err {err} (max |row| {scale}),"
+                                 f" greedy agree {agree}")
+        say("tp", check="fp float32 rows vs meshless", arch=label,
+            mesh=mesh_s, rows=int(want.shape[0] * want.shape[1]),
+            max_abs_err=err, max_abs_row=scale,
+            tol=f"{MESH_LM_ROW_TOL} x max|row|",
+            greedy_agree=f"{int(sure.sum())}/{sure.numel()}")
+        out[mesh_s] = {"max_abs_err": err, "max_abs_row": scale}
+    report.setdefault("tp_rows_f32", {})[label] = out
+    del want, fed
+    return out
+
+
+def _tp_profile_step(dev, model, params, mesh, report):
+    """One tensor-parallel decode step of data block 0 under
+    torch.profiler: wall, device busy and idle, kernel 1 and 2 launches,
+    and the device ms of the reductions across positions (the partial
+    sums and their one dequant, the log-sum-exp merges, marked with
+    ``record_function``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.nn import attention, layers
+    from repro_torch.parallel import tp
+    grp = tp.TPGroup(mesh, 0)
+    placed = model.place(params, grp)
+    cache = model.place_cache(model.init_cache(LM_BATCH, LM_MAX_LEN,
+                                               device=dev), grp)
+    tok = torch.full((LM_BATCH, 1), 7, device=dev)
+    marked = {}
+
+    def mark(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            with record_function("tp_reduce"):
+                return fn(*a, **k)
+        marked[(mod, name)] = fn
+        setattr(mod, name, wrapped)
+
+    with tp.tp_scope(grp):
+        model.decode(placed, cache, tok, 0)              # warm
+        torch.cuda.synchronize()
+        for mod, name in ((layers, "dense_finish"), (tp, "total"),
+                          (attention, "_merge")):
+            mark(mod, name)
+        try:
+            reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.decode(placed, cache, tok, 1)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            for (mod, name), fn in marked.items():
+                setattr(mod, name, fn)
+    launches = read_launches()
+    busy = _device_us(prof) or None
+    red = [e for e in prof.key_averages() if e.key == "tp_reduce"]
+    red_ms = max((e.device_time_total for e in red), default=0) / 1e3
+    row = {"mesh": ",".join(str(v) for v in mesh.shape.values()),
+           "wall_ms": wall_us / 1e3,
+           "device_busy_ms": None if busy is None else busy / 1e3,
+           "device_idle_share": None if busy is None
+           else max(0.0, 1.0 - busy / wall_us),
+           "qmatmul_device_ms": _device_us(prof, ("qmatmul_kernel",)) / 1e3
+           or None,
+           "qmatmul_launches_s1": launches["qmatmul"][1],
+           "qmatmul_launches_s2": launches["qmatmul"][2],
+           "reduce_ranges": sum(e.count for e in red) // max(1, len(red)),
+           "reduce_device_ms": red_ms or None}
+    say("tp", profile="decode step", arch=model.cfg.name, batch=LM_BATCH,
+        **row)
+    report.setdefault("tp_profile_decode_step", []).append(row)
+    del placed, cache
+
+
+def tp_qwen_path(dev, report, acc):
+    """qwen2.5-3b W4A8 at full width and depth: `Engine` meshless and on
+    each mesh of TP_MESHES, W4A8 double-buffered on (1, 2), the wi plan
+    (kernel 3, the container whole) on (1, 2), the CLI with ``--mesh
+    2,2``: tokens equal meshless, logit rows within MESH_LM_ROW_TOL; one
+    decode step's packed calls on (1, 2) and (1, 4) equal the CPU's; a
+    profiled (1, 2) decode step."""
+    import torch
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
+    from repro_torch.deploy.policy import PlanRule, PrecisionPlan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.models.api import build, get_config
+
+    cfg = get_config(LM_ARCH)
+    model = _lm_model(cfg, 4)
+    fp = build(cfg).init(SEED, device=dev)
+    params = convert_params(int_skeleton(model.defs()), fp, 4)
+    label = f"{LM_ARCH} W4A8"
+    toks, rows, _ = _tp_serve(model, params, None, label, acc, report)
+    base = (toks, rows)
+    checks = {}
+    for shape in TP_MESHES:
+        mesh = make_cluster_mesh(*shape, device=dev)
+        toks, rows, eng = _tp_serve(model, params, mesh, label, acc, report)
+        mesh_s = f"{shape[0]},{shape[1]}"
+        checks[mesh_s] = _tp_compare(label, base, (toks, rows), mesh_s,
+                                     cfg.vocab)
+        if shape == (1, 2):
+            checks[mesh_s]["dense_calls"] = _tp_dense_tap(
+                model, eng._adapter, f"{label} {mesh_s}")
+        del eng
+    mesh = make_cluster_mesh(1, 2, device=dev)
+    db = _lm_model(cfg, 4, pipeline="double_buffer")
+    toks, _, eng = _tp_serve(db, params, mesh, f"{label} double_buffer",
+                             acc, report)
+    if toks != base[0]:
+        raise AssertionError(f"[tp] double_buffer tokens differ: {toks}")
+    del eng
+    _tp_profile_step(dev, model, params, mesh, report)
+    plan = PrecisionPlan(rules=(PlanRule(pattern="layers/mlp/wi", w_bits=8,
+                                         segments=LM_RUNS),),
+                         default_w_bits=4)
+    pm = _lm_model(cfg, 4, plan=plan)
+    pp = apply_plan(int_skeleton(pm.defs()), fp, plan, 4)
+    before = acc["qmatmul_segmented"].get(1, 0)
+    _, _, eng = _tp_serve(pm, pp, mesh, f"{LM_ARCH} plan wi W8|W4", acc,
+                          report)
+    if acc["qmatmul_segmented"].get(1, 0) == before:
+        raise AssertionError("[tp] the wi plan on (1,2) launched no "
+                             "qmatmul_segmented")
+    del eng, pp, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tp_rows_f32(dev, cfg, fp, LM_ARCH, ((1, 2), (1, 4)), report)
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli, text = _count_launches(acc, lambda: _captured(serve_cli.main, [
+        "--arch", LM_ARCH, "--quant", "w4a8", "--requests",
+        str(MESH_LM_REQUESTS), "--batch", str(MESH_LM_BATCH), "--max-new",
+        str(TP_MAX_NEW), "--mesh", "2,2"]))
+    if "mesh: data=2 model=2" not in text or \
+            "tensor-parallel over 'model'" not in text:
+        raise AssertionError("[tp] the serve CLI printed no tp mesh line")
+    if [r.out.tolist() for r in cli] != base[0]:
+        raise AssertionError("[tp] the CLI on --mesh 2,2 gave other tokens")
+    say("tp", cli=f"python -m repro_torch.launch.serve --arch {LM_ARCH} "
+        "--quant w4a8 --mesh 2,2", seconds=round(time.perf_counter() - t0,
+                                                  1),
+        tokens_equal_meshless=True)
+    report["tp_qwen_checks"] = checks
+
+
+def tp_family_path(dev, arch, cut, report, acc):
+    """One family at full width and cut depth, W4A8, on (1, 2) against
+    its own meshless run: tokens, logit rows, and one step's packed
+    calls against the CPU's."""
+    import dataclasses
+    import torch
+    from repro_torch.deploy.apply import apply_plan, int_skeleton
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.models.api import build, get_config
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **cut)
+    label = f"{arch} W4A8 ({', '.join(f'{k}={v}' for k, v in cut.items())})"
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp = build(cfg).init(SEED, device=dev)
+    model = _lm_model(cfg, 4)
+    params = apply_plan(int_skeleton(model.defs()), fp, None, 4)
+    base = _tp_serve(model, params, None, label, acc, report)
+    mesh = make_cluster_mesh(1, 2, device=dev)
+    toks, rows, eng = _tp_serve(model, params, mesh, label, acc, report)
+    out = _tp_compare(label, base[:2], (toks, rows), "1,2", cfg.vocab)
+    out["dense_calls"] = _tp_dense_tap(model, eng._adapter, label)
+    del eng, base, params
+    if cfg.moe is not None:
+        # float32 compute would copy every expert to float32: the fp row
+        # check runs at MOE_CPU_EXPERTS experts
+        del fp
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=MOE_CPU_EXPERTS[arch]))
+        fp = build(cfg).init(SEED, device=dev)
+        label = f"{label} experts={MOE_CPU_EXPERTS[arch]}"
+    out["rows_f32"] = _tp_rows_f32(dev, cfg, fp, label, ((1, 2),), report)
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    report.setdefault("tp_families", {})[arch] = out
+
+
+def tp_train_path(dev, work, report):
+    """olmo-1b on (1, 2) and (2, 2): at full width and depth, 3 steps at
+    batch 8 x 256 each (step wall, tokens/s, peak memory); at
+    TP_TRAIN_LAYERS layers in float32 against meshless on the card (loss
+    within TP_LOSS_RTOL relative, gradients within TP_GRAD_TOL of each
+    leaf's max); a checkpoint of that state saved after a (2, 2) step
+    and resumed with a (2, 4) step, equal to the meshless second step."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.models.api import build, get_config
+    from repro_torch.nn.module import leaf_paths
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (TrainStepConfig, loss_and_grads,
+                                        make_train_fns)
+
+    tcfg = TrainStepConfig(opt=OptConfig(lr=1e-3, warmup=1, total_steps=10))
+    model = build(get_config(TRAIN_ARCH))
+    shape = ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train")
+    for mshape in ((1, 2), (2, 2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        init_fn, step, _ = make_train_fns(
+            model, make_cluster_mesh(*mshape, device=dev), shape, tcfg,
+            device=dev)
+        state = init_fn(SEED)
+        data = SyntheticLM(model.cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                           seed=SEED, device=dev)
+        walls, losses = [], []
+        for _ in range(TP_TRAIN_STEPS):
+            batch = next(data)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t0)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"[tp] train on {mshape}: losses {losses}")
+        row = {"mesh": f"{mshape[0]},{mshape[1]}",
+               "step_wall_ms": [round(w * 1e3, 1) for w in walls],
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / min(walls[1:]),
+               "losses": [round(v, 4) for v in losses],
+               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        say("tp", train=f"{TRAIN_ARCH} full width and depth", batch=
+            f"{TRAIN_BATCH}x{TRAIN_SEQ}", **{k: (json.dumps(v)
+                                                  if isinstance(v, list)
+                                                  else v)
+                                              for k, v in row.items()})
+        report.setdefault("tp_train", []).append(row)
+        del state, step, init_fn, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TP_TRAIN_LAYERS,
+                              compute_dtype="float32")
+    small = build(cfg)
+    sshape = ShapeConfig("t", TRAIN_CPU_SEQ * 2, 4, "train")
+    init_fn, step0, _ = make_train_fns(small, None, sshape, tcfg, device=dev)
+    state = init_fn(SEED)
+    data = SyntheticLM(cfg.vocab, 4, TRAIN_CPU_SEQ * 2, seed=SEED,
+                       device=dev)
+    b1, b2 = next(data), next(data)
+    l0, g0 = loss_and_grads(small, state["params"], b1)
+    worst = {}
+    for mshape in ((1, 2), (2, 2)):
+        l1, g1 = loss_and_grads(small, state["params"], b1,
+                                make_cluster_mesh(*mshape, device=dev))
+        rel = abs(float(l1) - float(l0)) / abs(float(l0))
+        gerr = 0.0
+        for (path, _), a, b in zip(leaf_paths(state["params"]), g0, g1):
+            e = float((a - b).abs().max()) / (float(a.abs().max()) or 1.0)
+            if e > TP_GRAD_TOL:
+                raise AssertionError(f"[tp] grad {'/'.join(path)} on "
+                                     f"{mshape}: {e} x its max |g|")
+            gerr = max(gerr, e)
+        if rel > TP_LOSS_RTOL:
+            raise AssertionError(f"[tp] loss on {mshape}: rel err {rel}")
+        worst[f"{mshape[0]},{mshape[1]}"] = {"loss_rel_err": rel,
+                                             "grad_err_over_max_g": gerr}
+    _, step22, _ = make_train_fns(small, make_cluster_mesh(2, 2, device=dev),
+                                  sshape, tcfg, device=dev)
+    _, step24, _ = make_train_fns(small, make_cluster_mesh(2, 4, device=dev),
+                                  sshape, tcfg, device=dev)
+    s22, _ = step22(state, b1)
+    ckpt.save(str(work / "tp_ckpt"), 1, s22)
+    restored, at = ckpt.restore(str(work / "tp_ckpt"), device=dev)
+    _, m24 = step24(restored, b2)
+    ref, _ = step0(state, b1)
+    _, m0 = step0(ref, b2)
+    rel = abs(float(m24["loss"]) - float(m0["loss"])) / abs(float(m0["loss"]))
+    if at != 1 or rel > TP_LOSS_RTOL:
+        raise AssertionError(f"[tp] resumed on (2,4) at {at}: loss rel err "
+                             f"{rel}")
+    shutil.rmtree(work / "tp_ckpt", ignore_errors=True)
+    say("tp", check="train card float32", arch=TRAIN_ARCH,
+        layers=f"{TP_TRAIN_LAYERS} (cut from 16)",
+        vs_meshless=json.dumps(worst), resumed_2x2_on_2x4_loss_rel_err=rel)
+    report["tp_train_check"] = {"vs_meshless": worst,
+                                "resume_loss_rel_err": rel}
+    del state, restored, s22, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_path(dev, work, report):
+    """[tp]: explicit LM tensor parallelism over 'model' on one card.
+    Returns the kernels' launch counts over the tensor-parallel serving
+    runs alone (the meshless baselines and the comparisons outside)."""
+    t0 = time.perf_counter()
+    launches = {name: {stages: 0 for stages in counts}
+                for name, counts in read_launches().items()}
+    tp_qwen_path(dev, report, launches)
+    say("tp", part="qwen2.5-3b", seconds=round(time.perf_counter() - t0, 1))
+    for arch, cut in TP_FAMILIES:
+        tp_family_path(dev, arch, cut, report, launches)
+    say("tp", part="families", seconds=round(time.perf_counter() - t0, 1))
+    require_launches("tp", launches, ("qmatmul",))
+    if launches["qmatmul_segmented"].get(1, 0) == 0:
+        raise AssertionError("[tp] qmatmul_segmented never launched")
+    report.setdefault("launches", {})["tp"] = launches
+    tp_train_path(dev, work, report)
+    say("tp", phase_seconds=round(time.perf_counter() - t0, 1))
+    return launches
+
+
 def write_report(report, name: str):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -4436,6 +5038,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["mesh"] = mesh_path(dev, report)
     mark("mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="tp_", dir=ROOT / "build"))
+    try:
+        by_path["tp"] = tp_path(dev, work, report)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    mark("tp")
     gc.collect()
     torch.cuda.empty_cache()
     work = pathlib.Path(tempfile.mkdtemp(prefix="qat_", dir=ROOT / "build"))

@@ -244,9 +244,13 @@ def _qdot_mixed(params: SegmentedLinearParams, x_packed, *, epilogue,
 def int_gemm(x_q: torch.Tensor, w, *, a_bits: int,
              w_bits: Optional[int] = None, scale, out_dtype=None,
              pipeline: Optional[str] = None,
-             k_logical: Optional[int] = None) -> torch.Tensor:
+             k_logical: Optional[int] = None,
+             epilogue: str = "dequant") -> torch.Tensor:
     """The dense layer's integer GEMM with the dequant epilogue (the
-    reference's ``xla_int_gemm(..., epilogue='dequant')``).
+    reference's ``xla_int_gemm(..., epilogue='dequant')``), or with
+    ``epilogue='raw'`` its int32 accumulators (a uniform ``w`` only: a
+    row-parallel K-slice, summed across the model positions before one
+    dequant).
 
     ``x_q``: (..., K_pad) int8 codes on the *signed* ``a_bits`` grid, K
     zero-padded to CHUNK; they are packed at ``a_bits`` with
@@ -267,9 +271,9 @@ def int_gemm(x_q: torch.Tensor, w, *, a_bits: int,
     else:
         out = qmatmul_packed(
             xp, w, None, None, None, a_bits=a_bits, a_signed=True,
-            w_bits=w_bits, d=0, out_bits=8, epilogue="dequant",
+            w_bits=w_bits, d=0, out_bits=8, epilogue=epilogue,
             scale=scale, pipeline=pipeline, k_logical=k_logical,
-            out_dtype=out_dtype)
+            out_dtype=None if epilogue == "raw" else out_dtype)
     return out.reshape(*lead, out.shape[-1])
 
 

@@ -32,12 +32,14 @@ this serves the deployed artifact:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --ckpt ckpt/ --plan plan.json
 
-``--mesh DP,TP`` serves the waves data-parallel over DP data blocks of
-slots, each decoding on its own position of a (data=DP, model=TP) mesh
-(positions share the host's devices round-robin; TP must be 1):
+``--mesh DP,TP`` serves on a (data=DP, model=TP) mesh (positions share
+the host's devices round-robin): the waves' slots split into DP data
+blocks, and each block's decode splits over its TP model positions
+(heads, MLP columns, experts, recurrence channels and vocab rows; LM
+tensor parallelism, `repro_torch.parallel.tp`):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
-        --smoke --quant w4a8 --device cpu --mesh 2,1
+        --smoke --quant w4a8 --device cpu --mesh 4,2
 
 With ``REPRO_OBS=1`` the run records a ``serve.generate`` span and
 exports a Chrome trace on exit to ``REPRO_OBS_TRACE`` (default
@@ -71,8 +73,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=None, metavar="DP,TP",
-                    help="serve on a (data=DP, model=TP) mesh, waves "
-                         "sharded over 'data' (TP must be 1)")
+                    help="serve on a (data=DP, model=TP) mesh: waves "
+                         "sharded over 'data', each block's decode "
+                         "tensor-parallel over 'model'")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -139,7 +142,9 @@ def main(argv=None):
     eng = Engine(model, params, batch_size=args.batch, max_len=args.max_len,
                  plan=plan, device=device, mesh=mesh)
     if mesh is not None:
-        print(f"mesh: {mesh_line(mesh)}; waves sharded over 'data'")
+        tpl = ("" if mesh.shape["model"] == 1 else
+               ", each block's decode tensor-parallel over 'model'")
+        print(f"mesh: {mesh_line(mesh)}; waves sharded over 'data'{tpl}")
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "CPU, the kernels' plain versions")
     t0 = time.perf_counter()

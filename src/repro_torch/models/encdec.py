@@ -15,12 +15,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (_attn_cfg, _compute_dtype, _logits,
                                    _mlp_cfg, layer_params, remat,
-                                   unstack_layers)
-from repro_torch.nn.attention import (attn_apply, attn_decode, attn_def,
-                                      cross_kv_project, init_cache)
+                                   unstack_layers, vocab_cuts)
+from repro_torch.nn.attention import (attn_apply, attn_cuts, attn_decode,
+                                      attn_def, cross_kv_project,
+                                      init_cache, kv_cache_cut)
 from repro_torch.nn.layers import (embedding_apply, embedding_def,
                                    norm_apply, norm_def, rope_tables)
-from repro_torch.nn.mlp import mlp_apply, mlp_def
+from repro_torch.nn.mlp import mlp_apply, mlp_cuts, mlp_def
 from repro_torch.nn.module import stack_defs
 
 
@@ -168,3 +169,26 @@ def decode_step(params, cache, token, index, cfg: ModelConfig, *,
                                                 cfg.norm), mcfg)
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
     return _logits(params, x, cfg), cache
+
+
+def encdec_cuts(cfg: ModelConfig, m: int):
+    """The `Cut` tree of an enc-dec params tree over ``m`` positions."""
+    def mlp(path):
+        return mlp_cuts(_mlp_cfg(cfg, path), m)
+    return {**vocab_cuts(cfg, m),
+            "enc_layers": {"attn": attn_cuts(_attn_cfg(cfg,
+                                                       "enc_layers/attn"), m),
+                           "mlp": mlp("enc_layers/mlp")},
+            "dec_layers": {"attn": attn_cuts(_attn_cfg(cfg,
+                                                       "dec_layers/attn"), m),
+                           "xattn": attn_cuts(
+                               _attn_cfg(cfg, "dec_layers/xattn"), m),
+                           "mlp": mlp("dec_layers/mlp")}}
+
+
+def encdec_cache_cuts(cfg: ModelConfig, cache, mesh):
+    c = kv_cache_cut(_attn_cfg(cfg, "dec_layers/attn"),
+                     cache["kv"]["k"].shape, mesh)
+    return {"kv": {"k": c, "v": c},
+            "cross_kv": kv_cache_cut(_attn_cfg(cfg, "dec_layers/xattn"),
+                                     cache["cross_kv"].shape, mesh)}

@@ -16,15 +16,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (_attn_cfg, _compute_dtype, _embed,
                                    _logits, _mlp_cfg, layer_params, remat,
-                                   unstack_layers)
-from repro_torch.nn.attention import (attn_apply, attn_decode, attn_def,
-                                      init_cache)
+                                   unstack_layers, vocab_cuts)
+from repro_torch.nn.attention import (attn_apply, attn_cuts, attn_decode,
+                                      attn_def, init_cache, kv_cache_cut)
 from repro_torch.nn.layers import (embedding_def, norm_apply, norm_def,
                                    rope_tables)
-from repro_torch.nn.mlp import mlp_apply, mlp_def
+from repro_torch.nn.mlp import mlp_apply, mlp_cuts, mlp_def
 from repro_torch.nn.module import stack_defs
 from repro_torch.nn.rglru import (RglruConfig, rglru_block_apply,
                                   rglru_block_decode, rglru_block_def,
+                                  rglru_cache_cuts, rglru_cuts,
                                   rglru_init_cache)
 
 
@@ -163,3 +164,21 @@ def decode_step(params, cache, token, index, cfg: ModelConfig, *,
             x = _mlp(cfg, lp, x + h, "attn_layers/mlp")
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
     return _logits(params, x, cfg), cache
+
+
+def griffin_cuts(cfg: ModelConfig, m: int):
+    """The `Cut` tree of a griffin params tree over ``m`` positions."""
+    return {**vocab_cuts(cfg, m),
+            "rec_layers": {"rec": rglru_cuts(_rcfg(cfg), m),
+                           "mlp": mlp_cuts(_mlp_cfg(cfg, "rec_layers/mlp"),
+                                           m)},
+            "attn_layers": {
+                "attn": attn_cuts(_attn_cfg(cfg, "attn_layers/attn"), m),
+                "mlp": mlp_cuts(_mlp_cfg(cfg, "attn_layers/mlp"), m)}}
+
+
+def griffin_cache_cuts(cfg: ModelConfig, cache, mesh):
+    c = kv_cache_cut(_attn_cfg(cfg, "attn_layers/attn"),
+                     cache["kv"]["k"].shape, mesh)
+    return {"rec": rglru_cache_cuts(_rcfg(cfg), mesh.shape["model"]),
+            "kv": {"k": c, "v": c}}

@@ -12,22 +12,34 @@ projected source embeddings: self layer j of group g is stacked row
 ``g * cross_every + j``. A MoE arch's layers hold a ``moe`` block in
 place of the ``mlp`` one; the forward returns the sum of their Switch
 aux losses.
+
+Under tensor parallelism (`repro_torch.parallel.tp`, an ambient
+`TPGroup`) every block splits its own work (`nn/attention.py`,
+`nn/mlp.py`); the embedding and the logits are vocab-parallel (each
+position its table rows or head columns, the logits gathered on the
+leader for sampling); the norms and the residual stay replicated on the
+leader. `lm_cuts` is the whole tree's split, which serving places once.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn.attention import (AttnConfig, attn_apply, attn_decode,
-                                      attn_def, cross_kv_project,
-                                      init_cache)
-from repro_torch.nn.layers import (const, dense_apply, dense_def,
-                                   embedding_apply, embedding_def,
-                                   embedding_logits, norm_apply, norm_def,
-                                   padded_vocab, rope_tables)
-from repro_torch.nn.mlp import (MlpConfig, MoeConfig, mlp_apply, mlp_def,
-                                moe_apply, moe_def)
+from repro_torch.nn.attention import (AttnConfig, attn_apply, attn_cuts,
+                                      attn_decode, attn_def,
+                                      cross_kv_project, init_cache,
+                                      kv_cache_cut)
+from repro_torch.nn.layers import (QOFF, const, dense_apply, dense_col,
+                                   dense_cuts, dense_def, embedding_apply,
+                                   embedding_def, embedding_logits,
+                                   mask_vocab, norm_apply, norm_def,
+                                   padded_vocab, rope_tables, vocab_runs)
+from repro_torch.nn.mlp import (MlpConfig, MoeConfig, mlp_apply, mlp_cuts,
+                                mlp_def, moe_apply, moe_cuts, moe_def)
 from repro_torch.nn.module import stack_defs
+from repro_torch.parallel import tp
 
 
 def _attn_cfg(cfg: ModelConfig, path: str = "layers/attn") -> AttnConfig:
@@ -108,17 +120,30 @@ def unstack_layers(stacked) -> list:
         n = max((len(v) for v in per.values()), default=0)
         return [{k: v[i] if v else {} for k, v in per.items()}
                 for i in range(n)]
+    if isinstance(stacked, tp.Split):
+        return stacked.unbind()
     return list(torch.unbind(stacked, 0))
 
 
 def remat(cfg: ModelConfig, fn, *args):
     """``fn(*args)``; with ``cfg.remat`` and autograd recording, its
     activations are recomputed in the backward instead of kept (the
-    reference's ``jax.checkpoint``: memory changes, values do not)."""
+    reference's ``jax.checkpoint``: memory changes, values do not).
+    The recomputation runs under the forward's tensor-parallel group:
+    autograd may run it on a thread of its own, where the forward's
+    context variables are not set."""
     if cfg.remat and torch.is_grad_enabled():
         from torch.utils.checkpoint import checkpoint
+        grp = tp.ambient()
+        if grp is not None:
+            fn = functools.partial(_in_scope, grp, fn)
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def _in_scope(grp, fn, *args):
+    with tp.tp_scope(grp):
+        return fn(*args)
 
 
 def _schedule(cfg: ModelConfig, seq_len: int):
@@ -247,12 +272,53 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
 def _logits(params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return embedding_logits(params["embed"], x, cfg.vocab)
-    lg = dense_apply(params["head"], x)
-    vp = lg.shape[-1]
-    if vp != cfg.vocab:
-        mask = torch.arange(vp, device=lg.device) < cfg.vocab
-        lg = torch.where(mask, lg, -1e9)      # -1e9 in lg's dtype
-    return lg
+    grp = tp.tp_group()
+    if grp is None:
+        lg = dense_apply(params["head"], x)
+    else:
+        vp = padded_vocab(cfg.vocab)
+        runs = vocab_runs(vp, grp.m)
+        lg = tp.join(dense_col(params["head"], x, qcfg=QOFF, runs=runs,
+                               group=grp, k_full=cfg.d_model),
+                     runs, -1, vp, grp.leader)
+    return mask_vocab(lg, lg.shape[-1], cfg.vocab)
+
+
+def vocab_cuts(cfg: ModelConfig, m: int):
+    """The embedding table's rows and an untied head's columns over the
+    model axis."""
+    runs = vocab_runs(padded_vocab(cfg.vocab), m)
+    out = {"embed": {"table": tp.Cut(-2, runs)}}
+    if not cfg.tie_embeddings:
+        out["head"] = dense_cuts(QOFF, "col", runs, cfg.d_model)
+    return out
+
+
+def lm_cache_cuts(cfg: ModelConfig, cache, mesh):
+    """The `Cut` tree of a decode cache (`lm_init_cache`) over
+    ``mesh``'s model positions."""
+    c = kv_cache_cut(_attn_cfg(cfg), cache["kv"]["k"].shape, mesh)
+    out = {"kv": {"k": c, "v": c}}
+    if "cross_kv" in cache:
+        out["cross_kv"] = kv_cache_cut(_attn_cfg(cfg, "cross_layers/xattn"),
+                                       cache["cross_kv"].shape, mesh)
+    return out
+
+
+def lm_cuts(cfg: ModelConfig, m: int):
+    """The `Cut` tree of an ``lm`` params tree over ``m`` model
+    positions."""
+    layer = {"attn": attn_cuts(_attn_cfg(cfg), m)}
+    if cfg.moe is not None:
+        layer["moe"] = moe_cuts(_moe_cfg(cfg), m)
+    else:
+        layer["mlp"] = mlp_cuts(_mlp_cfg(cfg), m)
+    out = {**vocab_cuts(cfg, m), "layers": layer}
+    if _layer_split(cfg)[1]:
+        out["cross_layers"] = {
+            "xattn": attn_cuts(_attn_cfg(cfg, "cross_layers/xattn"), m),
+            "mlp": mlp_cuts(_mlp_cfg(cfg, "cross_layers/mlp"), m)}
+    return out
 
 
 # ------------------------------------------------------------- serving ---
@@ -295,7 +361,7 @@ def decode_step(params, cache, token, index, cfg: ModelConfig, *,
     not read: the cache carries the source). A MoE layer's aux loss is
     dropped. Returns (logits (B,1,V), cache)."""
     dtype = _compute_dtype(cfg)
-    max_len = cache["kv"]["k"].shape[2]
+    max_len = tp.full_len(cache["kv"]["k"], -3)
     x = _embed(params, token, cfg, dtype)
     th_g = cfg.rope_theta
     th_l = cfg.rope_theta_local or cfg.rope_theta

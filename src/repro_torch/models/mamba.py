@@ -11,11 +11,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (_compute_dtype, _logits, layer_params,
-                                   remat, unstack_layers)
+                                   remat, unstack_layers, vocab_cuts)
 from repro_torch.nn.layers import (embedding_apply, embedding_def,
                                    norm_apply, norm_def)
 from repro_torch.nn.module import stack_defs
-from repro_torch.nn.ssm import (MambaConfig, mamba_apply, mamba_decode,
+from repro_torch.nn.ssm import (MambaConfig, mamba_apply,
+                                mamba_cache_cuts, mamba_cuts, mamba_decode,
                                 mamba_def, mamba_init_cache)
 
 
@@ -77,3 +78,13 @@ def decode_step(params, cache, token, index, cfg: ModelConfig, *,
         x = x + h
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
     return _logits(params, x, cfg), cache
+
+
+def mamba_lm_cuts(cfg: ModelConfig, m: int):
+    """The `Cut` tree of a mamba params tree over ``m`` positions."""
+    return {**vocab_cuts(cfg, m),
+            "layers": {"mixer": mamba_cuts(_mcfg(cfg), m)}}
+
+
+def mamba_lm_cache_cuts(cfg: ModelConfig, cache, mesh):
+    return {"ssm": mamba_cache_cuts(_mcfg(cfg), mesh.shape["model"])}

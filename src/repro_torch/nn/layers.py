@@ -24,6 +24,7 @@ from repro_torch.core.packing import SegmentMap
 from repro_torch.core.quantize import QuantSpec, fake_quantize
 from repro_torch.kernels.common import check_pipeline
 from repro_torch.nn.module import ParamDef
+from repro_torch.parallel import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,23 +104,129 @@ def dense_def(d_in: int, d_out: int, axes=("embed", "mlp"), *,
     return p
 
 
+class RowSlice(dict):
+    """The local params of a row-parallel dense on one model position:
+    its K-slice of the weight (`repro_torch.parallel.tp`). `dense_apply`
+    on it returns the partial product before any epilogue: the int32
+    accumulators of the packed GEMM (the ``raw`` epilogue), or a float32
+    product; `dense_finish` turns the sum of the partials into the
+    output. ``k_full``: the whole K (a fake-quant weight grid reads
+    it)."""
+
+    def __init__(self, p, k_full: int):
+        super().__init__(p)
+        self.k_full = k_full
+
+
 def dense_apply(p, x, *, qcfg: QuantConfig = QOFF):
-    """x: (..., d_in) bf16/f32 -> (..., d_out) in x's dtype."""
+    """x: (..., d_in) bf16/f32 -> (..., d_out) in x's dtype; on a
+    `RowSlice`, the partial product (its docstring)."""
     if _DENSE_TAP is not None:
         _DENSE_TAP(p, x)
+    partial = isinstance(p, RowSlice)
     if qcfg.mode == "int":
-        y = _int_matmul(p, x, qcfg)
-    elif qcfg.mode == "fake":
+        if partial:
+            return _int_matmul(p, x, qcfg, epilogue="raw")
+        return _bias(p, _int_matmul(p, x, qcfg))
+    if qcfg.mode == "fake":
         w = p["w"]
-        sw = QuantSpec.weight(qcfg.w_bits, 3.0 / (w.shape[0] ** 0.5))
+        k = p.k_full if partial else w.shape[0]
+        sw = QuantSpec.weight(qcfg.w_bits, 3.0 / (k ** 0.5))
         sa = QuantSpec(qcfg.a_bits, True, -qcfg.a_absmax, qcfg.a_absmax)
-        y = torch.matmul(fake_quantize(x, sa).to(x.dtype),
-                         fake_quantize(w, sw).to(x.dtype))
+        a, w = fake_quantize(x, sa).to(x.dtype), fake_quantize(w, sw)
     else:
-        y = torch.matmul(x, p["w"].to(x.dtype))
-    if "b" in p:
-        y = y + p["b"].to(y.dtype)
-    return y
+        a, w = x, p["w"]
+    if partial:   # operands in x's dtype, as whole; the product float32
+        return torch.matmul(a.to(torch.float32),
+                            w.to(x.dtype).to(torch.float32))
+    return _bias(p, torch.matmul(a, w.to(x.dtype)))
+
+
+def _bias(p, y):
+    return y + p["b"].to(y.dtype) if "b" in p else y
+
+
+def dense_finish(p, acc, *, qcfg: QuantConfig, out_dtype):
+    """The output of a row-parallel dense from the sum ``acc`` of its
+    partial products: int32 accumulators dequantized once with the
+    whole dense's scale (the meshless epilogue's float32 product, then
+    one round-to-nearest-even cast), or the float32 sum cast; then the
+    bias."""
+    if qcfg.mode == "int":
+        acc = (acc.to(torch.float32) * _dequant_scale(p, qcfg, acc.device)
+               ).to(out_dtype)
+    return _bias(p, acc.to(out_dtype))
+
+
+# ------------------------------------------- dense over the model axis ---
+
+def dense_cuts(qcfg: QuantConfig, kind: str, runs, k_full: int):
+    """The `Cut`s of a dense's leaves on the model axis: ``kind`` 'col'
+    splits N (weight columns, the per-channel scale, the bias), 'row'
+    splits K (weight rows; a packed container at CHUNK-aligned runs);
+    a segmented container stays whole (None)."""
+    if qcfg.mode == "int" and qcfg.segments is not None:
+        return None
+    if kind == "col":
+        c = tp.Cut(-1, runs)
+        return {"w": c, "w_packed": c, "w_scale": c, "b": c}
+    return {"w": tp.Cut(-2, runs),
+            "w_packed": tp.Cut(-2, runs, packed=True, logical=k_full)}
+
+
+def dense_is_split(p) -> bool:
+    return isinstance(p.get("w_packed", p.get("w")), tp.Split)
+
+
+def row_parallel_ok(qcfg: QuantConfig, runs, k_full: int) -> bool:
+    """Whether a dense can split K at ``runs``: a float weight anywhere,
+    a uniform packed one at CHUNK boundaries (or K's end); a segmented
+    container never splits, so it always can (it runs whole)."""
+    if qcfg.mode != "int" or qcfg.segments is not None:
+        return True
+    c = packing.CHUNK
+    return all(s % c == 0 and (e % c == 0 or e == k_full)
+               for r in runs for s, e in r)
+
+
+def dense_col(p, x, *, qcfg: QuantConfig, runs, group, k_full: int):
+    """Column-parallel dense: position i computes its ``runs[i]`` output
+    columns of replicated ``x`` (the dequant epilogue on its N-slice);
+    returns the per-position outputs (None where a run is empty). A
+    dense that is not split (a segmented container) runs once on the
+    leader and its output is cut to the runs."""
+    p = tp.place(p, dense_cuts(qcfg, "col", runs, k_full), group)
+    if not dense_is_split(p):
+        return tp.split(dense_apply(p, x, qcfg=qcfg), runs, -1)
+    live = [i for i, r in enumerate(runs) if r]
+    outs = group.run(
+        lambda i, xi: dense_apply(tp.local(p, i, group.devices[i]), xi,
+                                  qcfg=qcfg),
+        [(group.to(x, i),) for i in live], live)
+    res = [None] * group.m
+    for i, o in zip(live, outs):
+        res[i] = o
+    return res
+
+
+def dense_row(p, xs, *, qcfg: QuantConfig, runs, group, k_full: int):
+    """Row-parallel dense: position i contracts its K-slice ``xs[i]``
+    (``runs[i]`` of K) into a partial product (`RowSlice`), the partials
+    are summed on the leader (exactly, for int32 accumulators) and
+    finished once (`dense_finish`). A dense that is not split runs once
+    on the leader over the joined input."""
+    p = tp.place(p, dense_cuts(qcfg, "row", runs, k_full), group)
+    live = [i for i, r in enumerate(runs) if r]
+    dtype = xs[live[0]].dtype
+    if not dense_is_split(p):
+        x = tp.join(xs, runs, -1, k_full, group.leader)
+        return dense_apply(p, x, qcfg=qcfg)
+    accs = group.run(
+        lambda i, xi: dense_apply(RowSlice(tp.local(p, i, group.devices[i]),
+                                           k_full), xi, qcfg=qcfg),
+        [(group.to(xs[i], i),) for i in live], live)
+    return dense_finish(p, tp.total(accs, group.leader), qcfg=qcfg,
+                        out_dtype=dtype)
 
 
 @functools.lru_cache(maxsize=256)
@@ -136,7 +243,17 @@ def _rounded(v: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(v, dtype=dtype))
 
 
-def _int_matmul(p, x, qcfg: QuantConfig):
+def _dequant_scale(p, qcfg: QuantConfig, device):
+    """w_scale x a_scale in float32, a_scale first rounded to w_scale's
+    dtype (`_int_matmul`)."""
+    a_max = packing.int_range(qcfg.a_bits, True)[1]
+    absmax = qcfg.a_absmax or 4.0
+    return p["w_scale"].to(torch.float32) * const(
+        _rounded(absmax / a_max, p["w_scale"].dtype), torch.float32,
+        device)
+
+
+def _int_matmul(p, x, qcfg: QuantConfig, epilogue: str = "dequant"):
     """W{8,4,2}A{8,4,2} integer GEMM with the per-channel dequant
     epilogue, written in x's dtype.
 
@@ -148,7 +265,8 @@ def _int_matmul(p, x, qcfg: QuantConfig):
     w_scale's dtype: the reference's compiled rounding (a bfloat16 tree's
     w_scale meets a_scale as bfloat16, and XLA drops the product's round
     trip through bfloat16). A segmented container runs the mixed-operand GEMM in one launch, equal
-    to the reference's per-run concatenation.
+    to the reference's per-run concatenation. ``epilogue='raw'`` returns
+    the int32 accumulators (a row-parallel K-slice, `RowSlice`).
     """
     from repro_torch.core.quantize import SegmentedLinearParams
     from repro_torch.kernels.api import int_gemm
@@ -160,9 +278,8 @@ def _int_matmul(p, x, qcfg: QuantConfig):
     x_q = torch.clamp(torch.round(x.to(torch.float32) / a_scale), -a_max,
                       a_max).to(torch.int8)
     x_q = packing.pad_to_chunk(x_q, axis=-1)
-    scale = p["w_scale"].to(torch.float32) * const(
-        _rounded(absmax / a_max, p["w_scale"].dtype), torch.float32,
-        x.device)
+    scale = (_dequant_scale(p, qcfg, x.device) if epilogue == "dequant"
+             else 1.0)
     if qcfg.segments is not None:
         w = SegmentedLinearParams(
             w_flat=p["w_packed"], segmap=SegmentMap(qcfg.segments),
@@ -172,7 +289,8 @@ def _int_matmul(p, x, qcfg: QuantConfig):
                         out_dtype=x.dtype, pipeline=qcfg.pipeline)
     return int_gemm(x_q, p["w_packed"], a_bits=qcfg.a_bits,
                     w_bits=qcfg.w_bits, scale=scale, out_dtype=x.dtype,
-                    pipeline=qcfg.pipeline, k_logical=k_logical)
+                    pipeline=qcfg.pipeline, k_logical=k_logical,
+                    epilogue=epilogue)
 
 
 def quantize_dense_weights(w, w_bits: int):
@@ -238,15 +356,65 @@ def embedding_def(vocab: int, d: int, dtype=torch.float32):
                               "embed", dtype, scale=1.0)}
 
 
+def vocab_runs(vocab_pad: int, m: int):
+    """The table rows / head columns of each model position."""
+    return tp.even_runs(vocab_pad, m, VOCAB_PAD)
+
+
+def embedding_cuts(p, m: int):
+    """The table split over the vocab rows (None once placed)."""
+    t = p["table"]
+    return ({"table": tp.Cut(-2, vocab_runs(t.shape[-2], m))}
+            if torch.is_tensor(t) else None)
+
+
 def embedding_apply(p, ids):
-    return p["table"][ids.long()]
+    grp = tp.tp_group()
+    if grp is None:
+        return p["table"][ids.long()]
+    # vocab-parallel: each position looks up the ids in its rows, the
+    # others read zero; the sum adds exact zeros
+    p = tp.place(p, embedding_cuts(p, grp.m), grp)
+    ids = ids.long()
+    runs = p["table"].cut.runs
+
+    def one(i, ids_i):
+        (s, e), = runs[i]
+        t = p["table"].parts[i]
+        hit = (ids_i >= s) & (ids_i < e)
+        rows = t[torch.clamp(ids_i - s, 0, e - s - 1)]
+        return rows * hit[..., None].to(rows.dtype)
+
+    live = [i for i, r in enumerate(runs) if r]
+    return tp.total(grp.run(one, [(grp.to(ids, i),) for i in live], live),
+                    grp.leader)
 
 
 def embedding_logits(p, x, vocab: int = 0):
     """Tied output head: (..., d) @ (vocab_pad, d)^T. Padded rows are
-    masked to -1e9 so the softmax ignores them."""
-    lg = torch.matmul(x, p["table"].to(x.dtype).T)
-    vp = p["table"].shape[0]
+    masked to -1e9 so the softmax ignores them. Under tensor
+    parallelism each position computes its table rows' logits, gathered
+    on the leader."""
+    grp = tp.tp_group()
+    if grp is None:
+        lg = torch.matmul(x, p["table"].to(x.dtype).T)
+        vp = p["table"].shape[0]
+    else:
+        p = tp.place(p, embedding_cuts(p, grp.m), grp)
+        runs = p["table"].cut.runs
+        vp = sum(tp.run_len(r) for r in runs)
+        live = [i for i, r in enumerate(runs) if r]
+        parts = [None] * grp.m
+        for i, o in zip(live, grp.run(
+                lambda i, xi: torch.matmul(
+                    xi, p["table"].parts[i].to(xi.dtype).T),
+                [(grp.to(x, i),) for i in live], live)):
+            parts[i] = o
+        lg = tp.join(parts, runs, -1, vp, grp.leader)
+    return mask_vocab(lg, vp, vocab)
+
+
+def mask_vocab(lg, vp: int, vocab: int):
     if vocab and vp != vocab:
         mask = torch.arange(vp, device=lg.device) < vocab
         lg = torch.where(mask, lg, -1e9)      # -1e9 in lg's dtype

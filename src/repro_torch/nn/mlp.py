@@ -8,6 +8,14 @@ into the slots, the experts run as batched matmuls over all E, and a
 combine of top-k gathers; no (g, t, E, C) one-hot is ever built. The
 router and the routed experts are float leaves in every quantization
 mode; the shared expert is an `MlpConfig` block whose denses pack.
+
+Under tensor parallelism (`repro_torch.parallel.tp`) the MLP is
+Megatron's: wi / wg column-parallel and wo row-parallel over one set of
+d_ff runs (whole CHUNKs where wo is packed, so its K splits there), one
+exact reduction at the end. The MoE block is expert-parallel: routing
+and dispatch stay replicated on the leader, each position runs its
+E / m experts on their slots, and the combine reads the gathered expert
+outputs; the shared expert runs as `mlp_apply`.
 """
 from __future__ import annotations
 
@@ -17,9 +25,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import packing
 from repro_torch.deploy.policy import PrecisionPlan, resolve_qcfg
-from repro_torch.nn.layers import QOFF, QuantConfig, dense_apply, dense_def
+from repro_torch.nn.layers import (QOFF, QuantConfig, dense_apply,
+                                   dense_col, dense_cuts, dense_def,
+                                   dense_row)
 from repro_torch.nn.module import ParamDef
+from repro_torch.parallel import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +69,38 @@ def _act(h, g, kind):
     return F.gelu(h, approximate="tanh")
 
 
+def mlp_runs(cfg: MlpConfig, m: int):
+    """The d_ff runs of each model position: whole CHUNKs where wo's K
+    is a packed container, single columns otherwise."""
+    q = cfg.q("wo")
+    unit = packing.CHUNK if q.mode == "int" and q.segments is None else 1
+    return tp.even_runs(cfg.d_ff, m, unit)
+
+
+def mlp_cuts(cfg: MlpConfig, m: int):
+    runs = mlp_runs(cfg, m)
+    return {"wi": dense_cuts(cfg.q("wi"), "col", runs, cfg.d_model),
+            "wg": dense_cuts(cfg.q("wg"), "col", runs, cfg.d_model),
+            "wo": dense_cuts(cfg.q("wo"), "row", runs, cfg.d_ff)}
+
+
+def _mlp_tp(grp, p, x, cfg: MlpConfig):
+    runs = mlp_runs(cfg, grp.m)
+    p = tp.place(p, mlp_cuts(cfg, grp.m), grp)
+    kw = dict(runs=runs, group=grp, k_full=cfg.d_model)
+    hs = dense_col(p["wi"], x, qcfg=cfg.q("wi"), **kw)
+    gs = (dense_col(p["wg"], x, qcfg=cfg.q("wg"), **kw) if "wg" in p
+          else [None] * grp.m)
+    acts = [None if h is None else _act(h, g, cfg.act)
+            for h, g in zip(hs, gs)]
+    return dense_row(p["wo"], acts, qcfg=cfg.q("wo"), runs=runs, group=grp,
+                     k_full=cfg.d_ff)
+
+
 def mlp_apply(p, x, cfg: MlpConfig):
+    grp = tp.tp_group()
+    if grp is not None:
+        return _mlp_tp(grp, p, x, cfg)
     h = dense_apply(p["wi"], x, qcfg=cfg.q("wi"))
     g = dense_apply(p["wg"], x, qcfg=cfg.q("wg")) if "wg" in p else None
     return dense_apply(p["wo"], _act(h, g, cfg.act), qcfg=cfg.q("wo"))
@@ -174,7 +217,11 @@ def moe_apply(p, x, cfg: MoeConfig):
     tokens_pad = torch.cat([tokens, tokens.new_zeros(ng, 1, d)], dim=1)
     expert_in = tokens_pad[torch.arange(ng, device=x.device)[:, None, None],
                            slot_tok]
-    expert_out = _experts(expert_in, p, cfg.act)
+    grp = tp.tp_group()
+    if grp is None:
+        expert_out = _experts(expert_in, p, cfg.act)
+    else:
+        expert_out = _experts_ep(grp, expert_in, p, cfg)
 
     # combine: top_k gathers of (g, t, d)
     flat_eo = expert_out.reshape(ng, e * cap, d)
@@ -195,3 +242,31 @@ def moe_apply(p, x, cfg: MoeConfig):
     frac_prob = probs.mean(1)
     aux = e * (frac_tok * frac_prob).sum(-1).mean()
     return y, aux
+
+
+def moe_cuts(cfg: MoeConfig, m: int):
+    """Experts over the model axis (EP), when they divide it; the router
+    stays replicated."""
+    c = None
+    if cfg.n_experts % m == 0:
+        c = tp.Cut(-3, tp.blocks_runs(cfg.n_experts, 1, m))
+    out = {"wi": c, "wg": c, "wo": c}
+    if cfg.shared_expert:
+        out["shared"] = mlp_cuts(cfg.shared(), m)
+    return out
+
+
+def _experts_ep(grp, expert_in, p, cfg: MoeConfig):
+    """`_experts` with each position running its block of experts on
+    their slots; the outputs gathered on the leader."""
+    ep = tp.place({k: p[k] for k in ("wi", "wg", "wo")},
+                  moe_cuts(cfg, grp.m), grp)
+    if not isinstance(ep["wi"], tp.Split):
+        return _experts(expert_in, ep, cfg.act)
+    runs = ep["wi"].cut.runs
+    live = [i for i, r in enumerate(runs) if r]
+    outs = grp.run(
+        lambda i, xi: _experts(xi, tp.local(ep, i), cfg.act),
+        [(grp.to(tp.take(expert_in, runs[i], 1), i),) for i in live], live)
+    return tp.join(outs, tuple(runs[i] for i in live), 1, cfg.n_experts,
+                   grp.leader)

@@ -3,14 +3,20 @@
 **Paper analogy (XpulpNN §V):** an active mesh is the paper's parallel
 cluster, one mesh position per core. `use_mesh` / `activation_sharding`
 enter that context; `active_mesh()` reads it (`nn.attention.attn_strategy`
-picks its strategy from it).
+picks its strategy from it, and `models.api.Model` runs data block 0 of
+it tensor-parallel when its ``model`` axis is above 1).
+`repro_torch.parallel.tp.tp_scope` enters it too, with the group of
+model positions the blocks split their work over.
 
 `constrain(x, axes)` and `constrain_first(x, options)` keep the
 reference's call shape but return ``x`` unchanged: the reference hands
 the resolved PartitionSpec to GSPMD inside ``jit``, which moves the data;
-eager torch has no partitioner to hand it to. The port shards explicitly
-instead (`repro_torch.kernels.api.qdot_sharded`, the engines' data
-blocks), so a constraint has nothing left to do.
+eager torch has no partitioner to hand it to. The explicit blocks move
+the data instead: the LM blocks split heads, MLP columns, experts,
+recurrence channels and vocab rows over ``model`` themselves
+(`repro_torch.parallel.tp`), and `repro_torch.kernels.api.qdot_sharded`
+and the engines' data blocks split the rest, so a constraint has nothing
+left to do.
 """
 from __future__ import annotations
 

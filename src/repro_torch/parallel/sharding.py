@@ -22,6 +22,15 @@ over the whole K on each shard, and the per-N epilogue (kappa, lam, m,
 a per-channel dequant scale) is local: no psum anywhere, every shard's
 result exact against one device. `packed_linear_specs` never splits the
 packed K axis.
+
+**LM tensor parallelism** (`repro_torch.parallel.tp`, the blocks'
+``*_cuts``) places an LM params tree by the same logical axes: a dense
+whose N axis maps to ``model`` splits its columns, one whose K axis does
+splits its packed K only at CHUNK boundaries (the int32 partials of the
+slices add exactly, one dequant follows), a segmented container stays
+whole. A decode cache follows `cache_shardings`: kv heads over ``model``
+where they divide it, else the sequence (``kv_seq``), the cross cache
+one dim in.
 """
 from __future__ import annotations
 

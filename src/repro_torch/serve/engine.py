@@ -13,8 +13,10 @@ the 8-core cluster): with ``mesh=`` the wave's slots split into data
 blocks over ``data``, a ragged batch padded with slots that are never
 admitted, and the per-device utilization of each wave is recorded (an
 idle core is a pad slot). `VisionEngine` also runs every conv and linear
-tensor-parallel over ``model``; `Engine` refuses a ``model`` axis larger
-than 1 (`LMDecodeAdapter`).
+tensor-parallel over ``model``; `Engine` splits each data block's decode
+over its ``model`` positions (heads, MLP columns, experts, recurrence
+channels and vocab rows; `LMDecodeAdapter`, `repro_torch.parallel.tp`),
+the utilization report staying per data device.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ class Engine(_WaveShim):
     mode='int'); the KV cache may be int8 (kv_quant_bits=8). The params
     must already live on ``device``. ``plan``: the `PrecisionPlan` the
     params were packed with, kept for introspection. ``mesh``: serve the
-    waves data-parallel over ``data`` (module docstring)."""
+    waves data-parallel over ``data`` and each block's decode
+    tensor-parallel over ``model`` (module docstring)."""
 
     def __init__(self, model, params, batch_size: int, max_len: int,
                  eos_id: int = 1, plan=None, *, device="cuda", mesh=None):

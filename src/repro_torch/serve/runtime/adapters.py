@@ -13,7 +13,9 @@ one per position of the ``data`` axis (the scheduler pads the slot count
 to a multiple of ``dp``). Each block's step runs on its position's
 device, on a stream of its own where several share a card
 (`repro_torch.parallel.mesh.run_per_shard`), and the rows are gathered
-back in slot order, so per-request outputs equal the meshless ones.
+back in slot order, so per-request outputs equal the meshless ones. A
+``model`` axis above 1 splits each block's step over the block's model
+positions (`repro_torch.parallel.tp`): LM tensor parallelism.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.parallel import tp
 from repro_torch.parallel.mesh import (NamedSharding, assemble,
                                        axis_positions, run_per_shard,
                                        tree_map)
@@ -131,10 +134,14 @@ class LMDecodeAdapter(WorkloadAdapter):
     With ``mesh=`` each data block of slots decodes on its own device
     (module docstring), the params replicated once per distinct device
     (blocks that share a card share one copy), and the cache is a tree
-    of `Sharded` leaves placed per `cache_shardings`' batch entry. A
-    ``model`` axis larger than 1 raises: the reference shards LM
-    activations over heads only through partitioner constraints inside
-    ``jit``, and explicit LM tensor parallelism is not ported.
+    of `Sharded` leaves placed per `cache_shardings`' batch entry. With
+    a ``model`` axis above 1 each data block is a `TPGroup`: the params
+    are placed once per distinct set of devices (`Model.place`: heads,
+    MLP columns, experts, recurrence channels and vocab rows over the
+    block's model positions), each block's cache is placed on both axes
+    (its rows, then `Model.place_cache`: kv heads or the sequence,
+    recurrent channels) and held in a `TPState`, and each step runs the
+    block's decode tensor-parallel.
     """
 
     name = "lm"
@@ -152,29 +159,44 @@ class LMDecodeAdapter(WorkloadAdapter):
             return
         from repro_torch.convert import to_device
 
-        if cluster_axis_size(mesh, TP_AXIS) > 1:
-            raise NotImplementedError(
-                f"LM serving on a {TP_AXIS!r} axis of size "
-                f"{mesh.shape[TP_AXIS]}: explicit LM tensor parallelism "
-                "(heads / mlp over 'model', the KV cache's kv_heads "
-                "entry) is not ported; serve with model=1")
         if mesh.device_type != self.device.type:
             raise ValueError(f"the params live on {self.device}, the mesh "
                              f"on {mesh.device_type} devices")
         # data block d runs at the position whose data index is d
         self.dp = cluster_axis_size(mesh, DP_AXIS)
+        self.tp = cluster_axis_size(mesh, TP_AXIS)
         self._block_pos = axis_positions(mesh, DP_AXIS)
         self._params = {}
+        if self.tp > 1:
+            self._groups = [tp.TPGroup(mesh, d) for d in range(self.dp)]
+            for g in self._groups:
+                key = tuple(str(d) for d in g.devices)
+                if key not in self._params:
+                    self._params[key] = model.place(params, g)
+            return
         for p in self._block_pos:
             dev = mesh.flat[p]
             if dev not in self._params:
                 self._params[dev] = (params if dev == self.device
                                      else to_device(params, dev))
 
+    def block_params(self, d: int):
+        """The params data block ``d`` decodes with (placed over its
+        model positions when ``model`` > 1)."""
+        if self.tp > 1:
+            g = self._groups[d]
+            return self._params[tuple(str(x) for x in g.devices)]
+        return self._params[self.mesh.flat[self._block_pos[d]]]
+
     def init_state(self, slots: int):
         if self.mesh is None:
             return self.model.init_cache(slots, self.max_len,
                                          device=self.device)
+        if self.tp > 1:
+            return TPState([self.model.place_cache(
+                self.model.init_cache(slots // self.dp, self.max_len,
+                                      device=g.leader), g)
+                for g in self._groups])
         specs = cache_shardings(
             self.model.init_cache(slots, self.max_len, device="meta"),
             self.mesh)
@@ -200,10 +222,17 @@ class LMDecodeAdapter(WorkloadAdapter):
         slots, in place in the tensors the scheduler holds; positional
         KV is left alone (the mask admits only positions the new request
         has itself written)."""
-        keys = [k for k in STATE_RESET_KEYS if k in cache]
+        tree = cache.blocks[0] if isinstance(cache, TPState) else cache
+        keys = [k for k in STATE_RESET_KEYS if k in tree]
         if not keys or not slot_mask.any():
             return cache
         slot_mask = np.asarray(slot_mask, bool)
+        if isinstance(cache, TPState):
+            b = len(slot_mask) // self.dp
+            for d, tree in enumerate(cache.blocks):
+                for k in keys:
+                    _clear_rows(tree[k], slot_mask[d * b:(d + 1) * b])
+            return cache
         if self.mesh is None:
             blocks = [(None, torch.from_numpy(slot_mask).to(self.device))]
         else:
@@ -228,6 +257,8 @@ class LMDecodeAdapter(WorkloadAdapter):
         return ((1,), np.int32)
 
     def step(self, cache, feed, positions):
+        if isinstance(cache, TPState):
+            return self._step_tp(cache, feed, positions)
         if self.mesh is not None:
             return self._step_mesh(cache, feed, positions)
         tok = torch.from_numpy(feed).to(self.device)
@@ -257,6 +288,25 @@ class LMDecodeAdapter(WorkloadAdapter):
         local_trees = dict(zip(self._block_pos, (o[1] for o in outs)))
         specs = tree_map(lambda s: s.sharding, cache)
         return rows, self._assemble(specs, local_trees, len(feed))
+
+    def _step_tp(self, state, feed, positions):
+        """Each data block's decode, tensor-parallel over its model
+        positions, the blocks on their leaders' streams."""
+        b = len(feed) // self.dp
+        inputs = [(torch.from_numpy(feed[d * b:(d + 1) * b]).to(g.leader),
+                   torch.from_numpy(positions[d * b:(d + 1) * b]
+                                    .astype(np.int64)).to(g.leader), d)
+                  for d, g in enumerate(self._groups)]
+
+        def local(p, tok, pos, d):
+            with tp.tp_scope(self._groups[d]):
+                logits, _ = self.model.decode(self.block_params(d),
+                                              state.blocks[d], tok, pos)
+            return logits[:, -1].to(torch.float32)
+
+        outs = run_per_shard(self.mesh, local, inputs,
+                             [g.positions[0] for g in self._groups])
+        return np.concatenate([o.cpu().numpy() for o in outs]), state
 
     def begin(self, payload: Request, *, rid: int, greedy: bool = True,
               seed: int = 0):
@@ -312,6 +362,26 @@ class LMDecodeAdapter(WorkloadAdapter):
 
     def tokens_out(self, cur: _LMCursor) -> int:
         return len(cur.out)
+
+
+@dataclasses.dataclass
+class TPState:
+    """The decode cache of a tensor-parallel mesh: one placed cache tree
+    per data block (`Split` leaves over its model positions, the block's
+    rows on dim 1 of every leaf)."""
+    blocks: list
+
+
+def _clear_rows(tree, mask: np.ndarray):
+    """Zero rows ``mask`` (dim 1) of every leaf and part of ``tree``."""
+    for leaf in tree.values():
+        if isinstance(leaf, dict):
+            _clear_rows(leaf, mask)
+            continue
+        parts = leaf.parts if isinstance(leaf, tp.Split) else [leaf]
+        for t in parts:
+            if t is not None:
+                t[:, torch.from_numpy(mask).to(t.device)] = 0
 
 
 def _batch_dim(sharding: NamedSharding) -> int:

@@ -6,20 +6,26 @@ feedback state kept in bfloat16, as the reference keeps it) -> AdamW.
 
 One controller holds the state on one device, replicated in the
 reference's sense. A mesh's ``data`` axis splits each batch: every data
-position runs the forward and backward of its rows on its device (one
-stream each where positions share a card, `parallel.mesh.run_per_shard`),
-differentiating its share of the global loss (its rows' mean scaled by
-their fraction of the batch), and the gradients are summed. The
-per-token terms (the NLL and the z-loss) sum to the global mean; an MoE
-aux loss is each shard's, weighted the same way. A ``model`` axis above
-1 (tensor parallelism over heads and MLP columns) is not ported.
+block runs the forward and backward of its rows (one stream each where
+positions share a card, `parallel.mesh.run_per_shard`), differentiating
+its share of the global loss (its rows' mean scaled by their fraction of
+the batch), and the gradients are summed. The per-token terms (the NLL
+and the z-loss) sum to the global mean; an MoE aux loss is each shard's,
+weighted the same way. A ``model`` axis above 1 splits each block's
+forward over its model positions (`repro_torch.parallel.tp`: heads, MLP
+columns, experts, recurrence channels and vocab rows, each block ending
+in one reduction): the blocks slice the whole leaves inside the
+forward, so autograd sums every slice's gradient into its leaf and the
+backward needs nothing written by hand.
 
 The decode and prefill builders return the reference's placements of
-their inputs (from its logical rules); the train state stays whole on
-its device.
+their inputs (from its logical rules) and run the same split: rows over
+``data``, each block tensor-parallel over ``model``; the train state
+stays whole on its device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -27,6 +33,7 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.models.api import Model
 from repro_torch.nn.module import ParamDef, leaf_paths, tree_like
+from repro_torch.parallel import tp
 from repro_torch.parallel.mesh import NamedSharding, P, Sharded
 from repro_torch.parallel.sharding import (DEFAULT_RULES, batch_sharding,
                                            cache_shardings, params_shardings)
@@ -40,13 +47,25 @@ class TrainStepConfig:
     grad_compress_bits: int = 32   # 32 (off) | 8 (int8 + error feedback)
 
 
-def _check_mesh(mesh, what: str) -> None:
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{what} on a 'model' axis of {mesh.shape['model']}: explicit "
-            "LM tensor parallelism over 'model' is not ported yet (ROADMAP "
-            "Queue 1, 'Explicit LM tensor parallelism over model'); use "
-            "a (data, 1) mesh")
+def _scope(mesh, q: int):
+    """The tensor-parallel scope of the data block at position ``q``."""
+    if tp.model_size(mesh) == 1:
+        return contextlib.nullcontext()
+    return tp.tp_scope(tp.TPGroup(mesh, int(mesh.coords(q)["data"])))
+
+
+def _per_block(mesh, fn, rows: int):
+    """``fn(scope, sl)`` for each data block's row slice ``sl`` of
+    ``rows``, in data order: the outputs by block."""
+    from repro_torch.parallel.mesh import axis_positions
+
+    pos = axis_positions(mesh, "data")
+    b = rows // len(pos)
+    if rows % len(pos):
+        raise ValueError(f"{rows} rows do not divide over "
+                         f"{len(pos)} data blocks")
+    return [fn(_scope(mesh, q), slice(i * b, (i + 1) * b))
+            for i, q in enumerate(pos)]
 
 
 def _meta_tree(defs):
@@ -110,10 +129,11 @@ def loss_and_grads(model: Model, params, batch, mesh=None):
     pos = axis_positions(mesh, "data")
     parts = [{k: v.shards[p] for k, v in split.items()} for p in pos]
     flat = mesh.flat
-    outs = run_per_shard(
-        mesh, lambda q, part: one(
-            part["tokens"].shape[0] / n, part, flat[q]),
-        [(part,) for part in parts], pos)
+    def block(q, part):
+        with _scope(mesh, q):
+            return one(part["tokens"].shape[0] / n, part, flat[q])
+
+    outs = run_per_shard(mesh, block, [(part,) for part in parts], pos)
     dev = leaves[0].device
     loss = sum(o[0].to(dev) for o in outs)
     grads = [sum(o[1][i].to(dev) for o in outs) for i in range(len(leaves))]
@@ -131,7 +151,6 @@ def make_train_fns(model: Model, mesh, shape: ShapeConfig,
     ``shardings["batch"]`` places the inputs on ``mesh``;
     ``shardings["state"]`` is None: the state stays whole on ``device``.
     """
-    _check_mesh(mesh, "training")
     use_ef = tcfg.grad_compress_bits == 8
 
     def init_fn(seed: int = 0):
@@ -171,13 +190,21 @@ def make_decode_fns(model: Model, mesh, shape: ShapeConfig,
     """(decode_step, shardings) for serving: decode_step(params, cache,
     token, index) -> (logits, cache) over global tensors, and the
     reference's placements of params, cache, token and index."""
-    _check_mesh(mesh, "decode")
     specs = model.specs()
     shapes = _meta_tree(model.defs())
     in_shapes = input_shapes(model, shape)
 
     def decode_step(params, cache, token, index):
-        return model.decode(params, cache, token, index)
+        if tp.model_size(mesh) == 1:
+            return model.decode(params, cache, token, index)
+
+        def block(scope, sl):
+            rows = _tree_rows(cache, sl)
+            idx = index[sl] if torch.is_tensor(index) and index.dim() \
+                else index
+            with scope:
+                return model.decode(params, rows, token[sl], idx)[0]
+        return torch.cat(_per_block(mesh, block, token.shape[0])), cache
 
     shard = None
     if mesh is not None:
@@ -193,13 +220,20 @@ def make_prefill_fns(model: Model, mesh, shape: ShapeConfig,
                      rules=DEFAULT_RULES):
     """(prefill_step, shardings): prefill_step(params, batch) -> the last
     position's logits (B, 1, V)."""
-    _check_mesh(mesh, "prefill")
     specs = model.specs()
     shapes = _meta_tree(model.defs())
 
     def prefill_step(params, batch):
-        logits, _, _ = model.forward(params, batch)
-        return logits[:, -1:]
+        if tp.model_size(mesh) == 1:
+            logits, _, _ = model.forward(params, batch)
+            return logits[:, -1:]
+
+        def block(scope, sl):
+            with scope:
+                return model.forward(params, {k: v[sl] for k, v in
+                                              batch.items()})[0][:, -1:]
+        return torch.cat(_per_block(mesh, block,
+                                    batch["tokens"].shape[0]))
 
     shard = None
     if mesh is not None:
@@ -208,3 +242,11 @@ def make_prefill_fns(model: Model, mesh, shape: ShapeConfig,
                                              tuple(v.shape))
                            for k, v in input_shapes(model, shape).items()}}
     return prefill_step, shard
+
+
+def _tree_rows(cache, sl):
+    """Rows ``sl`` (dim 1) of every cache leaf, as views: a block's
+    in-place writes land in the whole cache."""
+    if isinstance(cache, dict):
+        return {k: _tree_rows(v, sl) for k, v in cache.items()}
+    return cache[:, sl]

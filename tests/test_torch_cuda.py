@@ -1213,6 +1213,25 @@ def test_qat_on_the_card_deploys_as_on_the_cpu(dev):
         forward_int(q_cpu, quantize_input(q_cpu, x)))
 
 
+def test_qat_on_the_card_is_reproducible_from_its_seed(dev):
+    """Full-width qat-cnn trained twice on the card at W2 from one seed:
+    the trained weights and ranges equal bit for bit (cuDNN's
+    nondeterministic weight-gradient sums gave another model each run)."""
+    from repro_torch.qat.data import SyntheticDigits
+    from repro_torch.qat.train import QATConfig, train_qat
+    from repro_torch.nn.module import leaf_paths
+    from repro_torch.vision.configs import get_vision_config
+
+    cfg = get_vision_config("qat-cnn")
+    data = SyntheticDigits(split="train", seed=0, noise=0.45, jitter=3)
+    qc = QATConfig(steps=60, batch=64, lr=1e-2, w_bits=2, warmup=5)
+    a, b = (train_qat(cfg, data, qc, device=dev) for _ in range(2))
+    for (path, x), (_, y) in zip(leaf_paths(a.params), leaf_paths(b.params)):
+        assert torch.equal(x, y), path
+    assert {k: float(v) for k, v in a.absmax.items()} == {
+        k: float(v) for k, v in b.absmax.items()}
+
+
 def test_lm_train_step_on_the_card_matches_cpu(dev):
     """olmo-smoke at float32 from one CPU-drawn state: the loss within
     1e-5 and the gradients within 1e-4 x each leaf's largest |g|."""
@@ -1248,3 +1267,92 @@ def test_train_cli_on_the_card_resumes(dev, tmp_path):
     second = cli.main(args)
     assert second["trainer"].restored_step == 2
     assert [r["step"] for r in second["log"]] == [3, 4]
+
+
+# ------------------------------------------- LM tensor parallelism (tp) ---
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+def test_row_parallel_dense_on_the_card_equals_meshless(dev, m, pipeline):
+    """qwen2.5-3b's mlp wo (11008 -> 2048) at W4A8, bf16, its K split at
+    CHUNK boundaries over m positions of the card: the raw int32
+    partials summed and dequantized once give the meshless launch's bits
+    and the CPU's."""
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.nn import layers
+    from repro_torch.parallel import tp
+    gen = torch.Generator().manual_seed(m)
+    w = torch.randn(11008, 2048, generator=gen) * 0.02
+    wp, ws = layers.pack_dense_weights(w, 4)
+    p = {"w_packed": wp.to(dev), "w_scale": ws.to(dev)}
+    x = torch.randn(4, 11008, generator=gen).to(torch.bfloat16)
+    q = layers.QuantConfig(mode="int", w_bits=4, a_bits=8, pipeline=pipeline)
+    want = layers.dense_apply(p, x.to(dev), qcfg=q)
+    cpu = layers.dense_apply({"w_packed": wp, "w_scale": ws}, x, qcfg=q)
+    grp = tp.TPGroup(make_cluster_mesh(1, m, device=dev), 0)
+    runs = tp.even_runs(11008, m, packing.CHUNK)
+    for _ in range(2):
+        got = layers.dense_row(p, tp.split(x.to(dev), runs, -1), qcfg=q,
+                               runs=runs, group=grp, k_full=11008)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), cpu)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)])
+def test_lm_engines_on_a_tp_card_mesh_match_meshless(dev, shape):
+    """Each smoke family at W4A8 served on a (data, model) mesh of the
+    card, twice: tokens equal to the meshless engine's."""
+    import dataclasses
+
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.models import api as mapi
+    from repro_torch.nn.layers import QuantConfig
+    from repro_torch.serve.engine import Engine, Request
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(2, 128, size=int(n)).astype(np.int32)
+               for n in (3, 6, 2, 5)]
+    for arch in ("qwen2.5-3b", "kimi-k2-1t-a32b", "seamless-m4t-large-v2",
+                 "recurrentgemma-9b", "mamba2-370m"):
+        base = mapi.get_smoke_config(arch)
+        model = mapi.build(dataclasses.replace(
+            base, quant=QuantConfig(mode="int", w_bits=4, a_bits=8)))
+        params = convert_params(model.init(0, device=dev),
+                                mapi.build(base).init(1, device=dev), 4)
+
+        def run(mesh):
+            eng = Engine(model, params, 4, 32, device=dev, mesh=mesh)
+            return [r.out.tolist() for r in eng.generate(
+                [Request(prompt=p, max_new_tokens=6) for p in prompts])]
+
+        want = run(None)
+        mesh = make_cluster_mesh(*shape, device=dev)
+        assert run(mesh) == want and run(mesh) == want, arch
+
+
+def test_lm_train_step_on_a_tp_card_mesh_matches_meshless(dev):
+    """olmo-smoke at float32 on (1, 2) and (2, 2) of the card: the loss
+    within 1e-5 and the gradients within 1e-4 x each leaf's largest |g|
+    of the meshless step's."""
+    import dataclasses
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.models.api import build, get_smoke_config
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(get_smoke_config("olmo-1b"),
+                              compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(0, device=dev)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(
+        np.int32)).to(dev) for k in ("tokens", "labels")}
+    l0, g0 = loss_and_grads(model, params, batch)
+    for shape in ((1, 2), (2, 2)):
+        l1, g1 = loss_and_grads(model, params, batch,
+                                make_cluster_mesh(*shape, device=dev))
+        assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
+        for a, b in zip(g0, g1):
+            assert float((b - a).abs().max()) <= 1e-4 * float(
+                a.abs().max()) + 1e-30

@@ -316,8 +316,19 @@ def test_lm_mesh_state_is_sharded_and_reset(served):
     ad.reset_state(fake, np.array([False, False, True, False]))
     got = pm.gather(fake["ssm"]["h"])
     assert got[:, 2].abs().sum() == 0 and got[:, [0, 1, 3]].min() == 1
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        LMDecodeAdapter(pmodel, pp, 16, mesh=_mesh(2, 2))
+    # a model axis: each data block's cache placed over its model
+    # positions (kv heads), and one step equal to the meshless one
+    from repro_torch.parallel import tp
+    tp_ad = LMDecodeAdapter(pmodel, pp, 16, mesh=_mesh(2, 2))
+    tp_state = tp_ad.init_state(4)
+    k = tp_state.blocks[0]["kv"]["k"]
+    assert isinstance(k, tp.Split) and k.parts[0].shape[1] == 2
+    assert k.parts[0].shape[-2] == pmodel.cfg.kv_heads // 2
+    feed = np.array([[3], [5], [7], [9]], np.int32)
+    rows, _ = tp_ad.step(tp_state, feed, np.zeros(4, np.int64))
+    want, _ = LMDecodeAdapter(pmodel, pp, 16).step(
+        pmodel.init_cache(4, 16, device="cpu"), feed, np.zeros(4, np.int64))
+    np.testing.assert_array_equal(rows, want)
 
 
 def test_clis_with_mesh(capsys):
@@ -348,9 +359,14 @@ def test_clis_with_mesh(capsys):
     capsys.readouterr()
     assert [r.out.tolist() for r in out] == [r.out.tolist()
                                              for r in meshless]
-    with pytest.raises(NotImplementedError):
-        p_serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
-                      "--mesh", "1,2"])
+    tp_out = p_serve.main(["--arch", "qwen2.5-3b", "--smoke", "--quant",
+                           "w4a8", "--device", "cpu", "--requests", "3",
+                           "--batch", "3", "--max-new", "3", "--mesh",
+                           "1,2"])
+    text = capsys.readouterr().out
+    assert "mesh: data=1 model=2 (2 positions on cpu x2)" in text
+    assert [r.out.tolist() for r in tp_out] == [r.out.tolist()
+                                                for r in meshless]
 
 
 def test_bridged_reference_net_serves_on_a_mesh():

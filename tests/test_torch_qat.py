@@ -589,6 +589,37 @@ def test_mesh_training_matches_meshless():
                           mesh=make_cluster_mesh(1, 2, "cpu"))
 
 
+@pytest.mark.parametrize("benchmark", [False, True])
+def test_train_qat_runs_deterministic_convs(benchmark):
+    """The whole loop runs cuDNN's deterministic algorithms without
+    autotuning (the card's training reproducible from its seed), and the
+    caller's settings come back after it."""
+    cudnn = torch.backends.cudnn
+    seen = []
+
+    class Recorded:
+        def __init__(self):
+            self.data = p_data.make_dataset("synthetic", seed=0)
+
+        def batches(self, batch, steps):
+            for xy in self.data.batches(batch, steps):
+                seen.append((cudnn.deterministic, cudnn.benchmark))
+                yield xy
+
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = False, benchmark
+    try:
+        p_train.train_qat(p_config("qat-cnn", smoke=True), Recorded(),
+                          p_train.QATConfig(steps=3, batch=4, w_bits=2,
+                                            warmup=1, log_every=1),
+                          device="cpu")
+        after = cudnn.deterministic, cudnn.benchmark
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    assert len(seen) == 4 and set(seen) == {(True, False)}
+    assert after == (False, benchmark)
+
+
 def test_cli_end_to_end_on_the_cpu(tmp_path, mnist_dir):
     out = p_cli.main(["--smoke", "--steps", "6", "--batch", "16",
                       "--device", "cpu", "--calib-batches", "1",

@@ -175,9 +175,19 @@ def test_mesh_data_axis_matches_meshless():
                                  _leaves(b["params"])):
         np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=0,
                                    atol=1e-5, err_msg="/".join(path))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_train_fns(model, make_cluster_mesh(1, 2, "cpu"), SHAPE,
-                       device="cpu")
+    # a model axis: the same steps, each forward tensor-parallel
+    _, tstep, _ = make_train_fns(model, make_cluster_mesh(1, 2, "cpu"),
+                                 SHAPE, tcfg, device="cpu")
+    c = init_fn(0)
+    data = SyntheticLM(pcfg.vocab, 2, 16, seed=3, device="cpu")
+    for _ in range(2):
+        c, mc = tstep(c, next(data))
+    np.testing.assert_allclose(float(mc["loss"]), float(ma["loss"]),
+                               rtol=LOSS_RTOL)
+    for (path, x), (_, y) in zip(_leaves(a["params"]),
+                                 _leaves(c["params"])):
+        np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=0,
+                                   atol=1e-5, err_msg="/".join(path))
 
 
 def test_decode_and_prefill_fns():
@@ -197,9 +207,20 @@ def test_decode_and_prefill_fns():
     cache = model.init_cache(2, 16, dtype=torch.float32, device="cpu")
     logits, _ = decode(params, cache, tokens[:, :1], 0)
     assert logits.shape[0] == 2 and torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError):
-        make_decode_fns(model, make_cluster_mesh(1, 2, "cpu"),
-                        ShapeConfig("d", 16, 2, "decode"))
+    # a model axis: decode and prefill tensor-parallel, equal to meshless
+    tdecode, tshard = make_decode_fns(model, make_cluster_mesh(1, 2, "cpu"),
+                                      ShapeConfig("d", 16, 2, "decode"))
+    assert tuple(tshard["cache"]["kv"]["k"].spec)[3] == "model"
+    tcache = model.init_cache(2, 16, dtype=torch.float32, device="cpu")
+    tlogits, _ = tdecode(params, tcache, tokens[:, :1], 0)
+    np.testing.assert_allclose(tlogits.numpy(), logits.numpy(), rtol=0,
+                               atol=1e-5 * float(logits[..., :pcfg.vocab]
+                                                 .abs().max()))
+    tprefill, _ = make_prefill_fns(model, make_cluster_mesh(1, 2, "cpu"),
+                                   ShapeConfig("p", 16, 2, "prefill"))
+    got = tprefill(params, {"tokens": tokens})[..., :pcfg.vocab]
+    np.testing.assert_allclose(got.numpy(), want[:, -1:, :pcfg.vocab].numpy(),
+                               rtol=0, atol=1e-5 * float(got.abs().max()))
 
 
 # ------------------------------------------------------------ optimizer ---
