@@ -7,6 +7,8 @@
    from ``src/repro_torch/csrc/`` with nvcc for sm_90a, one nvcc per
    source, all started together, and prints each source's ptxas report
    (registers, shared memory, spills; every kernel's in the JSON file).
+   While nvcc runs, the paths that launch no kernel run: [train] (16)
+   and [dryrun]'s traces (17).
 2. Kernel phase: every kernel, at STAGES=1 ('off') and STAGES=2
    ('double_buffer'), against its plain torch version on the card.
    qmatmul and qconv: every ResNet-8 and MobileNet conv geometry, the
@@ -83,7 +85,7 @@
    W4) with signed activations, a per-channel dequant scale and both
    output dtypes (bfloat16, float32), A{8,4,2} x W{8,4,2}, both STAGES,
    identical to the plain version. Then full width, its depth cut to 12
-   of 36 layers ([tp] serves all 36), from
+   of 36 layers, from
    seeded weights made and quantized on the card at W8A8, W4A8 and W2A8,
    each served by `Engine` (8 requests of 2-8 prompt tokens, 16 new
    tokens, batch 4, max_len 128, bf16 compute as configured), W4A8 once
@@ -228,7 +230,8 @@
    the card (replicated, and split on the last dim) equal leaf for leaf.
 14. [tp]: explicit LM tensor parallelism over 'model'
    (`repro_torch.parallel.tp`), every position on `cuda:0`. qwen2.5-3b
-   W4A8 at full width and depth, 4 requests at batch 4: `Engine`
+   W4A8 at full width and 12 of 36 layers (cut to keep the script
+   within its time limit), 4 requests at batch 4: `Engine`
    meshless, then on (1,2) ('tp': kv-head blocks), (1,4) ('gp' weights,
    'cp' over the cache at decode) and (2,2), W4A8 double-buffered on
    (1,2), a plan with every layers/mlp/wi split W8 | W4 on (1,2) (the
@@ -283,7 +286,20 @@
    one step's loss on the card within 1e-4 of the CPU's, its gradients
    within 1e-4 x each leaf's largest |g|, three steps' losses within
    1e-4. The files are deleted.
-17. Times each kernel (CUDA events and profiler device time) beside its
+17. [dryrun]: the dry run (`repro_torch.launch.dryrun`: the step on
+   torch's ``meta`` device on the host, no kernel, no card) held against
+   what the card held in this run; traced during the build, checked
+   after [qat]. olmo-1b meshless at [train]'s full
+   width and depth and batch 8 x 256: its ``argument`` bytes of train
+   state must equal [train]'s ``state_bytes`` exactly; its predicted
+   peak (argument + the step's live allocations) is printed beside the
+   profiled step's measured peak, with the ratio (reported, not gated).
+   qwen2.5-3b W4A8 decode on (1, 2) at [tp]'s slots and cache length:
+   each position's param and cache bytes must equal those of the parts
+   `Model.place` / `place_cache` put on the card for [tp]'s served
+   (1, 2) engine. Then one production cell, qwen2.5-3b ``decode_32k`` on
+   the 16 x 16 pod: its ``PASS`` line and seconds.
+18. Times each kernel (CUDA events and profiler device time) beside its
    plain version, its bound, and a PyTorch library call where one
    computes the same function, and prints them as one JSON line. The
    uniform GEMM is timed at the ResNet-8 and qat-cnn heads, 4096x1152x64,
@@ -302,13 +318,16 @@
    shapes at M = 4, beside its bound and `torch.matmul` in bf16 on
    dequantized weights.
 
-A ``[phases]`` line gives each phase's seconds. The last line is
+A ``[phases]`` line gives each phase's seconds (``build``: the wait for
+nvcc after [train] and the traces). Standard output is also written to
+``chiprun_out/chip_smoke.log``. The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises,
 so the exit code is non-zero and no such line is printed. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import gc
 import json
 import os
@@ -1773,7 +1792,8 @@ LM_M = (1, 4, 64)
 # kernel 3's two-run plan on 2048 x 11008: half W8, half W4
 LM_RUNS = ((0, 5504, 8), (5504, 11008, 4))
 LM_REQUESTS, LM_BATCH, LM_MAX_NEW, LM_MAX_LEN = 8, 4, 16, 128
-# [lm]'s served depth, widths kept (of 36; [tp] serves all 36)
+# [lm]'s, [mesh]'s and [tp]'s served depth of qwen2.5-3b, widths kept
+# (of 36)
 LM_LAYERS = 12
 # the CPU cross-check: logits within this share of the largest |logit|
 # (float32 math on two devices; a flipped activation code at a .5
@@ -3402,9 +3422,8 @@ MESH_REQUESTS = 200
 # rows / images that no data axis above divides: padded, sliced back
 MESH_RAGGED = 61
 MESH_LM_REQUESTS, MESH_LM_BATCH = 4, 4
-# qwen2.5-3b's depth on the (2,1) mesh, widths kept (of 36; [tp] serves
-# all 36 on its meshes)
-MESH_LM_LAYERS = 12
+# qwen2.5-3b's depth on the (2,1) mesh, widths kept (of 36)
+MESH_LM_LAYERS = LM_LAYERS
 # logit rows of the (2,1) mesh against meshless serving: the float parts
 # of a decode step (bf16 compute) may round differently at 2 rows than
 # at 4; a wrong block's cache, position or row is off by O(max |row|)
@@ -4220,6 +4239,7 @@ def train_path(dev, work, report):
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"[train] the loss does not fall: {losses}")
     state_bytes = param_bytes(first["state"])
+    report["train_state_bytes"] = state_bytes
     say("train", cli=f"python -m repro_torch.launch.train --arch "
         f"{TRAIN_ARCH} --steps {TRAIN_STEPS} --batch {TRAIN_BATCH} --seq "
         f"{TRAIN_SEQ} --ckpt-every {TRAIN_CKPT_EVERY}",
@@ -4691,8 +4711,15 @@ def _tp_profile_step(dev, model, params, mesh, report):
     del placed, cache
 
 
+def _tp_qwen_config():
+    """qwen2.5-3b at full width and LM_LAYERS, as [tp] serves it."""
+    import dataclasses
+    from repro_torch.models.api import get_config
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+
+
 def tp_qwen_path(dev, report, acc):
-    """qwen2.5-3b W4A8 at full width and depth: `Engine` meshless and on
+    """qwen2.5-3b W4A8 at full width and LM_LAYERS: `Engine` meshless and on
     each mesh of TP_MESHES, W4A8 double-buffered on (1, 2), the wi plan
     (kernel 3, the container whole) on (1, 2), the CLI with ``--mesh
     2,2``: tokens equal meshless, logit rows within MESH_LM_ROW_TOL; one
@@ -4704,9 +4731,9 @@ def tp_qwen_path(dev, report, acc):
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.convert import convert_params
     from repro_torch.launch.mesh import make_cluster_mesh
-    from repro_torch.models.api import build, get_config
+    from repro_torch.models.api import build
 
-    cfg = get_config(LM_ARCH)
+    cfg = _tp_qwen_config()
     model = _lm_model(cfg, 4)
     fp = build(cfg).init(SEED, device=dev)
     params = convert_params(int_skeleton(model.defs()), fp, 4)
@@ -4723,6 +4750,7 @@ def tp_qwen_path(dev, report, acc):
         if shape == (1, 2):
             checks[mesh_s]["dense_calls"] = _tp_dense_tap(
                 model, eng._adapter, f"{label} {mesh_s}")
+            report["tp_placement"] = _tp_placement(eng)
         del eng
     mesh = make_cluster_mesh(1, 2, device=dev)
     db = _lm_model(cfg, 4, pipeline="double_buffer")
@@ -4754,15 +4782,15 @@ def tp_qwen_path(dev, report, acc):
     cli, text = _count_launches(acc, lambda: _captured(serve_cli.main, [
         "--arch", LM_ARCH, "--quant", "w4a8", "--requests",
         str(MESH_LM_REQUESTS), "--batch", str(MESH_LM_BATCH), "--max-new",
-        str(TP_MAX_NEW), "--mesh", "2,2"]))
+        str(TP_MAX_NEW), "--mesh", "2,2", "--layers", str(LM_LAYERS)]))
     if "mesh: data=2 model=2" not in text or \
             "tensor-parallel over 'model'" not in text:
         raise AssertionError("[tp] the serve CLI printed no tp mesh line")
     if [r.out.tolist() for r in cli] != base[0]:
         raise AssertionError("[tp] the CLI on --mesh 2,2 gave other tokens")
     say("tp", cli=f"python -m repro_torch.launch.serve --arch {LM_ARCH} "
-        "--quant w4a8 --mesh 2,2", seconds=round(time.perf_counter() - t0,
-                                                  1),
+        f"--quant w4a8 --mesh 2,2 --layers {LM_LAYERS}",
+        seconds=round(time.perf_counter() - t0, 1),
         tokens_equal_meshless=True)
     report["tp_qwen_checks"] = checks
 
@@ -4938,6 +4966,113 @@ def tp_path(dev, work, report):
     return launches
 
 
+def _tp_placement(eng):
+    """Per mesh position, the bytes of data block 0's params and cache as
+    a served TP engine holds them on the card (`Split` parts at their
+    positions, whole leaves at the block's first), and its slots."""
+    from repro_torch.nn.module import leaf_paths
+    from repro_torch.parallel import tp
+    ad = eng._adapter
+    grp = ad._groups[0]
+    out = {"slots": eng._sched.slots.phys}
+    for key, tree in (("params", ad.block_params(0)),
+                      ("cache", eng._sched.state.blocks[0])):
+        per = [0] * ad.mesh.size
+        for _, leaf in leaf_paths(tree):
+            if isinstance(leaf, tp.Split):
+                for i, t in enumerate(leaf.parts):
+                    if t is not None:
+                        per[grp.positions[i]] += t.nbytes
+            else:
+                per[grp.positions[0]] += leaf.nbytes
+        out[key] = per
+    return out
+
+
+# ---------------------------------------------------------------- [dryrun] ---
+DRYRUN_CELL = ("qwen2.5-3b", "decode_32k", "pod")
+
+
+def dryrun_traces(report):
+    """[dryrun]'s traces (module docstring), on the host while the kernels
+    build: meta tensors, no launch. The gates wait for [train] and [tp]
+    (`dryrun_check`)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import build, get_config
+    from repro_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    model = build(get_config(TRAIN_ARCH))
+    train = dryrun.trace_cell(model, model.cfg, ShapeConfig(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"), None)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = _lm_model(_tp_qwen_config(), 4)
+    placed = dryrun.trace_cell(
+        model, model.cfg, ShapeConfig("tp", LM_MAX_LEN, MESH_LM_BATCH,
+                                      "decode"),
+        make_mesh((1, 2), ("data", "model"), "meta"))
+    placed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell(*DRYRUN_CELL, save=False)
+    cell_s = time.perf_counter() - t0
+    print("[dryrun]", dryrun.pass_line(cell), f"seconds={cell_s:.1f}",
+          flush=True)
+    report["dryrun_cell"] = {k: cell[k] for k in (
+        "arch", "shape", "mesh", "devices", "traced_blocks",
+        "bytes_per_device", "roofline", "io_bytes_per_device")}
+    report["dryrun_cell"]["seconds"] = cell_s
+    return {"train": train, "train_s": train_s, "placed": placed,
+            "placed_s": placed_s, "seconds": train_s + placed_s + cell_s}
+
+
+def dryrun_check(report, traces):
+    """[dryrun]'s gates: the traced olmo-1b train state against [train]'s
+    ``state_bytes`` (its peak reported against the profiled step's), the
+    traced (1, 2) placement against [tp]'s served engine's."""
+    card = report["nvidia_smi"]
+    tr = traces["train"]
+    state = tr["argument"]["state"][0]
+    argument = sum(v[0] for v in tr["argument"].values())
+    predicted = argument + tr["recorder"].positions[0].peak
+    measured = report["train_profile"]["peak_mem_bytes"]
+    if state != report["train_state_bytes"]:
+        raise AssertionError(f"[dryrun] {TRAIN_ARCH} train state: the dry "
+                             f"run holds {state} bytes, [train] "
+                             f"{report['train_state_bytes']}")
+    row = {"state_bytes": state,
+           "card_state_bytes": report["train_state_bytes"],
+           "argument_bytes": argument, "predicted_peak_bytes": predicted,
+           "measured_peak_bytes": measured,
+           "predicted_over_measured": predicted / measured,
+           "trace_s": traces["train_s"]}
+    say("dryrun", check=f"{TRAIN_ARCH} train meshless batch {TRAIN_BATCH} "
+        f"x {TRAIN_SEQ}", state_equal=True,
+        **{k: (round(v, 4) if isinstance(v, float) else v)
+           for k, v in row.items()}, card=card)
+    report["dryrun_train"] = row
+
+    pl, tr = report["tp_placement"], traces["placed"]
+    if pl["slots"] != MESH_LM_BATCH:
+        raise AssertionError(f"[dryrun] [tp] served {pl['slots']} slots, "
+                             f"the dry run traced {MESH_LM_BATCH}")
+    for key in ("params", "cache"):
+        if tr["argument"][key] != pl[key]:
+            raise AssertionError(
+                f"[dryrun] {LM_ARCH} W4A8 on (1,2): {key} bytes per "
+                f"position {tr['argument'][key]} in the dry run, "
+                f"{pl[key]} on the card")
+    say("dryrun", check=f"{LM_ARCH} ({LM_LAYERS} of 36 layers) W4A8 decode "
+        f"placement mesh=1,2 slots={pl['slots']} max_len={LM_MAX_LEN}",
+        param_bytes=json.dumps(pl["params"]),
+        cache_bytes=json.dumps(pl["cache"]), equal_card=True,
+        trace_s=round(traces["placed_s"], 1))
+    report["dryrun_placement"] = {"card": pl, "dry_run": tr["argument"]}
+    say("dryrun", traces_seconds=round(traces["seconds"], 1),
+        note="traced on the host while the kernels built")
+
+
 def write_report(report, name: str):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -4945,11 +5080,32 @@ def write_report(report, name: str):
                                                  default=str))
 
 
+class _Tee:
+    """Standard output also written to a file (the whole run's lines,
+    where the caller may keep only the end)."""
+
+    def __init__(self, stream, path: pathlib.Path):
+        self.stream, self.file = stream, path.open("w")
+
+    def write(self, text):
+        self.file.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.file.flush()
+        self.stream.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    sys.stdout = _Tee(sys.stdout, ROOT / "chiprun_out" / "chip_smoke.log")
     sys.path.insert(0, str(ROOT / "src"))
     # the tune cache is this run's own
     os.environ.pop("REPRO_QTUNE_CACHE", None)
@@ -4974,10 +5130,27 @@ def main() -> int:
         marks.append((name, time.perf_counter()))
 
     kernels_all = kernels_by_name()
-    build_s = build_all(list(kernels_all.values()))
+    (ROOT / "build").mkdir(exist_ok=True)
+    # nvcc runs in the background while the paths that launch no kernel
+    # run: [train] (float) and [dryrun]'s traces (meta tensors)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build_all, list(kernels_all.values()))
+        work = pathlib.Path(tempfile.mkdtemp(prefix="train_",
+                                             dir=ROOT / "build"))
+        try:
+            train_path(dev, work, report)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        mark("train")
+        gc.collect()
+        torch.cuda.empty_cache()
+        dry = dryrun_traces(report)
+        mark("dryrun traces")
+        build_s = building.result()
     mark("build")
     say("build", seconds=round(build_s, 1), arch="sm_90a",
-        sources=",".join(f"{k}.cu" for k in kernels_all))
+        sources=",".join(f"{k}.cu" for k in kernels_all),
+        note="[train] and [dryrun]'s traces ran meanwhile")
     report["build_s"] = build_s
     report["ptxas"] = ptxas_report(kernels_all)
 
@@ -5052,14 +5225,12 @@ def main() -> int:
     try:
         by_path["qat"] = qat_path(dev, work, report)
         mark("qat")
-        gc.collect()
-        torch.cuda.empty_cache()
-        train_path(dev, work, report)
-        mark("train")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun_check(report, dry)
+    mark("dryrun")
     lm_timing_phase(dev, report, [(4, k, n) for k, n in LM_SHAPES],
                     "lm_shape", SEED + 7)
     lm_timing_phase(dev, report, [(4, k, n) for k, n in REC_SHAPES],

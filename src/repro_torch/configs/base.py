@@ -107,3 +107,13 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+# archs whose attention is sub-quadratic enough for long_500k decode
+# (SSM / hybrid / mostly-local); pure full-attention archs skip it
+LONG_CONTEXT_OK = {"gemma3-1b", "recurrentgemma-9b", "mamba2-370m"}
+
+
+def cells_for(arch_name: str):
+    """The (arch x shape) cells this arch runs in the dry-run matrix."""
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or arch_name in LONG_CONTEXT_OK]

@@ -64,8 +64,8 @@ class SyntheticLM:
         """Numpy arrays -> tensors on the device, or over the mesh."""
         if self.mesh is not None:
             from repro_torch.parallel.mesh import (NamedSharding, P,
-                                                   device_put)
-            shard = NamedSharding(self.mesh, P("data"))
+                                                   block_entry, device_put)
+            shard = NamedSharding(self.mesh, P(block_entry(self.mesh)))
             return {k: device_put(torch.from_numpy(np.ascontiguousarray(v)),
                                   shard) for k, v in batch.items()}
         if self.device is None:

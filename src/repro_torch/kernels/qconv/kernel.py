@@ -33,6 +33,7 @@ from repro_torch.kernels.common import (EPILOGUE_DTYPES, PIPELINE_STAGES,
                                         apply_epilogue, check_pipeline,
                                         int_matmul, matmul_planes)
 from repro_torch.kernels.qmatmul.kernel import _check, epilogue_launch_args
+from repro_torch.obs import accounting
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -340,4 +341,8 @@ def qconv2d_fused(x_hat, w_packed_fused, kappa, lam, m_mul, *, fh: int,
     if xp.is_cuda:
         return qconv_packed_cuda(xp, w_packed_fused, kappa, lam, m_mul,
                                  pipeline=pipeline, cin=cin, **kw)
-    return qconv_packed_torch(xp, w_packed_fused, kappa, lam, m_mul, **kw)
+    macs = x_hat.shape[0] * ho * wo * fh * fw * cin * cout
+    return accounting.packed(
+        "qconv", macs, (xp, w_packed_fused, kappa, lam, m_mul, scale),
+        lambda: qconv_packed_torch(xp, w_packed_fused, kappa, lam, m_mul,
+                                   **kw))

@@ -33,6 +33,7 @@ from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.common import (EPILOGUES, PIPELINE_STAGES,
                                         apply_epilogue, check_pipeline,
                                         epilogue_dtype, int_matmul)
+from repro_torch.obs import accounting
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -215,7 +216,11 @@ def qmatmul_packed(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
     if x.is_cuda:
         return qmatmul_packed_cuda(x, w_packed, kappa, lam, m_mul,
                                    pipeline=pipeline, launch=launch, **kw)
-    return qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, **kw)
+    macs = (x.shape[0] * x.shape[1] * packing.pack_factor(a_bits)
+            * w_packed.shape[1])
+    return accounting.packed(
+        "qmatmul", macs, (x, w_packed, kappa, lam, m_mul, scale),
+        lambda: qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, **kw))
 
 
 # ------------------------------------------------------ launch planning ---
@@ -417,5 +422,9 @@ def qmatmul_segmented(x, w_flat, segmap, kappa, lam, m_mul, *,
     if x.is_cuda:
         return qmatmul_segmented_cuda(x, w_flat, segmap, kappa, lam, m_mul,
                                       pipeline=pipeline, **kw)
-    return qmatmul_segmented_torch(x, w_flat, segmap, kappa, lam, m_mul,
-                                   **kw)
+    macs = (x.shape[0] * x.shape[1] * packing.pack_factor(a_bits)
+            * segmap.n)
+    return accounting.packed(
+        "qmatmul_segmented", macs, (x, w_flat, kappa, lam, m_mul, scale),
+        lambda: qmatmul_segmented_torch(x, w_flat, segmap, kappa, lam,
+                                        m_mul, **kw))

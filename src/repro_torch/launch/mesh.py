@@ -1,13 +1,21 @@
-"""Host mesh builders. Importing this module touches no device.
+"""Host and production mesh builders. Importing this module touches no
+device.
 
 A mesh position is one core of the paper's cluster. On a host with fewer
 devices than positions, positions share devices round-robin: one card
 carries a whole (data, model) cluster, each position launching on its
 own stream (`repro_torch.parallel.mesh`), and the CPU stands in for
 every position in tests.
+
+The production meshes are the reference's: a pod of (data=16, model=16),
+256 positions, and a multipod of (pod=2, data=16, model=16), 512, the
+``pod`` axis carrying data parallelism. On ``meta`` (the dry run,
+`repro_torch.launch.dryrun`) every position is ``meta``; on cards each
+position needs a card of its own.
 """
 from __future__ import annotations
 
+import math
 from typing import List
 
 import torch
@@ -35,6 +43,29 @@ def make_host_mesh(model: int = 1, device="cuda") -> Mesh:
         raise ValueError(f"model={model} exceeds the {len(devs)} "
                          f"device(s) of type {devs[0].type}")
     return make_mesh((data, model), ("data", "model"), devs)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> Mesh:
+    """The pod (16, 16) or multipod (2, 16, 16) mesh: every position
+    ``meta`` on ``meta``, else one distinct device per position (the
+    reference's launcher likewise requires the matching device count);
+    raises where the host has fewer."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if torch.device(device).type == "meta":
+        return make_mesh(shape, axes, "meta")
+    n = math.prod(shape)
+    dev = torch.device(device)
+    have = (torch.cuda.device_count() if dev.type == "cuda"
+            else len(host_devices(dev)))
+    if have < n:
+        raise ValueError(
+            f"the {'multipod' if multi_pod else 'pod'} mesh {shape} needs "
+            f"{n} {dev.type} devices, one per position; this host has "
+            f"{have} (the dry run builds it on 'meta': python -m "
+            "repro_torch.launch.dryrun)")
+    return make_mesh(shape, axes, host_devices(dev))
 
 
 def make_cluster_mesh(dp: int, tp: int, device="cuda") -> Mesh:

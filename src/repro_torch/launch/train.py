@@ -10,8 +10,11 @@ weights on the deterministic synthetic token stream; on the CPU:
         --smoke --steps 4 --batch 2 --seq 16 --device cpu --ckpt DIR
 
 ``--mesh host`` splits each batch over the host's devices (a data axis
-of one position per card). ``pod`` and ``multipod`` name the reference's
-TPU pod meshes, which have no counterpart here, and exit. Checkpoints
+of one position per card). ``pod`` and ``multipod`` build the reference's
+production meshes (`launch.mesh.make_production_mesh`), one card per
+position: 256 or 512 cards, and a host with fewer exits saying so (the
+dry run, ``python -m repro_torch.launch.dryrun``, builds them on
+``meta``). Checkpoints
 are atomic and asynchronous; re-running the same command resumes from
 the latest one, its batches replayed from that step. ``--qat wXaY``
 trains with the dense layers' fake-quant forward at W{X} A{Y};
@@ -46,22 +49,23 @@ def main(argv=None):
                     help="cuda (the card) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise SystemExit(
-            f"--mesh {args.mesh}: the reference's TPU pod meshes have no "
-            "counterpart in the port (ROADMAP Queue 1, the rest of "
-            "launch/); use --mesh host")
-
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.device import resolve_device
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.models.api import build, get_config, get_smoke_config
     from repro_torch.nn.layers import QuantConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.step import TrainStepConfig, make_train_fns
 
+    mesh = None
+    if args.mesh != "host":   # the device count decides before the device
+        try:
+            mesh = make_production_mesh(multi_pod=args.mesh == "multipod",
+                                        device=args.device)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.qat:
@@ -69,9 +73,10 @@ def main(argv=None):
             mode="fake", w_bits=int(args.qat[1]), a_bits=int(args.qat[3])))
 
     model = build(cfg)
-    mesh = make_host_mesh(device=dev)
-    if mesh.size == 1:
-        mesh = None       # one position: the batch stays whole
+    if mesh is None:
+        mesh = make_host_mesh(device=dev)
+        if mesh.size == 1:
+            mesh = None   # one position: the batch stays whole
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     tcfg = TrainStepConfig(opt=OptConfig(
         lr=args.lr, warmup=args.warmup, total_steps=args.steps,

@@ -35,6 +35,8 @@ class ParamDef:
 
 
 def _init_leaf(d: ParamDef, seed: int, device: torch.device):
+    if device.type == "meta":       # shapes only: nothing to draw
+        return torch.empty(d.shape, dtype=d.dtype, device=device)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
     if d.init == "ones":

@@ -343,6 +343,9 @@ def _mamba_tp(grp, p, xin, cfg: MambaConfig, cache=None):
         return y, (yf * yf).sum(-1, keepdim=True)
 
     outs = grp.run(one, [(parts[i],) for i in live], live)
+    if cache is not None:
+        tp.write_back(cache["conv"], convs, conv, -1)
+        tp.write_back(cache["ssm"], states, hr, -3)
     ms = tp.total([o[1] for o in outs], grp.leader) / di
     ys = [None] * grp.m
     for i, o in zip(live, outs):

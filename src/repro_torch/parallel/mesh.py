@@ -31,6 +31,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import accounting
+
 
 def _device(d) -> torch.device:
     """``d`` as a `torch.device`; a bare ``cuda`` names the current card,
@@ -238,7 +240,7 @@ def device_put(x, sharding: NamedSharding) -> Sharded:
             t = x[_slices(shape, blocks)].to(dev).contiguous()
             if t.storage_offset() * t.element_size() % 16:
                 t = t.clone()
-            made[key] = t
+            made[key] = accounting.move("scatter", t, pos)
         shards.append(made[key])
     return Sharded(shards=shards, sharding=sharding, shape=shape)
 
@@ -255,10 +257,12 @@ def gather(x, device=None) -> torch.Tensor:
     for pos in range(mesh.size):
         first.setdefault(_blocks(mesh, x.spec, pos, x.ndim), pos)
     if len(first) == 1:
-        return x.shards[next(iter(first.values()))].to(device)
+        return accounting.move("gather", x.shards[next(iter(
+            first.values()))].to(device), None)
     out = torch.empty(x.shape, dtype=x.dtype, device=device)
     for blocks, pos in first.items():
-        out[_slices(x.shape, blocks)].copy_(x.shards[pos])
+        out[_slices(x.shape, blocks)].copy_(
+            accounting.move("gather", x.shards[pos], None))
     return out
 
 
@@ -267,6 +271,41 @@ def axis_positions(mesh: Mesh, axis: str) -> List[int]:
     axis order; [0] when the mesh lacks ``axis``."""
     return [p for p in range(mesh.size)
             if all(i == 0 for a, i in mesh.coords(p).items() if a != axis)]
+
+
+# A data block is one coordinate of every axis but ``model`` (on a
+# (pod, data, model) mesh one (pod, data) pair): the batch splits over the
+# blocks, and each block's model positions run its rows tensor-parallel.
+
+def block_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """The axes that index the data blocks, in mesh order."""
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def block_entry(mesh: Mesh):
+    """The spec entry that splits a batch over the data blocks: the one
+    block axis by name, several as a tuple, none as None."""
+    axes = block_axes(mesh)
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def block_of(mesh: Mesh, pos: int) -> int:
+    """The index of position ``pos``'s data block, row-major over
+    `block_axes` (the order a batch split by `block_entry` takes)."""
+    coords = mesh.coords(pos)
+    idx = 0
+    for a in block_axes(mesh):
+        idx = idx * mesh.shape[a] + int(coords[a])
+    return idx
+
+
+def data_blocks(mesh: Mesh) -> List[int]:
+    """The first position (model index 0) of each data block, in block
+    order."""
+    return [p for p in range(mesh.size)
+            if int(mesh.coords(p).get("model", 0)) == 0]
 
 
 def tree_map(fn, *trees):
@@ -313,7 +352,7 @@ def run_per_shard(mesh: Mesh, fn: Callable, inputs: Sequence,
                 with torch.cuda.device(dev):
                     outs.append(fn(p, *args))
             else:
-                outs.append(fn(p, *args))
+                outs.append(accounting.run_at(p, fn, p, *args))
             side.append(None)
             continue
         s = mesh.stream(p)
@@ -369,5 +408,6 @@ def unique_positions(mesh: Mesh, spec, ndim: int) -> List[int]:
 
 
 __all__ = ["Mesh", "NamedSharding", "P", "PartitionSpec", "Sharded",
-           "assemble", "axis_positions", "device_put", "gather",
-           "make_mesh", "run_per_shard", "tree_map", "unique_positions"]
+           "assemble", "axis_positions", "block_axes", "block_entry",
+           "block_of", "data_blocks", "device_put", "gather", "make_mesh",
+           "run_per_shard", "tree_map", "unique_positions"]

@@ -32,8 +32,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.obs import accounting
 from repro_torch.parallel.ctx import activation_sharding
-from repro_torch.parallel.mesh import Mesh, run_per_shard
+from repro_torch.parallel.mesh import Mesh, block_of, run_per_shard
 
 Runs = Tuple[Tuple[int, int], ...]     # (start, end) pieces, in order
 
@@ -81,14 +82,14 @@ class Split:
 
 
 class TPGroup:
-    """The ``model`` positions of data block ``block`` of ``mesh``, in
+    """The ``model`` positions of data block ``block`` of ``mesh`` (one
+    coordinate of every other axis, `parallel.mesh.block_of`), in
     model-axis order; ``leader`` is the first one's device, where the
     replicated residual lives."""
 
     def __init__(self, mesh: Mesh, block: int = 0):
         self.mesh = mesh
-        pos = [p for p in range(mesh.size)
-               if int(mesh.coords(p).get("data", 0)) == block]
+        pos = [p for p in range(mesh.size) if block_of(mesh, p) == block]
         self.positions = sorted(
             pos, key=lambda p: int(mesh.coords(p).get("model", 0)))
         self.devices = [mesh.flat[p] for p in self.positions]
@@ -107,7 +108,20 @@ class TPGroup:
                              [self.positions[i] for i in which])
 
     def to(self, x, i: int):
-        return x.to(self.devices[i]) if torch.is_tensor(x) else x
+        """``x`` sent to model index ``i``: a slice of a larger tensor is
+        a scatter's piece, a whole tensor a broadcast's."""
+        if not torch.is_tensor(x):
+            return x
+        y = x.to(self.devices[i])
+        if accounting.recorder() is None:
+            return y
+        kind = ("scatter" if _nbytes(x) < x.untyped_storage().nbytes()
+                else "broadcast")
+        return accounting.move(kind, y, self.positions[i])
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def model_size(mesh: Optional[Mesh]) -> int:
@@ -208,8 +222,8 @@ def join(parts: Sequence[Optional[torch.Tensor]], runs: Tuple[Runs, ...],
     holding ``runs``, on ``device`` (differentiable). Where runs overlap
     (a replicated slice every position holds), the first holder's copy
     is read."""
-    live = [p.to(device) for p, r in zip(parts, runs)
-            if p is not None and r]
+    live = [accounting.move("gather", p.to(device), None)
+            for p, r in zip(parts, runs) if p is not None and r]
     live_runs = tuple(r for p, r in zip(parts, runs) if p is not None and r)
     if len(live) == 1 and run_len(live_runs[0]) == size \
             and is_identity(live_runs, size):
@@ -250,7 +264,7 @@ def total(parts: Sequence[Optional[torch.Tensor]], device) -> torch.Tensor:
     for p in parts:
         if p is None:
             continue
-        p = p.to(device)
+        p = accounting.move("reduce", p.to(device), None)
         acc = p if acc is None else acc + p
     return acc
 
@@ -284,8 +298,10 @@ def place_leaf(x: torch.Tensor, cut: Cut, group: TPGroup) -> Split:
         if not r:
             parts.append(None)
             continue
-        t = take(x, r, cut.dim).to(group.devices[i])
-        parts.append(t if t.requires_grad else t.contiguous())
+        t = take(x, r, cut.dim)
+        t = t if t.requires_grad else t.contiguous()
+        parts.append(accounting.move("scatter", t.to(group.devices[i]),
+                                     group.positions[i]))
     return Split(parts, cut)
 
 
@@ -309,20 +325,40 @@ def local(tree, i: int, device=None):
         return {k: local(v, i, device) for k, v in tree.items()}
     if isinstance(tree, Split):
         return tree.parts[i]
-    return tree if device is None or not torch.is_tensor(tree) \
-        else tree.to(device)
+    if device is None or not torch.is_tensor(tree):
+        return tree
+    grp = ambient()
+    return accounting.move("broadcast", tree.to(device),
+                           None if grp is None else grp.positions[i])
 
 
 def parts_of(leaf, cut_runs: Tuple[Runs, ...], dim: int) -> list:
-    """Per-position pieces of a state leaf: a `Split`'s parts, or views
-    of a whole tensor along ``dim`` (in-place writes reach the whole)."""
+    """Per-position pieces of a state leaf: a `Split`'s parts, or pieces
+    of a whole tensor along ``dim``: a view where the position holds one
+    run (in-place writes reach the whole), a joined copy where it holds
+    several (`write_back` returns it)."""
     if isinstance(leaf, Split):
         return leaf.parts
     return split(leaf, cut_runs, dim)
+
+
+def write_back(leaf, parts, cut_runs: Tuple[Runs, ...], dim: int):
+    """After an in-place update of `parts_of`'s pieces of a whole
+    ``leaf``, copy each joined piece's runs back into it (a `Split`'s
+    parts and one-run views are the state itself)."""
+    if isinstance(leaf, Split):
+        return
+    for part, r in zip(parts, cut_runs):
+        if part is None or len(r) < 2:
+            continue
+        off = 0
+        for s, e in r:
+            leaf.narrow(dim, s, e - s).copy_(part.narrow(dim, off, e - s))
+            off += e - s
 
 
 __all__ = ["Cut", "Split", "TPGroup", "ambient", "blocks_runs",
            "even_runs",
            "join", "local", "model_size", "parts_of", "place",
            "place_leaf", "run_len", "scale_runs", "split", "take",
-           "total", "tp_group", "tp_scope"]
+           "total", "tp_group", "tp_scope", "write_back"]

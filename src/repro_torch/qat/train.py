@@ -176,9 +176,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _shards(mesh, batch):
-    """The batch's per-data-position pieces: [(pos, x, y)]."""
-    from repro_torch.parallel.mesh import (Sharded, axis_positions,
-                                           device_put, NamedSharding, P)
+    """The batch's per-data-block pieces: [(pos, x, y)]."""
+    from repro_torch.parallel.mesh import (NamedSharding, P, Sharded,
+                                           block_entry, data_blocks,
+                                           device_put)
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
             "QAT on a mesh is data-parallel only (as the reference's); a "
@@ -187,10 +188,10 @@ def _shards(mesh, batch):
     for k in ("x", "y"):
         v = batch[k]
         if not isinstance(v, Sharded):
-            v = device_put(v, NamedSharding(mesh, P("data")))
+            v = device_put(v, NamedSharding(mesh, P(block_entry(mesh))))
         out[k] = v
     return [(p, out["x"].shards[p], out["y"].shards[p])
-            for p in axis_positions(mesh, "data")]
+            for p in data_blocks(mesh)]
 
 
 def make_qat_step(cfg: VisionConfig, qc: QATConfig,

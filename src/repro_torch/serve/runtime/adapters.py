@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.parallel import tp
 from repro_torch.parallel.mesh import (NamedSharding, assemble,
-                                       axis_positions, run_per_shard,
+                                       data_blocks, run_per_shard,
                                        tree_map)
 from repro_torch.parallel.sharding import (DP_AXIS, TP_AXIS,
                                            cache_shardings,
@@ -162,10 +162,10 @@ class LMDecodeAdapter(WorkloadAdapter):
         if mesh.device_type != self.device.type:
             raise ValueError(f"the params live on {self.device}, the mesh "
                              f"on {mesh.device_type} devices")
-        # data block d runs at the position whose data index is d
-        self.dp = cluster_axis_size(mesh, DP_AXIS)
+        # data block d runs at its first position (`data_blocks`)
+        self._block_pos = data_blocks(mesh)
+        self.dp = len(self._block_pos)
         self.tp = cluster_axis_size(mesh, TP_AXIS)
-        self._block_pos = axis_positions(mesh, DP_AXIS)
         self._params = {}
         if self.tp > 1:
             self._groups = [tp.TPGroup(mesh, d) for d in range(self.dp)]

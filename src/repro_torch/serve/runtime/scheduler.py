@@ -25,7 +25,7 @@ from typing import Any, Deque, Dict, List, Optional
 import numpy as np
 
 from repro_torch.obs import trace as obs
-from repro_torch.parallel.sharding import DP_AXIS, cluster_axis_size
+from repro_torch.parallel.mesh import data_blocks
 from repro_torch.serve.runtime.slots import SlotManager
 
 
@@ -123,7 +123,7 @@ class Scheduler(WaveStats):
         if policy not in ("continuous", "wave"):
             raise ValueError(f"unknown policy {policy!r}")
         mesh = adapter.mesh
-        dp = 1 if mesh is None else cluster_axis_size(mesh, DP_AXIS)
+        dp = 1 if mesh is None else len(data_blocks(mesh))
         self.adapter = adapter
         self.policy = policy
         self.max_queue = max_queue

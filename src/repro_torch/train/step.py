@@ -34,7 +34,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.models.api import Model
 from repro_torch.nn.module import ParamDef, leaf_paths, tree_like
 from repro_torch.parallel import tp
-from repro_torch.parallel.mesh import NamedSharding, P, Sharded
+from repro_torch.parallel.mesh import (NamedSharding, P, Sharded,
+                                       block_entry, block_of, data_blocks)
 from repro_torch.parallel.sharding import (DEFAULT_RULES, batch_sharding,
                                            cache_shardings, params_shardings)
 from repro_torch.train.compress import compress_grads
@@ -51,21 +52,35 @@ def _scope(mesh, q: int):
     """The tensor-parallel scope of the data block at position ``q``."""
     if tp.model_size(mesh) == 1:
         return contextlib.nullcontext()
-    return tp.tp_scope(tp.TPGroup(mesh, int(mesh.coords(q)["data"])))
+    return tp.tp_scope(tp.TPGroup(mesh, block_of(mesh, q)))
 
 
 def _per_block(mesh, fn, rows: int):
-    """``fn(scope, sl)`` for each data block's row slice ``sl`` of
-    ``rows``, in data order: the outputs by block."""
-    from repro_torch.parallel.mesh import axis_positions
-
-    pos = axis_positions(mesh, "data")
+    """``fn(i, scope, sl)`` for each data block ``i`` and its row slice
+    ``sl`` of ``rows``, in block order: the outputs by block."""
+    pos = data_blocks(mesh)
     b = rows // len(pos)
     if rows % len(pos):
         raise ValueError(f"{rows} rows do not divide over "
                          f"{len(pos)} data blocks")
-    return [fn(_scope(mesh, q), slice(i * b, (i + 1) * b))
+    return [fn(i, _scope(mesh, q), slice(i * b, (i + 1) * b))
             for i, q in enumerate(pos)]
+
+
+def _of_block(tree, i: int):
+    """Block ``i``'s own tree where ``tree`` is a list of them (placed on
+    each block's group, `place_blocks`), else ``tree``."""
+    return tree[i] if isinstance(tree, list) else tree
+
+
+def place_blocks(model: Model, mesh, tree, cache: bool = False) -> list:
+    """``tree`` placed on each data block's model positions, as the
+    serving adapter holds it (weight-stationary params, or with
+    ``cache`` a block's cache rows, which the caller sizes per block):
+    one tree per block, for the step builders' ``params`` / ``cache``."""
+    groups = [tp.TPGroup(mesh, b) for b in range(len(data_blocks(mesh)))]
+    place = model.place_cache if cache else model.place
+    return [place(tree, g) for g in groups]
 
 
 def _meta_tree(defs):
@@ -98,7 +113,9 @@ def input_shapes(model: Model, shape: ShapeConfig) -> dict:
         if needs_src:
             spec["src_embed"] = meta(b, cfg.src_len, d, dtype=torch.bfloat16)
         return spec
-    return {"token": meta(b, 1), "index": meta(),
+    # decode's index: the last position, a Python int (a 0-dim meta
+    # tensor has no value for attention's `int(index)`)
+    return {"token": meta(b, 1), "index": s - 1,
             "cache": model.init_cache(b, s, device="meta")}
 
 
@@ -120,13 +137,12 @@ def loss_and_grads(model: Model, params, batch, mesh=None):
     if mesh is None:
         loss, grads = one(1.0, batch, leaves[0].device)
         return loss, list(grads)
-    from repro_torch.parallel.mesh import (axis_positions, device_put,
-                                           run_per_shard)
-    shard = NamedSharding(mesh, P("data"))
+    from repro_torch.parallel.mesh import device_put, run_per_shard
+    shard = NamedSharding(mesh, P(block_entry(mesh)))
     split = {k: (v if isinstance(v, Sharded) else device_put(v, shard))
              for k, v in batch.items()}
     n = next(iter(split.values())).shape[0]
-    pos = axis_positions(mesh, "data")
+    pos = data_blocks(mesh)
     parts = [{k: v.shards[p] for k, v in split.items()} for p in pos]
     flat = mesh.flat
     def block(q, part):
@@ -189,7 +205,10 @@ def make_decode_fns(model: Model, mesh, shape: ShapeConfig,
                     rules=DEFAULT_RULES):
     """(decode_step, shardings) for serving: decode_step(params, cache,
     token, index) -> (logits, cache) over global tensors, and the
-    reference's placements of params, cache, token and index."""
+    reference's placements of params, cache, token and index. On a mesh
+    with ``model`` > 1, ``params`` and ``cache`` may instead be lists of
+    one tree per data block placed on its group (`place_blocks`; each
+    cache holds its block's rows), as the serving adapter holds them."""
     specs = model.specs()
     shapes = _meta_tree(model.defs())
     in_shapes = input_shapes(model, shape)
@@ -198,12 +217,14 @@ def make_decode_fns(model: Model, mesh, shape: ShapeConfig,
         if tp.model_size(mesh) == 1:
             return model.decode(params, cache, token, index)
 
-        def block(scope, sl):
-            rows = _tree_rows(cache, sl)
+        def block(i, scope, sl):
+            rows = (cache[i] if isinstance(cache, list)
+                    else _tree_rows(cache, sl))
             idx = index[sl] if torch.is_tensor(index) and index.dim() \
                 else index
             with scope:
-                return model.decode(params, rows, token[sl], idx)[0]
+                return model.decode(_of_block(params, i), rows, token[sl],
+                                    idx)[0]
         return torch.cat(_per_block(mesh, block, token.shape[0])), cache
 
     shard = None
@@ -219,7 +240,7 @@ def make_decode_fns(model: Model, mesh, shape: ShapeConfig,
 def make_prefill_fns(model: Model, mesh, shape: ShapeConfig,
                      rules=DEFAULT_RULES):
     """(prefill_step, shardings): prefill_step(params, batch) -> the last
-    position's logits (B, 1, V)."""
+    position's logits (B, 1, V); ``params`` as in `make_decode_fns`."""
     specs = model.specs()
     shapes = _meta_tree(model.defs())
 
@@ -228,10 +249,11 @@ def make_prefill_fns(model: Model, mesh, shape: ShapeConfig,
             logits, _, _ = model.forward(params, batch)
             return logits[:, -1:]
 
-        def block(scope, sl):
+        def block(i, scope, sl):
             with scope:
-                return model.forward(params, {k: v[sl] for k, v in
-                                              batch.items()})[0][:, -1:]
+                return model.forward(_of_block(params, i),
+                                     {k: v[sl] for k, v in
+                                      batch.items()})[0][:, -1:]
         return torch.cat(_per_block(mesh, block,
                                     batch["tokens"].shape[0]))
 

@@ -1256,6 +1256,45 @@ def test_lm_train_step_on_the_card_matches_cpu(dev):
             a.abs().max()) + 1e-30
 
 
+# card against the CPU, by compute dtype: float32 as the olmo test above;
+# bf16 rounds each product to 8 mantissa bits (2^-8 = 3.9e-3) on either
+# side, in different orders, so a few such roundings per layer
+CONV_TRAIN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_lm_train_step_with_a_conv_is_reproducible_on_the_card(
+        dev, arch, compute):
+    """Mamba-2 and Griffin differentiate a depthwise `F.conv1d`
+    (`nn/ssm.py::_causal_conv_dw`): two `loss_and_grads` calls from one
+    state give the same gradients bit for bit, and each matches the CPU
+    (loss and each leaf's gradient relative to its largest |g|,
+    CONV_TRAIN_TOL)."""
+    import dataclasses
+    from repro_torch.convert import to_device
+    from repro_torch.models.api import build, get_smoke_config
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=compute)
+    model = build(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    l_cpu, g_cpu = loss_and_grads(model, params, batch)
+    on_card = to_device(params, dev), to_device(batch, dev)
+    (l1, g1), (l2, g2) = (loss_and_grads(model, *on_card) for _ in range(2))
+    assert float(l1) == float(l2)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+    loss_tol, grad_tol = CONV_TRAIN_TOL[compute]
+    assert abs(float(l1) - float(l_cpu)) <= loss_tol * abs(float(l_cpu))
+    for a, b in zip(g_cpu, g1):
+        assert float((b.cpu() - a).abs().max()) <= grad_tol * float(
+            a.abs().max()) + 1e-30
+
+
 def test_train_cli_on_the_card_resumes(dev, tmp_path):
     from repro_torch.launch import train as cli
     args = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "4", "--batch",

@@ -80,6 +80,28 @@ def test_port_covers_the_training_modules():
     assert out.stdout.strip() == "[]"
 
 
+def test_port_covers_the_launch_modules():
+    """With the dry run the port mirrors every module of the reference's
+    ``launch/`` but the XLA walkers, whose counterpart is
+    ``launch/costs.py`` (docs/port_map.md)."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES}
+    ref = {p.name for p in (ROOT / "src" / "repro" / "launch").glob("*.py")}
+    mine = {n.split("/")[1] for n in names if n.startswith("launch/")}
+    assert ref - mine == {"hlo_costs.py", "hlo_analysis.py"}
+    assert {"launch/dryrun.py", "launch/report.py", "launch/breakdown.py",
+            "launch/costs.py", "obs/accounting.py"} <= names
+    code = ("import sys, repro_torch.launch.dryrun, "
+            "repro_torch.launch.report, repro_torch.launch.breakdown; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'repro')))")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.vision, "
             "repro_torch.convert, repro_torch.serve.engine, "
