@@ -1234,10 +1234,13 @@ def depthwise_timing_phase(dev, qnet, x_wave, report):
 
 def _device_us(prof, names=()) -> float:
     """Summed device time (us) of the profiled CUDA kernels whose name
-    holds one of ``names`` (every kernel when ``names`` is empty)."""
+    holds one of ``names`` (every kernel when ``names`` is empty); the
+    device extents of `record_function` ranges (the port's spans) are
+    not kernels."""
     import torch
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation
                and (not names or any(n in e.key for n in names)))
 
 
@@ -1278,6 +1281,7 @@ def _device_ms_per_pass(prof, reps: int, names=()) -> float:
                * max(1, round(e.count / reps))
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation
                and (not names or any(n in e.key for n in names))) / 1e3
 
 
@@ -4304,7 +4308,8 @@ def train_path(dev, work, report):
     busy = _device_us(prof) / 1e6 or None
     by_op = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
             k = e.key[:72]
             by_op[k] = by_op.get(k, 0.0) + e.self_device_time_total / 1e3
     ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]

@@ -26,8 +26,9 @@ against the device the net is placed on.
 
 **The dense layer's GEMM** (`int_gemm`, the reference's
 ``xla_int_gemm``) bypasses the op registry as the reference's does: no
-tune-cache probe, no dispatch event, no op counter. Its pipeline is
-explicit -> ``REPRO_QPIPELINE`` -> 'off'; its launch the planned one.
+tune-cache probe, no dispatch event. Its pipeline is explicit ->
+``REPRO_QPIPELINE`` -> 'off'; its launch the planned one. With
+observability on it is counted as op ``int_gemm`` at its real K.
 
 **Cluster path** (`qdot_sharded`, `qconv_sharded`; ``mesh=`` on `qdot`
 and `qconv`): the paper's N-core cluster (fig. 9) on a
@@ -265,15 +266,23 @@ def int_gemm(x_q: torch.Tensor, w, *, a_bits: int,
     lead = x_q.shape[:-1]
     xp = packing.pack(x_q.reshape(-1, x_q.shape[-1]), a_bits, axis=-1)
     pipeline = resolve_pipeline(pipeline)
+    backend = device_backend(xp.device)
     if isinstance(w, SegmentedLinearParams):
-        out = _qdot_mixed(w, xp, epilogue="dequant", scale=scale,
-                          pipeline=pipeline, out_dtype=out_dtype)
+        out = _run_counted(
+            "int_gemm", (xp.shape[0], w.k_logical, w.segmap.n), a_bits,
+            w.segmap.widths()[0], backend, pipeline,
+            lambda: _qdot_mixed(w, xp, epilogue="dequant", scale=scale,
+                                pipeline=pipeline, out_dtype=out_dtype),
+            w_packed_bytes=w.segmap.packed_bytes(w.k_logical))
     else:
-        out = qmatmul_packed(
-            xp, w, None, None, None, a_bits=a_bits, a_signed=True,
-            w_bits=w_bits, d=0, out_bits=8, epilogue=epilogue,
-            scale=scale, pipeline=pipeline, k_logical=k_logical,
-            out_dtype=None if epilogue == "raw" else out_dtype)
+        out = _run_counted(
+            "int_gemm", (xp.shape[0], k_logical or x_q.shape[-1],
+                         w.shape[1]), a_bits, w_bits, backend, pipeline,
+            lambda: qmatmul_packed(
+                xp, w, None, None, None, a_bits=a_bits, a_signed=True,
+                w_bits=w_bits, d=0, out_bits=8, epilogue=epilogue,
+                scale=scale, pipeline=pipeline, k_logical=k_logical,
+                out_dtype=None if epilogue == "raw" else out_dtype))
     return out.reshape(*lead, out.shape[-1])
 
 

@@ -19,6 +19,11 @@ Under tensor parallelism (`repro_torch.parallel.tp`, an ambient
 position its table rows or head columns, the logits gathered on the
 leader for sampling); the norms and the residual stay replicated on the
 leader. `lm_cuts` is the whole tree's split, which serving places once.
+
+Spans (`repro_torch.obs`) of the prefill forward, one after another:
+``lm/embed``; per meshless dense self layer ``lm/attn.qkv``,
+``lm/attn.core``, ``lm/attn.out`` and ``lm/mlp``; ``lm/head``. Layers
+under tensor parallelism, cross layers and MoE layers open none.
 """
 from __future__ import annotations
 
@@ -27,9 +32,9 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn.attention import (AttnConfig, attn_apply, attn_cuts,
-                                      attn_decode, attn_def,
-                                      cross_kv_project, init_cache,
+from repro_torch.nn.attention import (AttnConfig, attn_apply, attn_core,
+                                      attn_cuts, attn_decode, attn_def,
+                                      attn_qkv, cross_kv_project, init_cache,
                                       kv_cache_cut)
 from repro_torch.nn.layers import (QOFF, const, dense_apply, dense_col,
                                    dense_cuts, dense_def, embedding_apply,
@@ -39,6 +44,7 @@ from repro_torch.nn.layers import (QOFF, const, dense_apply, dense_col,
 from repro_torch.nn.mlp import (MlpConfig, MoeConfig, mlp_apply, mlp_cuts,
                                 mlp_def, moe_apply, moe_cuts, moe_def)
 from repro_torch.nn.module import stack_defs
+from repro_torch.obs import trace as obs
 from repro_torch.parallel import tp
 
 
@@ -199,12 +205,26 @@ def _ropes(cfg: ModelConfig, seq_len: int, dtype, device):
 def _block(cfg: ModelConfig, lp, x, cos, sin, window):
     """One pre-norm self layer on the residual ``x`` with layer params
     ``lp``: (x, its aux loss, (k, v)). The forward and the calibration
-    replay (`deploy/calibrate.py`) both run it."""
-    h, kv = attn_apply(lp["attn"], norm_apply(lp.get("ln1", {}), x, cfg.norm),
-                       _attn_cfg(cfg), cos=cos, sin=sin, mode="local",
-                       window=window)
-    x, aux = _ffn(cfg, lp, x + h)
-    return x, aux, kv
+    replay (`deploy/calibrate.py`) both run it. A meshless dense layer
+    runs its four parts in their spans (module docstring)."""
+    acfg = _attn_cfg(cfg)
+    if cfg.moe is not None or tp.tp_group() is not None:
+        h, kv = attn_apply(lp["attn"],
+                           norm_apply(lp.get("ln1", {}), x, cfg.norm), acfg,
+                           cos=cos, sin=sin, mode="local", window=window)
+        x, aux = _ffn(cfg, lp, x + h)
+        return x, aux, kv
+    with obs.span("lm/attn.qkv"):
+        q, k, v = attn_qkv(lp["attn"],
+                           norm_apply(lp.get("ln1", {}), x, cfg.norm), acfg,
+                           cos=cos, sin=sin)
+    with obs.span("lm/attn.core"):
+        out = attn_core(q, k, v, mode="local", window=window)
+    with obs.span("lm/attn.out"):
+        x = x + dense_apply(lp["attn"]["wo"], out, qcfg=acfg.q("wo"))
+    with obs.span("lm/mlp"):
+        x, aux = _ffn(cfg, lp, x)
+    return x, aux, (k, v)
 
 
 def _cross_block(cfg: ModelConfig, xp, x, src, acfg_x):
@@ -237,19 +257,20 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
     not collected or for a vision arch)."""
     dtype = _compute_dtype(cfg)
     s = tokens.shape[1]
-    x = _embed(params, tokens, cfg, dtype)
-    dev = x.device
-    glob, loc = _ropes(cfg, s, dtype, dev)
-    acfg_x = _attn_cfg(cfg, "cross_layers/xattn")
-    cross = _layer_split(cfg)[1] > 0
-    if cross:
-        if src_embed is None:
-            raise ValueError(f"{cfg.name} needs src_embed input")
-        src = src_embed.to(dtype)
-    sched = _schedule(cfg, s)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    layers = unstack_layers(params["layers"])
-    xlayers = unstack_layers(params["cross_layers"]) if cross else []
+    with obs.span("lm/embed"):
+        x = _embed(params, tokens, cfg, dtype)
+        dev = x.device
+        glob, loc = _ropes(cfg, s, dtype, dev)
+        acfg_x = _attn_cfg(cfg, "cross_layers/xattn")
+        cross = _layer_split(cfg)[1] > 0
+        if cross:
+            if src_embed is None:
+                raise ValueError(f"{cfg.name} needs src_embed input")
+            src = src_embed.to(dtype)
+        sched = _schedule(cfg, s)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        layers = unstack_layers(params["layers"])
+        xlayers = unstack_layers(params["cross_layers"]) if cross else []
     ks, vs = [], []
     for kind, i in _order(cfg):
         if kind == "cross":
@@ -263,10 +284,12 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
-    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv and not cross \
-        else None
-    return _logits(params, x, cfg), aux, kvs
+    with obs.span("lm/head"):
+        x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
+        kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv and not cross \
+            else None
+        logits = _logits(params, x, cfg)
+    return logits, aux, kvs
 
 
 def _logits(params, x, cfg: ModelConfig):

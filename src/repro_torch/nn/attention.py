@@ -158,6 +158,14 @@ def attn_apply(p, x, cfg: AttnConfig, *, cos, sin, mode="causal",
     if grp is not None:
         return _attn_apply_tp(grp, p, x, cfg, cos=cos, sin=sin, mode=mode,
                               window=window, cross_kv=cross_kv)
+    q, k, v = attn_qkv(p, x, cfg, cos=cos, sin=sin, cross_kv=cross_kv)
+    out = attn_core(q, k, v, mode=mode, window=window)
+    return dense_apply(p["wo"], out, qcfg=cfg.q("wo")), (k, v)
+
+
+def attn_qkv(p, x, cfg: AttnConfig, *, cos, sin, cross_kv=None):
+    """`attn_apply`'s meshless projections: q (B,S,Hk,G,Dh) and k / v
+    (B,T,Hk,Dh), RoPE applied to q and k; ``cross_kv`` as there."""
     b, s, _ = x.shape
     h, hk, dh, g = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.groups
     q = _split_heads(dense_apply(p["wq"], x, qcfg=cfg.q("wq")), h, dh)
@@ -168,10 +176,15 @@ def attn_apply(p, x, cfg: AttnConfig, *, cos, sin, mode="causal",
         k = rope_apply(k, cos, sin)
     else:
         k, v = cross_kv
-    q = q.reshape(b, s, hk, g, dh)
-    mask = _mask_full(s, k.shape[1], mode, window, x.device)
-    out = _sdpa(q, k, v, mask[None, None, None]).reshape(b, s, h * dh)
-    return dense_apply(p["wo"], out, qcfg=cfg.q("wo")), (k, v)
+    return q.reshape(b, s, hk, g, dh), k, v
+
+
+def attn_core(q, k, v, *, mode, window):
+    """`attn_apply`'s meshless attention over `attn_qkv`'s q, k, v: the
+    mask, scores, softmax and values, (B,S,H*Dh) in v's dtype."""
+    b, s = q.shape[:2]
+    mask = _mask_full(s, k.shape[1], mode, window, q.device)
+    return _sdpa(q, k, v, mask[None, None, None]).reshape(b, s, -1)
 
 
 def cross_kv_project(p, src, cfg: AttnConfig):

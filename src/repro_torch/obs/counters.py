@@ -2,8 +2,9 @@
 
 The paper reports MAC/cycle per bit-width from RI5CY hardware counters
 (Sec. V); this is the software analogue. `repro_torch.kernels.api` calls
-:func:`record` at every `qdot`/`qconv` entry so effective MAC/µs and
-arithmetic intensity per bit-width fall out of any instrumented run.
+:func:`record` at every `qdot`/`qconv`/`int_gemm` entry so effective
+MAC/µs and arithmetic intensity per bit-width fall out of any
+instrumented run.
 
 Accounting is keyed by ``(op, w_bits, a_bits, backend, pipeline)`` —
 rendered as ``"{op}|w{w}a{a}|{backend}|{pipeline}"``, with the port's
@@ -11,7 +12,8 @@ backend names ``cuda`` (CUDA tensors, the Hopper kernels) and ``torch``
 (CPU tensors, the plain versions) — and each bucket accumulates
 
     calls           number of recorded entry-point calls
-    macs            multiply-accumulates: m*k*n (qdot, K padded to CHUNK),
+    macs            multiply-accumulates: m*k*n (qdot, K padded to CHUNK;
+                    int_gemm, the dense layer's real K),
                     n*ho*wo*fh*fw*(cin/groups)*cout (qconv, the image's
                     real Cin)
     logical_bytes   one byte per logical int8 element moved (activations
@@ -22,10 +24,10 @@ backend names ``cuda`` (CUDA tensors, the Hopper kernels) and ``torch``
                     the paper's sub-byte speedup comes from
 
 The cost model is the reference's, number for number, so counters from
-the two packages compare directly. qdot's K is the K padded to CHUNK
-that the reference's kernel contracts; the port's GEMM kernel contracts
-only the real K rounded up to 32, so for a ragged K these MACs exceed
-the kernel's. A depthwise layer lowered ``per_group`` is C convs with
+the two packages compare directly (the reference counts no
+``int_gemm``). qdot's K is the K padded to CHUNK that the reference's
+kernel contracts; the port's GEMM kernel contracts only the real K
+rounded up to 32, so for a ragged K these MACs exceed the kernel's. A depthwise layer lowered ``per_group`` is C convs with
 cin = 1.
 
 ``logical/packed`` per bucket is the measured container-compression
@@ -43,6 +45,9 @@ _LOCK = threading.Lock()
 _OPS: Dict[str, Dict[str, int]] = {}
 
 _FIELDS = ("calls", "macs", "logical_bytes", "packed_bytes")
+
+# ops keyed by an (m, k, n) GEMM shape; every other op is a conv
+GEMM_OPS = ("qdot", "qdot_mixed", "int_gemm")
 
 
 def _pack_factor(bits: int) -> int:
@@ -68,7 +73,8 @@ def conv_out_hw(h, w, fh, fw, stride, padding):
 
 
 def qdot_costs(shape, a_bits: int, w_bits: int) -> Dict[str, int]:
-    """(m, k, n) GEMM cost model; k is K padded to CHUNK."""
+    """(m, k, n) GEMM cost model; k is the K the caller keys (qdot's
+    padded to CHUNK, int_gemm's real one)."""
     m, k, n = (int(s) for s in shape[:3])
     macs = m * k * n
     logical = m * k + k * n + m * n
@@ -100,14 +106,13 @@ def record(op: str, shape, a_bits: int, w_bits: int, *, backend: str,
     """Bump the (op, bits, backend, pipeline) bucket for one call; returns
     the per-call deltas (None when observability is off).
 
-    GEMM-shaped ops ("qdot", "qdot_mixed") share the (m, k, n) cost
-    model; everything else is the conv key. ``w_packed_bytes`` replaces
-    the uniform-container weight term of ``packed_bytes`` — segmented
-    containers stream exactly their per-run byte count, not k*n/pf at
-    one width."""
+    The `GEMM_OPS` share the (m, k, n) cost model; everything else is
+    the conv key. ``w_packed_bytes`` replaces the uniform-container
+    weight term of ``packed_bytes`` — segmented containers stream
+    exactly their per-run byte count, not k*n/pf at one width."""
     if not trace.enabled():
         return None
-    costs = (qdot_costs if op.startswith("qdot") else qconv_costs)(
+    costs = (qdot_costs if op in GEMM_OPS else qconv_costs)(
         shape, a_bits, w_bits)
     if w_packed_bytes is not None:
         m, kdim, n = (int(s) for s in shape[:3])

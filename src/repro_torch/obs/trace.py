@@ -9,9 +9,20 @@ Design points:
 
 * **Zero overhead when disabled.** `span()`/`counter()` return shared
   no-op singletons and `dispatch_event()` returns immediately; the only
-  cost on the hot path is one module-global predicate. Enablement comes
+  cost on the hot path is one module-global predicate (and, for a span,
+  one ``sys.modules`` lookup for the profiler below). Enablement comes
   from the ``REPRO_OBS`` env at import (via `repro_torch.obs.env`) or
   programmatically via `enable()`/`disable()`.
+* **Profiler pass-through.** While a `torch.profiler` session records,
+  every span also opens `torch.profiler.record_function(name)` for its
+  extent (the reference mirrors its spans into the XLA profile the same
+  way), so the range sits on the profiler's own clock beside the
+  kernels it launched. This holds with ``REPRO_OBS`` off too: the span
+  is then a mirror only, writing nothing to the ring buffer, keeping no
+  attributes and never synchronizing (``sync(v)`` returns ``v``). With
+  neither on, `span()` returns the shared no-op and builds nothing. The
+  profiler is found in ``sys.modules``, so this module never imports
+  torch for it.
 * **Thread-safe ring buffers.** Spans/instants land in a bounded
   `collections.deque` guarded by one lock; old events fall off the
   front instead of growing without bound under serving load.
@@ -23,9 +34,7 @@ Design points:
 * **CUDA-aware.** `Span.sync` and `time_call` synchronize the CUDA
   device a result lives on, so a span or a timed call holds the device
   time of the work it launched. torch is imported lazily there only, so
-  this module loads with the standard library alone. There is no
-  profiler pass-through (the reference mirrors spans into XLA profiles;
-  the torch analogue, `torch.profiler.record_function`, is left out).
+  this module loads with the standard library alone.
 
 Timestamps are microseconds relative to a module-load epoch
 (`perf_counter_ns`), matching the trace-event format's ``ts``/``dur``
@@ -34,6 +43,7 @@ unit.
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
 from collections import deque
@@ -140,22 +150,38 @@ def enabled_scope():
 
 # ------------------------------------------------------------------ spans ---
 
+def _recording_profiler():
+    """torch's profiler module while a `torch.profiler` session records,
+    else None; looked up in ``sys.modules``, so torch is never imported
+    here."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and prof._is_profiler_enabled:
+        return prof
+    return None
+
+
 class Span:
     """One timed region. ``with span("qdot", cat="kernel", w_bits=4):``
     records an "X" (complete) trace event on exit carrying the attrs as
-    ``args``. `set()` adds attrs mid-span; `sync(value)` waits for the
-    CUDA device ``value`` lives on, so device time lands inside the
-    span, and returns it."""
+    ``args``, and mirrors the region into a recording profiler. `set()`
+    adds attrs mid-span; `sync(value)` waits for the CUDA device
+    ``value`` lives on, so device time lands inside the span, and
+    returns it."""
 
-    __slots__ = ("name", "cat", "attrs", "_t0")
+    __slots__ = ("name", "cat", "attrs", "_t0", "_range")
 
     def __init__(self, name: str, cat: str, attrs: Dict[str, Any]):
         self.name = name
         self.cat = cat
         self.attrs = attrs
         self._t0 = 0.0
+        self._range = None
 
     def __enter__(self) -> "Span":
+        prof = _recording_profiler()
+        if prof is not None:
+            self._range = prof.record_function(self.name)
+            self._range.__enter__()
         self._t0 = _now_us()
         return self
 
@@ -177,6 +203,9 @@ class Span:
                     "ts": round(self._t0, 3), "dur": round(dur, 3),
                     "pid": 0, "tid": _tid(),
                     "args": dict(self.attrs)})
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         return False
 
 
@@ -201,12 +230,35 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+class _ProfilerSpan(_NullSpan):
+    """A span that is only a profiler range: observability off, a
+    `torch.profiler` session recording. Nothing lands in the ring
+    buffer, attributes are dropped, and ``sync`` does not wait."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, prof, name: str):
+        self._range = prof.record_function(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
+
+
 def span(name: str, cat: str = "span", **attrs):
-    """A context manager timing the enclosed block (no-op singleton when
-    disabled). Extra keyword attrs land in the event's ``args``."""
-    if not _ENABLED:
+    """A context manager timing the enclosed block; extra keyword attrs
+    land in the event's ``args``. Disabled, it is the no-op singleton,
+    or a profiler range only while a `torch.profiler` session records."""
+    if _ENABLED:
+        return Span(name, cat, attrs)
+    prof = _recording_profiler()
+    if prof is None:
         return _NULL_SPAN
-    return Span(name, cat, attrs)
+    return _ProfilerSpan(prof, name)
 
 
 # --------------------------------------------------------------- counters ---

@@ -64,7 +64,6 @@ def evaluate_int(qnet: QuantizedVisionNet, batches, *, mesh=None,
             n += len(preds)
         acc = correct / max(n, 1)
         sp.set(images=n, accuracy=acc)
-    obs.counter("qat.images_evaluated").add(n)
     return {"accuracy": acc, "correct": correct, "n": n}
 
 

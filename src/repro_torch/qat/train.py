@@ -368,7 +368,6 @@ def train_qat(cfg: VisionConfig, data, qc: QATConfig, *,
             batch = {"x": torch.from_numpy(np.asarray(x, np.float32)).to(dev),
                      "y": torch.from_numpy(np.asarray(y, np.int32)).to(dev)}
             state, metrics = step_fn(state, batch)
-            obs.counter("qat.steps").add(1)
             if (i % qc.log_every == 0) or (i == qc.steps - 1):
                 log.append({"step": i, "loss": float(metrics["loss"]),
                             "acc": float(metrics["acc"])})

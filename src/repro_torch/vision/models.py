@@ -10,21 +10,27 @@ epilogue at each output, routed through `repro_torch.kernels.api`).
 `quantize_net` turns (fp params, per-edge absmax, `PrecisionPlan`) into
 the deployable `QuantizedVisionNet` on one device; its arrays are
 byte-identical to the reference's for the same inputs.
+
+Spans (`repro_torch.obs`): `quantize` opens ``vision/quantize`` and
+`forward_int` one ``vision/<path>`` per layer, one after another, so a
+profiled forward is tiled by its layers.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.quantize import (QuantizedLinearParams, QuantSpec,
-                                       quantize)
+from repro_torch.core.quantize import QuantizedLinearParams, QuantSpec
+from repro_torch.core.quantize import quantize as _quantize
 from repro_torch.deploy.policy import PrecisionPlan, resolve_qcfg
 from repro_torch.device import resolve_device
 from repro_torch.kernels.api import check_backend
 from repro_torch.nn.layers import QuantConfig
+from repro_torch.obs import trace as obs
 from repro_torch.parallel.sharding import (shard_packed_conv,
                                            shard_packed_linear)
 from repro_torch.vision import layers as vl
@@ -231,6 +237,12 @@ class QuantizedVisionNet:
     eps_logits: float
     plan: Optional[PrecisionPlan] = None
 
+    @functools.cached_property
+    def span_names(self) -> Tuple[str, ...]:
+        """``vision/<path>`` of each layer, the names of `forward_int`'s
+        spans (built once per net)."""
+        return tuple(f"vision/{L.path}" for L, _ in self.qlayers)
+
     @property
     def device(self) -> torch.device:
         for L, q in self.qlayers:
@@ -351,6 +363,13 @@ def quantize_net(cfg: VisionConfig, fp_params: dict, absmax: dict, *,
                               plan=plan)
 
 
+def quantize(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Real images -> integer images on the input grid ``spec``
+    (`core.quantize.quantize`), inside a ``vision/quantize`` span."""
+    with obs.span("vision/quantize"):
+        return _quantize(x, spec)
+
+
 def quantize_input(qnet: QuantizedVisionNet, x) -> torch.Tensor:
     """Real images (N, H, W, C) -> uint{a_bits} integer images on the
     net's device."""
@@ -369,26 +388,28 @@ def forward_int(qnet: QuantizedVisionNet, x_hat: torch.Tensor, *,
     linear on the cluster path (`api.qconv_sharded` / `qdot_sharded`:
     images data-parallel, output channels tensor-parallel, equal to the
     meshless forward); the pools and adds run on the gathered edges.
-    ``collect(path, y_hat)`` observes every integer edge."""
+    ``collect(path, y_hat)`` observes every integer edge. Each layer runs
+    inside its ``vision/<path>`` span."""
     stream = x_hat
     edges: Dict[str, torch.Tensor] = {}
-    for L, q in qnet.qlayers:
-        xin = edges[L.input_from] if L.input_from else stream
-        if L.kind == "dwconv":
-            y = q.apply(xin, pipeline=pipeline, lowering=lowering,
-                        mesh=mesh)
-        elif L.kind in COMPUTE_KINDS:
-            y = q.apply(xin, pipeline=pipeline, mesh=mesh)
-        elif L.kind == "add":
-            y = q.apply(xin, edges[L.skip_from])
-        else:
-            y = q.apply(xin)
-        if collect is not None:
-            collect(L.path, y)
-        if L.save_as:
-            edges[L.save_as] = y
-        if not L.branch:
-            stream = y
+    for (L, q), name in zip(qnet.qlayers, qnet.span_names):
+        with obs.span(name, kind=L.kind, path=L.path):
+            xin = edges[L.input_from] if L.input_from else stream
+            if L.kind == "dwconv":
+                y = q.apply(xin, pipeline=pipeline, lowering=lowering,
+                            mesh=mesh)
+            elif L.kind in COMPUTE_KINDS:
+                y = q.apply(xin, pipeline=pipeline, mesh=mesh)
+            elif L.kind == "add":
+                y = q.apply(xin, edges[L.skip_from])
+            else:
+                y = q.apply(xin)
+            if collect is not None:
+                collect(L.path, y)
+            if L.save_as:
+                edges[L.save_as] = y
+            if not L.branch:
+                stream = y
     return stream
 
 

@@ -238,8 +238,9 @@ def test_int_gemm_output_dtypes_and_refusals():
 
 def test_dense_int_path_records_no_dispatch_or_counter():
     """As the reference's `xla_int_gemm`, the dense layer's GEMM bypasses
-    the op registry: observability on, it records no dispatch event, no
-    op counter and no kernel span."""
+    the op registry: observability on, it records no dispatch event and
+    no `qdot` counter; its one call is counted as ``int_gemm`` at the
+    dense layer's real K, inside one kernel span."""
     from repro_torch import obs
     from repro_torch.obs import counters
 
@@ -252,8 +253,12 @@ def test_dense_int_path_records_no_dispatch_or_counter():
         p_layers.dense_apply(port_p, x, qcfg=p_layers.QuantConfig(
             mode="int", w_bits=4))
         assert obs.dispatch_log() == []
-        assert obs.spans(cat="kernel") == []
-        assert not counters.snapshot()
+        (ev,) = obs.spans(cat="kernel")
+        assert ev["name"] == "int_gemm"
+        (key, bucket), = counters.snapshot().items()
+        assert counters.parse_key(key)["op"] == "int_gemm"
+        assert bucket["calls"] == 1 and bucket["macs"] == ev["args"]["macs"]
+        assert bucket["macs"] == 2 * K * ev["args"]["shape"][2]
     finally:
         obs.disable()
         obs.reset()

@@ -177,6 +177,122 @@ def test_disabled_mode_is_a_noop(rng):
     assert obs_counters.snapshot() == {}
 
 
+# ------------------------------------------------ profiler pass-through ---
+
+def _profiled(fn, tmp_path):
+    """``fn()`` under a CPU `torch.profiler` session; (its result, the
+    session's ``user_annotation`` ranges as (name, start, end), by
+    start), read from the exported Chrome trace as a harness reads it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    evs = json.loads(path.read_text())
+    evs = evs["traceEvents"] if isinstance(evs, dict) else evs
+    ranges = sorted((e["name"], float(e["ts"]), float(e["ts"] + e["dur"]))
+                    for e in evs if e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation")
+    return out, sorted(ranges, key=lambda r: r[1])
+
+
+def _follow_one_another(ranges):
+    return all(a[2] <= b[1] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_span_without_obs_or_profiler_is_the_null_span():
+    assert obs.span("vision/stem", kind="conv") is obs._NULL_SPAN
+    assert obs._recording_profiler() is None
+
+
+def test_span_with_a_profiler_only_is_a_bare_range(tmp_path):
+    t = torch.ones(3)
+
+    def run():
+        sp = obs.span("mirror", cat="test", extra=1)
+        assert sp is not obs._NULL_SPAN and not isinstance(sp, obs.Span)
+        with sp:
+            assert sp.sync(t) is t
+            sp.set(late=2)
+        return sp
+
+    _, ranges = _profiled(run, tmp_path)
+    assert [r[0] for r in ranges] == ["mirror"]
+    assert obs.events() == []
+    assert obs.span("after") is obs._NULL_SPAN
+
+
+def _tiny_vision_net():
+    _, pq, images = _both_nets("resnet8", 4)
+    return pq, torch.from_numpy(images)
+
+
+def test_forward_int_mirrors_one_range_per_layer(tmp_path):
+    """Observability off, a profiler recording: `quantize` and each layer
+    of `forward_int` appear once, in layer order, one after another, and
+    the ring buffer stays empty; the logits are unchanged."""
+    pq, images = _tiny_vision_net()
+    want = p_models.forward_int(pq, p_models.quantize(images,
+                                                      pq.input_spec))
+    got, ranges = _profiled(lambda: p_models.forward_int(
+        pq, p_models.quantize(images, pq.input_spec)), tmp_path)
+    assert torch.equal(got, want)
+    vision = [r for r in ranges if r[0].startswith("vision/")]
+    assert [r[0] for r in vision] == ["vision/quantize"] + [
+        f"vision/{L.path}" for L, _ in pq.qlayers]
+    assert _follow_one_another(vision)
+    assert obs.events() == [] and obs_counters.snapshot() == {}
+
+
+def test_obs_and_profiler_both_record(tmp_path):
+    """Observability on and a profiler recording: each layer's ring-buffer
+    event, with its kind and path, and its profiler range."""
+    pq, images = _tiny_vision_net()
+    with obs.enabled_scope():
+        _, ranges = _profiled(lambda: p_models.forward_int(
+            pq, p_models.quantize(images, pq.input_spec)), tmp_path)
+    evs = [e for e in obs.spans(cat="span")
+           if e["name"].startswith("vision/")]
+    layers = [f"vision/{L.path}" for L, _ in pq.qlayers]
+    assert [e["name"] for e in evs] == ["vision/quantize"] + layers
+    assert [(e["args"]["kind"], e["args"]["path"]) for e in evs[1:]] == [
+        (L.kind, L.path) for L, _ in pq.qlayers]
+    names = [r[0] for r in ranges]
+    assert all(n in names for n in ["vision/quantize"] + layers)
+
+
+def _tiny_lm():
+    """A two-layer dense LM (phi3's smoke config) served W4A8, and a
+    token batch."""
+    from repro_torch.configs import phi3_mini_3p8b
+    from repro_torch.deploy.apply import int_skeleton
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.models.api import build
+    from repro_torch.nn.layers import QOFF, QuantConfig
+    cfg = dataclasses.replace(phi3_mini_3p8b.smoke_config(), n_layers=2,
+                              compute_dtype="float32")
+    fp = build(dataclasses.replace(cfg, quant=QOFF)).init(0, device="cpu")
+    model = build(dataclasses.replace(cfg, quant=QuantConfig(
+        mode="int", w_bits=4, a_bits=8)))
+    params = convert_params(int_skeleton(model.defs()), fp, 4)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)))
+    return model, params, {"tokens": tokens}
+
+
+def test_lm_prefill_mirrors_its_spans_in_order(tmp_path):
+    model, params, batch = _tiny_lm()
+    want, _ = model.prefill(params, batch)
+    (got, _), ranges = _profiled(lambda: model.prefill(params, batch),
+                                 tmp_path)
+    assert torch.equal(got, want)
+    lm = [r for r in ranges if r[0].startswith("lm/")]
+    layer = ["lm/attn.qkv", "lm/attn.core", "lm/attn.out", "lm/mlp"]
+    assert [r[0] for r in lm] == ["lm/embed"] + 2 * layer + ["lm/head"]
+    assert _follow_one_another(lm)
+    assert obs.events() == []
+
+
 # -------------------------------------------------------------- counters ---
 
 @pytest.mark.parametrize("ab", BITS)
@@ -230,6 +346,36 @@ def test_qconv_mac_accounting(ab, wb, rng):
     assert snap[k]["calls"] == 1
     assert snap[k] == obs_counters.qconv_costs(
         (1, H, W, cin, fh, fh, 1, 1, cout, 1), ab, wb)
+
+
+@pytest.mark.parametrize("wb", BITS)
+def test_int_gemm_counts_one_call_at_the_real_k(wb, rng):
+    """The dense layer's GEMM is counted at the K it contracts (not the
+    K padded to CHUNK), with a kernel span; off, it records nothing."""
+    M, K, k_real, N = 3, 256, 200, 24
+    lo, hi = packing.int_range(wb, True)
+    w = packing.pack(torch.from_numpy(rng.integers(lo, hi + 1, (K, N))
+                                      .astype(np.int8)), wb, axis=0)
+    x_q = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    x_q[:, k_real:] = 0
+    scale = torch.full((N,), 0.25)
+
+    def call():
+        return api.int_gemm(x_q, w, a_bits=8, w_bits=wb, scale=scale,
+                            out_dtype=torch.float32, k_logical=k_real)
+
+    bare = call()
+    assert obs_counters.snapshot() == {} and obs.events() == []
+    with obs.enabled_scope():
+        counted = call()
+    assert torch.equal(bare, counted)
+    k = obs_counters.key("int_gemm", wb, 8, "torch", "off")
+    assert obs_counters.snapshot() == {k: obs_counters.qdot_costs(
+        (M, k_real, N), 8, wb)}
+    assert obs_counters.snapshot()[k]["macs"] == M * k_real * N
+    (ev,) = obs.spans(name="int_gemm", cat="kernel")
+    assert ev["args"]["macs"] == M * k_real * N
+    assert obs.dispatch_log() == []
 
 
 def test_counter_delta_attribution(rng):
