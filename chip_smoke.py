@@ -457,13 +457,16 @@ class Case:
                                                              cout)),
                                          (0, 0, 0, cin_pad - cin))
             self.w = packing.pack(wt.reshape(-1, cout), w_bits, axis=0)
-            self.x = ck.pad_and_pack(ints(a_bits, False, (b, h, w_, cin)),
-                                     padding=p, cin_pad=cin_pad,
+            # the kernel takes the image unpadded, through the wrapper
+            # (which copies only what its copy granule demands); the plain
+            # version the reference's padded, packed copy
+            self.x_hat = ints(a_bits, False, (b, h, w_, cin))
+            self.x = ck.pad_and_pack(self.x_hat, padding=p, cin_pad=cin_pad,
                                      a_bits=a_bits)
             ho, wo = ck.conv_out_hw(h, w_, f, f, s, p)
             self.kw = dict(fh=f, fw=f, stride=s, ho=ho, wo=wo,
                            cin_pad=cin_pad, cout=cout)
-            self.cin = cin
+            self.padding = p
         self.vecs = (
             torch.randint(-127, 128, (cout,), generator=gen,
                           dtype=torch.int32).to(dev),
@@ -500,9 +503,10 @@ class Case:
         if self.kind == "qmatmul":
             return gk._launch_packed(self.x, self.w, *self.vecs, self.plan,
                                      pipeline=PIPELINE[stages], **self.kw)
-        return ck.qconv_packed_cuda(self.x, self.w, *self.vecs,
-                                    pipeline=PIPELINE[stages], cin=self.cin,
-                                    **self.kw)
+        kw = {k: v for k, v in self.kw.items() if k not in ("ho", "wo")}
+        return ck.qconv2d_fused(self.x_hat, self.w, *self.vecs,
+                                padding=self.padding,
+                                pipeline=PIPELINE[stages], **kw)
 
     def plain(self):
         from repro_torch.kernels.qconv import kernel as ck

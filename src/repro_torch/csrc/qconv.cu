@@ -6,14 +6,22 @@
 // (pipeline 'double_buffer', :108) as STAGES=2.
 //
 //   out[p, n] = epilogue( sum_{t, c < cin} x[pixel(p, t), c] * w[t, c, n] )
-//   x: (N, hp, wp, cin_pad/pf_a) packed, spatially padded image; w: the
-//   tap-major `w_packed_fused` panel (fh*fw*cin_pad/pf_w, Cout). Both keep
-//   the artifact's layout, each tap's channels padded to cin_pad.
+//   x: (N, H, W, cp) the caller's image, unpadded: cp bytes a pixel (8-bit
+//   activations: the real channels, or the wrapper's copy of them widened
+//   to 4, 8 or a multiple of 16; sub-byte ones: cin_pad/pf_a chunk-planar
+//   bytes); w: the tap-major `w_packed_fused` panel (fh*fw*cin_pad/pf_w,
+//   Cout), each tap's channels padded to cin_pad as the artifact keeps it.
+//   The conv's zero border is the gather's: a tap whose input pixel falls
+//   outside [0, H) x [0, W) is copied with source size 0, cp.async's zero
+//   fill, as rows past the last output pixel are.
 //
 // What bounded it on the H100: contracting every tap's channels padded
 // to CHUNK = 128 (22x the real MACs at ResNet-8 widths) on dp4a, and
-// re-gathering each pixel once per 64-wide Cout panel. What the design
-// does about it:
+// re-gathering each pixel once per 64-wide Cout panel; then, with the
+// real-channel K, the wrapper's copy of every image into a zero-filled
+// 128-channel, spatially padded tensor before each launch (a third of a
+// ResNet-8 wave's device time in fill and strided-copy kernels). What the
+// design does about it:
 //   * K covers the real channels only. The logical K of the conv is the
 //     taps x real channels, cut into stages of at most 192 values
 //     (several taps per stage when Cin is small: a 3x3 conv over 16
@@ -22,12 +30,13 @@
 //     channel c sits in byte c % (CHUNK/pf), field c / (CHUNK/pf), so only
 //     the first min(Cin, CHUNK/pf) bytes of a pixel's chunk and as many
 //     weight rows per tap are copied. 8-bit activations of fewer than 16
-//     channels take 4 per tap (the stem: 3 real + 1 zero of the artifact's
-//     padding), so their bytes lie back to back in K order. The stage plan
-//     and the per-K map (ring byte, field, weight row) come from the
-//     Python wrapper (`kernels/qconv/kernel.py::conv_k_plan`), where the
-//     CPU tests check the same index math against the reference; each
-//     block copies the plan into shared memory first.
+//     channels take 4 per tap (the stem: 3 real + 1 zero of the wrapper's
+//     copy), so their bytes lie back to back in K order. The stage plan,
+//     the per-K map (ring byte, field, weight row) and the pixel strides
+//     the gather may read at come from the Python wrapper
+//     (`kernels/qconv/kernel.py::conv_k_plan`), where the CPU tests check
+//     the same index math against the reference; each block copies the
+//     plan into shared memory first.
 //   * A block owns 128 consecutive output pixels (across images) x all of
 //     Cout up to 256 (NT = Cout rounded up to 16, 32, 64, 128 or 256), so
 //     each pixel row is gathered once, and contracts on the tensor cores
@@ -35,7 +44,10 @@
 //     activations in K order are copied straight into the A tile; only
 //     the weights (and sub-byte activations) are unpacked.
 //   * The strided receptive-field gather is not a rectangular box, so it
-//     stays a cp.async gather into the STAGES-slot ring.
+//     stays a cp.async gather into the STAGES-slot ring. Its row table
+//     holds each output pixel's first input pixel and top-left input
+//     coordinate; each copy tests its tap against the image's bounds, so
+//     the image is read where it lies, at its own pixel stride.
 // What bounds it now: at ResNet-8 widths every conv is a chain of a few
 // dependent latencies per block (copy the plan and epilogue columns,
 // gather a stage, unpack, wgmma, store), not bytes or tensor-core math:
@@ -87,8 +99,11 @@ struct ConvSrc {
   const int* stages;
   const int* segs;
   const int* kmap;
-  const long long* row_base;  // per block row: pixel offset, or -1
-  int wp, cp, fw, w_tap_rows, cout, n0;
+  // per block row: (input pixel index of the receptive field's top-left
+  // corner, its (y, x) as two int16 halves; y = -32768 past the last
+  // output pixel, so every tap of such a row is out of bounds)
+  const int2* row_table;
+  int h, w_img, cp, fw, w_tap_rows, cout, n0;
   bool a_signed;
 
   // A stage whose segments hold a multiple of 16 channels unpacks 16 at
@@ -113,25 +128,32 @@ struct ConvSrc {
       const int r = v % TILE_M, rem = v / TILE_M;
       const int i = rem / per_seg, u = rem - i * per_seg;
       const int tap = segs[2 * (seg0 + i)], chunk = segs[2 * (seg0 + i) + 1];
-      const long long base = row_base[r];
-      const int8_t* src = x;
-      if (base >= 0)
-        src = x + base + static_cast<long long>((tap / fw) * wp + tap % fw) *
-                             cp + chunk * SUB_A + u * a_vec;
+      const int2 row = row_table[r];
+      const int dy = tap / fw, dx = tap - dy * fw;
+      // the tap's input pixel; outside the image it reads as zeros
+      const bool in = static_cast<unsigned>((row.y >> 16) + dy) <
+                          static_cast<unsigned>(h) &&
+                      static_cast<unsigned>(
+                          static_cast<int16_t>(row.y & 0xFFFF) + dx) <
+                          static_cast<unsigned>(w_img);
+      const int8_t* src =
+          in ? x + static_cast<long long>(row.x + dy * w_img + dx) * cp +
+                   chunk * SUB_A + u * a_vec
+             : x;
       if (to_tile && a_vec == 16)
         rq::cp_async16(
             slot.a_tile + rq::tc::core_offset(r, i * nch + u * 16, TILE_M),
-            src, base >= 0 ? 16 : 0);
+            src, in ? 16 : 0);
       else if (to_tile)
         rq::cp_async4(
             slot.a_tile + rq::tc::core_offset(r, i * nch + u * 4, TILE_M),
-            src, base >= 0 ? 4 : 0);
+            src, in ? 4 : 0);
       else if (a_vec == 16)
         rq::cp_async16(slot.a_ring + r * RING_ROW + i * a_stride + u * 16,
-                       src, base >= 0 ? 16 : 0);
+                       src, in ? 16 : 0);
       else
         rq::cp_async4(slot.a_ring + r * RING_ROW + i * a_stride + u * 4, src,
-                      base >= 0 ? 4 : 0);
+                      in ? 4 : 0);
     }
     int8_t* rw = slot.w_ring;
     // weight rows: segment i's rows j < w_rows -> ring rows i * w_rows + j
@@ -245,7 +267,8 @@ struct ConvArgs {
   const int* segs;
   const int* kmap;
   void* out;
-  int nstages, nsegs, hp, wp, cp, ho, wo, fw, stride, npix, w_tap_rows, cout;
+  int nstages, nsegs, img_h, img_w, cp, ho, wo, fw, stride, padding, npix,
+      w_tap_rows, cout;
   int a_signed;
   int a_ring;  // 1 when some stage's activations are unpacked from a ring
 };
@@ -257,7 +280,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<NT>())
   __shared__ rq::tc::ColumnParams<NT> cols;
   using S = rq::tc::Smem<NT, STAGES, stage_k<NT>()>;
   int8_t* b_tile = smem;
-  long long* row_base = reinterpret_cast<long long*>(smem + S::B_TILE);
+  int2* row_table = reinterpret_cast<int2*>(smem + S::B_TILE);
   // the stage plan and its segments, read from shared memory from here
   // on, and the epilogue's columns: copied asynchronously, all in flight
   // together while the row table is computed
@@ -276,14 +299,16 @@ __global__ void __launch_bounds__(THREADS, min_blocks<NT>())
   const int howo = a.ho * a.wo;
   for (int r = threadIdx.x; r < TILE_M; r += THREADS) {
     const int p = p0 + r;
-    long long base = -1;
+    int2 row = make_int2(0, INT32_MIN);
     if (p < a.npix) {
       const int b = p / howo, q = p - b * howo;
       const int oy = q / a.wo, ox = q - oy * a.wo;
-      base = ((static_cast<long long>(b) * a.hp + oy * a.stride) * a.wp +
-              ox * a.stride) * a.cp;
+      const int iy = oy * a.stride - a.padding;
+      const int ix = ox * a.stride - a.padding;
+      row = make_int2((b * a.img_h + iy) * a.img_w + ix,
+                      iy * 65536 | (ix & 0xFFFF));
     }
-    row_base[r] = base;
+    row_table[r] = row;
   }
   rq::cp_async_wait<0>();
   __syncthreads();
@@ -293,8 +318,9 @@ __global__ void __launch_bounds__(THREADS, min_blocks<NT>())
       plan,
       plan + a.nstages * STAGE_FIELDS,
       a.kmap,
-      row_base,
-      a.wp,
+      row_table,
+      a.img_h,
+      a.img_w,
       a.cp,
       a.fw,
       a.w_tap_rows,
@@ -346,15 +372,19 @@ cudaError_t launch_n(int nt, const ConvArgs& a, const rq::EpilogueArgs& epi,
 // stages/segs/kmap: the wrapper's stage plan on the device (int32);
 // a_ring: whether some stage unpacks its activations (sub-byte widths, or
 // a stage whose channels are not a multiple of 16); nt: the column tile
-// (`conv_tile_n`).
+// (`conv_tile_n`). x is (n_img, img_h, img_w, cp), unpadded, 16-byte
+// aligned, cp a stride the plan's copies fit (`ConvKPlan.takes_stride`);
+// img_h, img_w and padding below 2^15 and n_img * img_h * img_w below
+// 2^31 (the wrapper checks).
 extern "C" int qconv_launch(const void* x, const void* w, const void* stages,
                             const void* segs, const void* kmap, int nstages,
                             int nsegs, int a_ring,
                             const void* kappa, const void* lam,
                             const void* mmul, const void* scale_vec,
-                            float scale, void* out, int n_img, int hp,
-                            int wp, int cp, int ho, int wo, int fw,
-                            int stride, int w_tap_rows, int cout, int a_bits,
+                            float scale, void* out, int n_img, int img_h,
+                            int img_w, int cp, int ho, int wo, int fw,
+                            int stride, int padding, int w_tap_rows,
+                            int cout, int a_bits,
                             int w_bits, int a_signed, int d, int hi,
                             int epilogue, int pipeline_stages, int nt,
                             void* stream) {
@@ -370,8 +400,8 @@ extern "C" int qconv_launch(const void* x, const void* w, const void* stages,
                    static_cast<const int*>(kmap),
                    out,
                    nstages,
-                   nsegs, hp, wp, cp, ho, wo, fw, stride, n_img * ho * wo,
-                   w_tap_rows, cout, a_signed, a_ring};
+                   nsegs, img_h, img_w, cp, ho, wo, fw, stride, padding,
+                   n_img * ho * wo, w_tap_rows, cout, a_signed, a_ring};
   if (plan_bytes(nstages, nsegs) > 16 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);

@@ -112,31 +112,48 @@ def test_qmatmul_kernel_ragged_wall_matches_plain(dev, a_bits, w_bits,
         gemm_k._launch_packed(x, w, *vecs, other, pipeline=pipeline, **kw)
 
 
+def _conv_pair(x, wpf, vecs, *, f, s, p, cin_pad, cout, pipeline, **kw):
+    """(the kernel through `qconv2d_fused` on the unpadded image ``x``,
+    the plain version on its spatially padded, packed copy), on the same
+    device."""
+    got = conv_k.qconv2d_fused(x, wpf, *vecs, fh=f, fw=f, stride=s,
+                               padding=p, cin_pad=cin_pad, cout=cout,
+                               pipeline=pipeline, **kw)
+    ho, wo = conv_k.conv_out_hw(x.shape[1], x.shape[2], f, f, s, p)
+    xp = conv_k.pad_and_pack(x, padding=p, cin_pad=cin_pad,
+                             a_bits=kw["a_bits"])
+    want = conv_k.qconv_packed_torch(xp, wpf, *vecs, fh=f, fw=f, stride=s,
+                                     ho=ho, wo=wo, cin_pad=cin_pad,
+                                     cout=cout, **kw)
+    return got, want
+
+
+def _conv_weights(rng, w_bits, f, cin, cout, dev):
+    """The tap-major fused panel of random weights, each tap's channels
+    padded to cin_pad, and cin_pad."""
+    cin_pad = packing.padded_size(cin)
+    wt = torch.nn.functional.pad(
+        _ints(rng, w_bits, True, (f * f, cin, cout), dev),
+        (0, 0, 0, cin_pad - cin))
+    return packing.pack(wt.reshape(-1, cout), w_bits, axis=0), cin_pad
+
+
 @pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
 @pytest.mark.parametrize("a_bits,w_bits", BITS)
 def test_qconv_kernel_matches_plain(dev, a_bits, w_bits, pipeline):
     rng = np.random.default_rng(a_bits * 10 + w_bits)
     for n, h, w_, cin, cout, f, s, p in ((2, 11, 9, 5, 20, 3, 1, 1),
                                          (2, 8, 8, 130, 70, 3, 2, 1)):
-        cin_pad = packing.padded_size(cin)
         x = _ints(rng, a_bits, False, (n, h, w_, cin), dev)
-        wt = torch.nn.functional.pad(
-            _ints(rng, w_bits, True, (f * f, cin, cout), dev),
-            (0, 0, 0, cin_pad - cin))
-        wpf = packing.pack(wt.reshape(-1, cout), w_bits, axis=0)
+        wpf, cin_pad = _conv_weights(rng, w_bits, f, cin, cout, dev)
         vecs = [v.to(dev) for v in _epilogue_vectors(rng, cout, dev)]
-        ho, wo = conv_k.conv_out_hw(h, w_, f, f, s, p)
-        xp = conv_k.pad_and_pack(x, padding=p, cin_pad=cin_pad,
-                                 a_bits=a_bits)
         for epi in ("int", "raw", "dequant"):
-            kw = dict(fh=f, fw=f, stride=s, ho=ho, wo=wo, cin_pad=cin_pad,
-                      cout=cout, a_bits=a_bits, a_signed=False,
-                      w_bits=w_bits, d=23, out_bits=a_bits, epilogue=epi,
-                      scale=0.013)
-            got = conv_k.qconv_packed_cuda(xp, wpf, *vecs,
-                                           pipeline=pipeline, cin=cin, **kw)
-            assert _same(got, conv_k.qconv_packed_torch(xp, wpf, *vecs,
-                                                        **kw))
+            got, want = _conv_pair(
+                x, wpf, vecs, f=f, s=s, p=p, cin_pad=cin_pad, cout=cout,
+                pipeline=pipeline, a_bits=a_bits, a_signed=False,
+                w_bits=w_bits, d=23, out_bits=a_bits, epilogue=epi,
+                scale=0.013)
+            assert _same(got, want)
 
 
 # (n, h, w, cin, cout, f, stride, padding) the real-channel K order makes
@@ -156,28 +173,103 @@ def test_qconv_kernel_real_channels_match_plain(dev, a_bits, w_bits,
                                                 pipeline):
     rng = np.random.default_rng(a_bits * 10 + w_bits + 1)
     for n, h, w_, cin, cout, f, s, p in WALL:
-        cin_pad = packing.padded_size(cin)
         x = _ints(rng, a_bits, False, (n, h, w_, cin), dev)
-        wt = torch.nn.functional.pad(
-            _ints(rng, w_bits, True, (f * f, cin, cout), dev),
-            (0, 0, 0, cin_pad - cin))
-        wpf = packing.pack(wt.reshape(-1, cout), w_bits, axis=0)
+        wpf, cin_pad = _conv_weights(rng, w_bits, f, cin, cout, dev)
         vecs = [v.to(dev) for v in _epilogue_vectors(rng, cout, dev)]
-        ho, wo = conv_k.conv_out_hw(h, w_, f, f, s, p)
-        xp = conv_k.pad_and_pack(x, padding=p, cin_pad=cin_pad,
-                                 a_bits=a_bits)
+        plan = conv_k.conv_k_plan(f, f, cin, a_bits, w_bits,
+                                  conv_k.conv_stage_k(cout))
+        staged = conv_k.conv_staging(x, plan, a_bits=a_bits,
+                                     cin_pad=cin_pad)
+        xs = x if staged is None else conv_k.stage_image(x, staged, a_bits)
         for epi in ("int", "raw", "dequant"):
-            kw = dict(fh=f, fw=f, stride=s, ho=ho, wo=wo, cin_pad=cin_pad,
-                      cout=cout, a_bits=a_bits, a_signed=False,
-                      w_bits=w_bits, d=23, out_bits=a_bits, epilogue=epi,
-                      scale=0.013)
-            want = conv_k.qconv_packed_torch(xp, wpf, *vecs, **kw)
-            got = conv_k.qconv_packed_cuda(xp, wpf, *vecs,
-                                           pipeline=pipeline, cin=cin, **kw)
+            kw = dict(a_bits=a_bits, a_signed=False, w_bits=w_bits, d=23,
+                      out_bits=a_bits, epilogue=epi, scale=0.013)
+            got, want = _conv_pair(x, wpf, vecs, f=f, s=s, p=p,
+                                   cin_pad=cin_pad, cout=cout,
+                                   pipeline=pipeline, **kw)
             assert _same(got, want), ((n, h, w_, cin, cout, f, s, p), epi)
             # the kernel's K order emulated in torch on the card agrees too
             assert _same(conv_k.qconv_k_order_torch(
-                xp, wpf, *vecs, cin=cin, **kw), want)
+                xs, wpf, *vecs, fh=f, fw=f, stride=s, padding=p, cin=cin,
+                cin_pad=cin_pad, cout=cout, **kw), want)
+
+
+# (h, w, cin, cout, f, stride, padding) of ResNet-8's nine convs: stem,
+# s1/c1, s1/c2, s2/c1, s2/c2, s2/skip, s3/c1, s3/c2, s3/skip
+RESNET8_CONVS = ((32, 32, 3, 16, 3, 1, 1), (32, 32, 16, 16, 3, 1, 1),
+                 (32, 32, 16, 16, 3, 1, 1), (32, 32, 16, 32, 3, 2, 1),
+                 (16, 16, 32, 32, 3, 1, 1), (32, 32, 16, 32, 1, 2, 0),
+                 (16, 16, 32, 64, 3, 2, 1), (8, 8, 64, 64, 3, 1, 1),
+                 (16, 16, 32, 64, 1, 2, 0))
+
+
+@pytest.mark.parametrize("batch", [1, 7, 300])
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("w_bits", [8, 4])
+def test_qconv_kernel_resnet8_shapes_unpadded_match_plain(dev, w_bits,
+                                                          pipeline, batch):
+    """ResNet-8's conv shapes on unpadded images, W8A8 and W4A8: bit for
+    bit the plain version; only the stem's image is copied (3 -> 4
+    channels), the other eight are read where they lie."""
+    from repro_torch.obs import trace as obs
+    rng = np.random.default_rng(w_bits * 1000 + batch)
+    with obs.enabled_scope():
+        obs.reset()
+        for h, w_, cin, cout, f, s, p in RESNET8_CONVS:
+            x = _ints(rng, 8, False, (batch, h, w_, cin), dev)
+            wpf, cin_pad = _conv_weights(rng, w_bits, f, cin, cout, dev)
+            vecs = [v.to(dev) for v in _epilogue_vectors(rng, cout, dev)]
+            got, want = _conv_pair(
+                x, wpf, vecs, f=f, s=s, p=p, cin_pad=cin_pad, cout=cout,
+                pipeline=pipeline, a_bits=8, a_signed=False, w_bits=w_bits,
+                d=23, out_bits=8, epilogue="int", scale=1.0)
+            assert _same(got, want), (batch, h, w_, cin, cout, f, s, p)
+        staged = obs.counter_values()
+        obs.reset()
+    assert staged == {"qconv.staged": 1,
+                      "qconv.staged_bytes": batch * 32 * 32 * 4}
+
+
+# (n, h, w, cin, cout, f, stride, padding) whose pixel stride the wrapper
+# widens (Cin 12 -> 16, 130 -> 144, 200 -> 208; sub-byte to cin_pad) or
+# reads as it is (Cin 16) at padding 0, 1 and 2 and strides 1 and 2
+UNPADDED = ((2, 8, 8, 130, 70, 3, 2, 1), (2, 9, 9, 200, 48, 1, 2, 0),
+            (1, 7, 7, 200, 16, 3, 2, 1), (2, 6, 7, 12, 20, 3, 1, 1),
+            (2, 9, 8, 16, 32, 3, 2, 0), (1, 6, 5, 130, 24, 3, 1, 2))
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_qconv_kernel_unpadded_strides_match_plain(dev, a_bits, w_bits,
+                                                   pipeline):
+    """The kernel's border and pixel strides at every width pair: ragged
+    and wide Cin, a per-group depthwise slice (a non-contiguous cin = 1
+    view of a wider image) and an image off the 16-byte grid."""
+    rng = np.random.default_rng(a_bits * 10 + w_bits + 5)
+    kw = dict(a_bits=a_bits, a_signed=False, w_bits=w_bits, d=23,
+              out_bits=a_bits, epilogue="int", scale=1.0)
+    for n, h, w_, cin, cout, f, s, p in UNPADDED:
+        x = _ints(rng, a_bits, False, (n, h, w_, cin), dev)
+        wpf, cin_pad = _conv_weights(rng, w_bits, f, cin, cout, dev)
+        vecs = [v.to(dev) for v in _epilogue_vectors(rng, cout, dev)]
+        got, want = _conv_pair(x, wpf, vecs, f=f, s=s, p=p, cin_pad=cin_pad,
+                               cout=cout, pipeline=pipeline, **kw)
+        assert _same(got, want), (n, h, w_, cin, cout, f, s, p)
+    wide = _ints(rng, a_bits, False, (2, 8, 8, 5), dev)
+    wpf, cin_pad = _conv_weights(rng, w_bits, 3, 1, 1, dev)
+    vecs = [v.to(dev) for v in _epilogue_vectors(rng, 1, dev)]
+    for s in (1, 2):
+        got, want = _conv_pair(wide[..., 2:3], wpf, vecs, f=3, s=s, p=1,
+                               cin_pad=cin_pad, cout=1, pipeline=pipeline,
+                               **kw)
+        assert _same(got, want), ("per_group slice", s)
+    buf = _ints(rng, a_bits, False, (2 * 8 * 8 * 16 + 16,), dev)
+    x = buf[4:4 + 2 * 8 * 8 * 16].view(2, 8, 8, 16)
+    wpf, cin_pad = _conv_weights(rng, w_bits, 3, 16, 32, dev)
+    vecs = [v.to(dev) for v in _epilogue_vectors(rng, 32, dev)]
+    got, want = _conv_pair(x, wpf, vecs, f=3, s=1, p=1, cin_pad=cin_pad,
+                           cout=32, pipeline=pipeline, **kw)
+    assert _same(got, want), "misaligned"
 
 
 def test_resnet8_on_the_card_matches_cpu(dev):
@@ -509,24 +601,15 @@ def test_qconv_signed_vector_scale_matches_plain(dev, a_bits, w_bits,
     # dequant scale, which no served net reaches
     rng = np.random.default_rng(a_bits * 10 + w_bits + 9)
     for n, h, w_, cin, cout, f, s, p in WALL[:4]:
-        cin_pad = packing.padded_size(cin)
         x = _ints(rng, a_bits, True, (n, h, w_, cin), dev)
-        wt = torch.nn.functional.pad(
-            _ints(rng, w_bits, True, (f * f, cin, cout), dev),
-            (0, 0, 0, cin_pad - cin))
-        wpf = packing.pack(wt.reshape(-1, cout), w_bits, axis=0)
+        wpf, cin_pad = _conv_weights(rng, w_bits, f, cin, cout, dev)
         vecs = [v.to(dev) for v in _epilogue_vectors(rng, cout, dev)]
-        ho, wo = conv_k.conv_out_hw(h, w_, f, f, s, p)
-        xp = conv_k.pad_and_pack(x, padding=p, cin_pad=cin_pad,
-                                 a_bits=a_bits)
         for epi in ("int", "raw", "dequant"):
-            kw = dict(fh=f, fw=f, stride=s, ho=ho, wo=wo, cin_pad=cin_pad,
-                      cout=cout, a_bits=a_bits, a_signed=True,
-                      w_bits=w_bits, d=23, out_bits=a_bits, epilogue=epi,
-                      scale=_dense_vectors(rng, cout, dev))
-            want = conv_k.qconv_packed_torch(xp, wpf, *vecs, **kw)
-            got = conv_k.qconv_packed_cuda(xp, wpf, *vecs,
-                                           pipeline=pipeline, cin=cin, **kw)
+            got, want = _conv_pair(
+                x, wpf, vecs, f=f, s=s, p=p, cin_pad=cin_pad, cout=cout,
+                pipeline=pipeline, a_bits=a_bits, a_signed=True,
+                w_bits=w_bits, d=23, out_bits=a_bits, epilogue=epi,
+                scale=_dense_vectors(rng, cout, dev))
             assert _same(got, want), ((n, h, w_, cin, cout, f, s, p), epi)
 
 

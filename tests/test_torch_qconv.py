@@ -21,8 +21,7 @@ from repro.kernels.qconv.ref import qconv2d_ref
 from repro_torch.core import packing as p_pack
 from repro_torch.kernels import api as p_api
 from repro_torch.kernels.qconv import ops as p_ops
-from repro_torch.kernels.qconv.kernel import (pad_and_pack, qconv2d_fused,
-                                              qconv_packed_cuda)
+from repro_torch.kernels.qconv.kernel import qconv2d_fused, qconv_packed_cuda
 from repro_torch.kernels.qconv.ref import qconv2d_ref as p_qconv2d_ref
 
 from torch_bridge import assert_artifacts_equal, assert_same
@@ -146,11 +145,11 @@ def test_grouped_params_are_rejected():
 def test_conv_kernel_wrapper_refuses_cpu_tensors():
     _, port, x = _layer("3x3s1p1_cin5", 8, 4)
     g = port.gemm
-    xp = pad_and_pack(torch.from_numpy(x), padding=1, cin_pad=port.cin_pad,
-                      a_bits=8)
+    # the image as the kernel reads it: unpadded, Cin 5 copied to 8
+    xs = torch.nn.functional.pad(torch.from_numpy(x), (0, 3))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        qconv_packed_cuda(xp, port.w_packed_fused, g.kappa, g.lam, g.m,
-                          fh=3, fw=3, stride=1, ho=9, wo=7,
+        qconv_packed_cuda(xs, port.w_packed_fused, g.kappa, g.lam, g.m,
+                          fh=3, fw=3, stride=1, padding=1, cin=5,
                           cin_pad=port.cin_pad, cout=port.cout, a_bits=8,
                           a_signed=False, w_bits=4, d=g.d, out_bits=8)
     # the kernel takes K one CHUNK of one tap at a time: cin_pad must be a
@@ -160,3 +159,41 @@ def test_conv_kernel_wrapper_refuses_cpu_tensors():
                       g.lam, g.m, fh=3, fw=3, stride=1, padding=1,
                       cin_pad=100, cout=port.cout, a_bits=8, a_signed=False,
                       w_bits=4, d=g.d, out_bits=8)
+
+
+@pytest.mark.parametrize("observed", [False, True])
+def test_resnet8_w4a8_forward_copies_only_the_stem(observed):
+    """Of ResNet-8's nine convs at W4A8 only the stem's 3-channel image is
+    copied before the kernel (to 4 channels, 4 KB an image, no border);
+    ``qconv.staged`` / ``qconv.staged_bytes`` say so with observability
+    on, and nothing is recorded with it off."""
+    from repro_torch import obs as obs_pkg
+    from repro_torch.obs import counters as obs_counters
+    from repro_torch.obs import trace as obs
+    from repro_torch.vision import models
+    from repro_torch.vision.configs import get_vision_config
+
+    cfg = get_vision_config("resnet8")
+    fp = models.init_fp(cfg, 0, device="cpu")
+    imgs = np.random.default_rng(3).uniform(0, 1, (2, *cfg.in_hw, 3))
+    absmax = models.collect_absmax(cfg, fp, [imgs.astype(np.float32)])
+    qnet = models.quantize_net(cfg, fp, absmax, default_w_bits=4,
+                               device="cpu")
+    x = models.quantize_input(qnet, imgs)
+    was = obs.enabled()
+    obs_pkg.reset()
+    (obs.enable if observed else obs.disable)()
+    try:
+        models.forward_int(qnet, x)
+        got = obs.counter_values()
+        calls = sum(v["calls"] for k, v in obs_counters.snapshot().items()
+                    if k.startswith("qconv|"))
+    finally:
+        obs_pkg.reset()
+        (obs.enable if was else obs.disable)()
+    if not observed:
+        assert got == {} and calls == 0
+        return
+    assert calls == 9
+    assert got["qconv.staged"] == 1
+    assert got["qconv.staged_bytes"] == 2 * 32 * 32 * 4

@@ -1,13 +1,16 @@
 """The conv kernel's real-channel K order, checked on the CPU.
 
 `conv_k_plan` is the one place that maps the CUDA conv kernel's logical K
-(taps x real channels, cut into stages) to the artifact's packed bytes,
-fields and weight rows; `qconv_k_order_torch` gathers and unpacks through
-its tables exactly as the kernel does. Both are held here against the JAX
-reference (`repro.kernels.api.qconv` with `xla` and `eager_ref`, and the
-numpy direct convolution `qconv2d_ref`) on the reference's own artifact
-bytes, at every width pair, exactly. The kernel itself runs only on the
-card (`test_torch_cuda.py`).
+(taps x real channels, cut into stages) to the image's bytes and fields
+and the artifact's packed weight rows, and so the pixel strides the
+gather takes; `qconv_k_order_torch` gathers and unpacks through its tables
+exactly as the kernel does, on the image the kernel reads (unpadded,
+copied by `conv_staging` / `stage_image` only where the stride rule asks),
+taps outside it as zeros. Both are held here against the JAX reference
+(`repro.kernels.api.qconv` with `xla` and `eager_ref`, and the numpy
+direct convolution `qconv2d_ref`) on the reference's own artifact bytes,
+at every width pair, exactly. The kernel itself runs only on the card
+(`test_torch_cuda.py`).
 """
 import importlib
 
@@ -23,9 +26,10 @@ from repro.kernels.qconv.ref import qconv2d_ref
 from repro.kernels.qmatmul.ref import unpack_np
 from repro_torch.core import packing
 from repro_torch.kernels.qconv.kernel import (MMA_K, conv_k_plan,
-                                              conv_out_hw, conv_stage_k,
-                                              conv_tile_n, pad_and_pack,
-                                              qconv_k_order_torch)
+                                              conv_stage_k, conv_staging,
+                                              conv_tile_n,
+                                              qconv_k_order_torch,
+                                              stage_image)
 from repro_torch.kernels.qmatmul.kernel import k_splits
 
 from torch_bridge import assert_same
@@ -35,13 +39,22 @@ r_q = importlib.import_module("repro.core.quantize")
 # (n, h, w, cin, cout, f, stride, padding): Cin 1 and 3 (many taps per
 # stage), 160 and 200 (two chunks, the second ragged), Cout 10, 48, 200, a
 # 1x1 stride-2 conv, 5x5 convs, and Wo = 7 or 13, which do not divide the
-# kernel's 128-pixel tile
+# kernel's 128-pixel tile; then the border and the pixel strides: Cin 12
+# (copied to 16), 16 (read as it lies) at padding 0 and stride 2, the
+# 1x1/s2/p0 skip at Cin 16, Cin 130 (copied to 144) at padding 2, Cin 200
+# (to 208) at stride 2, and the depthwise per-group cin = cout = 1 conv
 GEOMS = {
     "5x5_cin1_cout10": (2, 9, 7, 1, 10, 5, 1, 2),
     "3x3_cin3_cout48": (2, 11, 9, 3, 48, 3, 1, 1),
     "3x3s2_cin160_cout200": (1, 8, 8, 160, 200, 3, 2, 1),
     "1x1s2_cin200_cout48": (2, 9, 9, 200, 48, 1, 2, 0),
     "5x5_cin3_cout200": (1, 7, 13, 3, 200, 5, 1, 2),
+    "3x3_cin12_cout20": (2, 6, 7, 12, 20, 3, 1, 1),
+    "3x3s2p0_cin16_cout32": (2, 9, 8, 16, 32, 3, 2, 0),
+    "1x1s2p0_cin16_cout32": (2, 8, 8, 16, 32, 1, 2, 0),
+    "3x3p2_cin130_cout24": (1, 6, 5, 130, 24, 3, 1, 2),
+    "3x3s2_cin200_cout16": (1, 7, 7, 200, 16, 3, 2, 1),
+    "3x3s2_cin1_cout1": (2, 8, 8, 1, 1, 3, 2, 1),
 }
 BITS = [(a, w) for a in (8, 4, 2) for w in (8, 4, 2)]
 
@@ -65,26 +78,25 @@ def _layer(geom, a_bits, w_bits):
 
 def _k_order(ref, x, epilogue="int", scale=1.0):
     """The kernel's gather and unpack order in torch, on the reference's
-    artifact bytes."""
+    artifact bytes and the image as the kernel's wrapper hands it over
+    (``x``: numpy, or a torch view, maybe not contiguous)."""
     g = ref.gemm
-    n, h, w_, cin = x.shape
-    ho, wo = conv_out_hw(h, w_, ref.fh, ref.fw, ref.stride, ref.padding)
-    xp = pad_and_pack(torch.from_numpy(x), padding=ref.padding,
-                      cin_pad=ref.cin_pad, a_bits=g.a_bits)
+    x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    cin = x.shape[-1]
+    plan = conv_k_plan(ref.fh, ref.fw, cin, g.a_bits, g.w_bits,
+                       conv_stage_k(ref.cout))
+    staged = conv_staging(x, plan, a_bits=g.a_bits, cin_pad=ref.cin_pad)
+    xs = x if staged is None else stage_image(x, staged, g.a_bits)
     return qconv_k_order_torch(
-        xp, torch.from_numpy(np.array(ref.w_packed_fused)),
+        xs, torch.from_numpy(np.array(ref.w_packed_fused)),
         *(torch.from_numpy(np.array(v)) for v in (g.kappa, g.lam, g.m)),
-        fh=ref.fh, fw=ref.fw, stride=ref.stride, ho=ho, wo=wo, cin=cin,
-        cin_pad=ref.cin_pad, cout=ref.cout, a_bits=g.a_bits,
+        fh=ref.fh, fw=ref.fw, stride=ref.stride, padding=ref.padding,
+        cin=cin, cin_pad=ref.cin_pad, cout=ref.cout, a_bits=g.a_bits,
         a_signed=g.a_signed, w_bits=g.w_bits, d=g.d, out_bits=g.out_bits,
         epilogue=epilogue, scale=scale)
 
 
-@pytest.mark.parametrize("geom", list(GEOMS))
-@pytest.mark.parametrize("a_bits,w_bits", BITS)
-def test_k_order_matches_reference(geom, a_bits, w_bits):
-    ref, x = _layer(geom, a_bits, w_bits)
-    out = _k_order(ref, x)
+def _held_against_reference(ref, x, out):
     xj = jnp.asarray(x)
     for backend in ("xla", "eager_ref"):
         assert_same(out, r_api.qconv(ref, xj, backend=backend), backend)
@@ -96,6 +108,33 @@ def test_k_order_matches_reference(geom, a_bits, w_bits):
                                  np.asarray(g.lam), np.asarray(g.m), g.d,
                                  g.out_bits, stride=ref.stride,
                                  padding=ref.padding), "qconv2d_ref")
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_k_order_matches_reference(geom, a_bits, w_bits):
+    ref, x = _layer(geom, a_bits, w_bits)
+    _held_against_reference(ref, x, _k_order(ref, x))
+
+
+@pytest.mark.parametrize("geom", ["3x3s2_cin1_cout1",
+                                  "3x3s2p0_cin16_cout32",
+                                  "3x3_cin12_cout20"])
+@pytest.mark.parametrize("a_bits,w_bits", BITS)
+def test_k_order_on_a_channel_slice_matches_reference(geom, a_bits,
+                                                      w_bits):
+    """The image a non-contiguous channel slice of a wider one (the
+    depthwise per-group lowering's cin = 1 slices): copied first, then the
+    same result."""
+    ref, x = _layer(geom, a_bits, w_bits)
+    n, h, w_, cin = x.shape
+    wide = np.random.default_rng(cin).integers(
+        0, packing.int_range(a_bits, False)[1] + 1,
+        size=(n, h, w_, cin + 7)).astype(np.int8)
+    wide[..., 3:3 + cin] = x
+    view = torch.from_numpy(wide)[..., 3:3 + cin]
+    assert not view.is_contiguous()
+    _held_against_reference(ref, x, _k_order(ref, view))
 
 
 @pytest.mark.parametrize("epilogue", ["raw", "dequant"])
@@ -167,6 +206,89 @@ def test_plan_contracts_resnet8_widths():
     assert conv_stage_k(64) == 192 and conv_stage_k(200) == 128
 
 
+@pytest.mark.parametrize("cin", [1, 3, 4, 5, 8, 12, 16, 48, 64, 100, 128,
+                                 130, 160, 200, 256])
+@pytest.mark.parametrize("a_bits", [8, 4, 2])
+def test_plan_stride_rule(cin, a_bits):
+    """The pixel strides the gather takes: every copy lies within
+    ``pixel_bytes`` of a pixel and starts on its granule. 8-bit images are
+    read as they lie at Cin 4, 8 and multiples of 16 only, and otherwise
+    take ``min_stride`` bytes, the fewest that fit (Cin 1-4 -> 4, 5-8 ->
+    8, else the next multiple of 16); sub-byte images packed to cin_pad
+    always fit."""
+    plan = conv_k_plan(3, 3, cin, a_bits, 4, 192)
+    sub_a = packing.CHUNK // packing.pack_factor(a_bits)
+    ends = []
+    for seg0, nseg, _, _, a_bytes, gran, _, _ in plan.stages.tolist():
+        assert gran <= plan.granule and a_bytes % gran == 0
+        for _, chunk in plan.segs[seg0:seg0 + nseg].tolist():
+            assert chunk * sub_a % plan.granule == 0
+            ends.append(chunk * sub_a + a_bytes)
+    assert plan.pixel_bytes == max(ends)
+    if a_bits == 8:
+        assert plan.takes_stride(cin) == (cin % 16 == 0 or cin in (4, 8))
+        want = 4 if cin <= 4 else 8 if cin <= 8 else -(-cin // 16) * 16
+        assert plan.min_stride == want and plan.takes_stride(want)
+        assert not any(plan.takes_stride(c) for c in range(cin, want))
+    else:
+        cp = packing.padded_size(cin) // packing.pack_factor(a_bits)
+        assert plan.takes_stride(cp) and plan.min_stride <= cp
+
+
+def _image(cin, layout, n=2, h=5, w=3):
+    """An int8 image of ``cin`` channels: contiguous, a channel slice of a
+    wider one, or contiguous at an address off the 16-byte grid."""
+    numel = n * h * w * cin
+    vals = torch.arange(numel, dtype=torch.int32).remainder(100).to(
+        torch.int8) + 1
+    if layout == "contiguous":
+        return vals.reshape(n, h, w, cin)
+    if layout == "slice":
+        wide = torch.zeros((n, h, w, cin + 5), dtype=torch.int8)
+        wide[..., 2:2 + cin] = vals.reshape(n, h, w, cin)
+        return wide[..., 2:2 + cin]
+    buf = torch.zeros(numel + 32, dtype=torch.int8)
+    off = next(o for o in range(1, 16) if (buf.data_ptr() + o) % 16)
+    buf[off:off + numel] = vals
+    x = buf[off:off + numel].reshape(n, h, w, cin)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    return x
+
+
+@pytest.mark.parametrize("a_bits,cin,layout,want", [
+    (8, 16, "contiguous", None), (8, 4, "contiguous", None),
+    (8, 8, "contiguous", None), (8, 64, "contiguous", None),
+    (8, 144, "contiguous", None),
+    (8, 3, "contiguous", 4), (8, 1, "contiguous", 4),
+    (8, 5, "contiguous", 8), (8, 12, "contiguous", 16),
+    (8, 130, "contiguous", 144), (8, 200, "contiguous", 208),
+    (8, 16, "slice", 16), (8, 1, "slice", 4), (8, 3, "slice", 4),
+    (8, 16, "misaligned", 16), (8, 4, "misaligned", 4),
+    (4, 16, "contiguous", 128), (2, 3, "contiguous", 128),
+    (4, 130, "contiguous", 256), (2, 16, "slice", 128),
+])
+def test_staging_copies_only_what_the_granule_demands(a_bits, cin, layout,
+                                                      want):
+    """Which images the kernel reads as they are (None) and which are
+    copied first, to how many channels; the copy keeps H and W (no
+    border: the kernel supplies it), is contiguous and 16-byte aligned,
+    holds the real channels then zeros, packed chunk-planar below 8 bits,
+    and is a stride the plan takes."""
+    x = _image(cin, layout)
+    plan = conv_k_plan(3, 3, cin, a_bits, 8, 192)
+    cin_pad = packing.padded_size(cin)
+    assert conv_staging(x, plan, a_bits=a_bits, cin_pad=cin_pad) == want
+    if want is None:
+        return
+    xs = stage_image(x, want, a_bits)
+    pf = packing.pack_factor(a_bits)
+    assert tuple(xs.shape) == (*x.shape[:-1], want // pf)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 == 0
+    assert plan.takes_stride(xs.shape[-1])
+    widened = torch.nn.functional.pad(x, (0, want - cin))
+    assert torch.equal(xs, packing.pack(widened, a_bits, axis=-1))
+
+
 def test_conv_tile_is_cout_rounded_to_a_wgmma_width():
     assert [conv_tile_n(c) for c in (3, 10, 16, 17, 48, 64, 70, 200, 256,
                                      300)] == [16, 16, 16, 32, 64, 64, 128,
@@ -185,3 +307,27 @@ def test_k_split_fills_the_card_only_when_tiles_do_not():
         per = -(-stages // splits)
         assert 1 <= splits <= min(stages, 8)
         assert (splits - 1) * per < stages
+
+
+@pytest.mark.parametrize("name", ["qconv", "qmatmul", "qmatmul_segmented"])
+def test_ctypes_binding_matches_the_c_entry_point(name):
+    """Each kernel's ctypes argument types are its C entry point's
+    parameters, one for one: ctypes passes arguments past ``argtypes``
+    unconverted, so a missing entry shifts the stream pointer and
+    crashes the launch on the card."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels.qconv.kernel import KERNEL as qconv
+    from repro_torch.kernels.qmatmul.kernel import KERNEL as qmatmul
+    from repro_torch.kernels.qmatmul.kernel import SEGMENTED_KERNEL
+
+    kernel = {"qconv": qconv, "qmatmul": qmatmul,
+              "qmatmul_segmented": SEGMENTED_KERNEL}[name]
+    src = kernel.source.read_text()
+    params = re.search(r'extern "C" int ' + kernel.entry + r"\((.*?)\)\s*\{",
+                       src, re.S).group(1)
+    ctype = {"int": ctypes.c_int, "float": ctypes.c_float}
+    want = [ctypes.c_void_p if "*" in p else ctype[p.split()[-2]]
+            for p in (q.strip() for q in params.split(","))]
+    assert kernel.argtypes == want
