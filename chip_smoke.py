@@ -180,7 +180,12 @@
    (k+1)-th probability differ by over 1e-6, positions and keep up to the
    first token where they do not) equal, its aux within 1e-5, and the
    forward and 16 decode steps within 1e-3 of the largest CPU logit,
-   greedy tokens equal where the margin exceeds it.
+   greedy tokens equal where the margin exceeds it. Beside the stand-in,
+   kimi-k2-instruct at its published widths (latent attention with
+   YaRN, the dense layer and one MoE layer holding 48 of 384 experts,
+   W4A8): a 2 x 64-token prefill, its latent cache and 4 decode steps,
+   the logits and latents within the benchmark cell's root-mean-square
+   limits of the plain reference's (`tests/plain_ref/mla_moe_lm.py`).
 12. [deploy]: the LM deployment flow, qwen2.5-3b at full width and depth
    from seeded weights drawn on the card. The fp tree (12.4 GB of
    float32) is saved with `repro_torch.ckpt.checkpoint.save` under
@@ -3114,6 +3119,195 @@ def _moe_forward(model, params, tokens):
             [t.cpu() for t in route])
 
 
+KIMI_INSTRUCT_LAYERS = 2      # the dense layer and one MoE layer
+KIMI_INSTRUCT_PROMPT, KIMI_INSTRUCT_STEPS = 64, 4
+# the block's root-mean-square gaps to the plain reference: logits read
+# 0.0073-0.0145 and the latent 0.0011 on an H100 (two runs), with no
+# routing choice upstream of the one MoE layer to flip; the limits are
+# 3.4 and 4.5 times those
+KIMI_INSTRUCT_LOGITS_RTOL, KIMI_INSTRUCT_LATENT_RTOL = 0.05, 0.005
+# tokens routed for the grouped-GEMM check: one call of the benchmark
+# cell (8 x 2048), about 341 rows a held expert
+KIMI_GROUPED_TOKENS = 16384
+
+
+def _plain_reference(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"plain_{name}", ROOT / "tests" / "plain_ref" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kimi_grouped_check(dev, report):
+    """kimi-k2-instruct's held-expert GEMMs on the card: the row counts
+    of a real routing (KIMI_GROUPED_TOKENS random tokens through a random
+    sigmoid / noaux router over the 384 experts, top-8, the 48 of EP rank
+    0 held, then one group emptied), `qmatmul_grouped` W4A8 at wi's (K
+    7168 -> N 2048) and wo's (K 2048 -> N 7168) shapes, both pipelines,
+    bfloat16 and float32 out: every group's rows identical to
+    `qmatmul_packed_torch` on them, with that group's weights and scale
+    (the empty group's none, its neighbours' rows in place)."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.kernels.qmatmul.kernel import (qmatmul_grouped,
+                                                    qmatmul_packed_torch)
+    from repro_torch.nn.mlp import MoeConfig, moe_select
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    d, f, held = 7168, 2048, 48
+    mcfg = MoeConfig(d, f, 384, 8, scoring="sigmoid_noaux", norm_topk=True,
+                     routed_scale=2.827, experts_held=held)
+    router = {"router": torch.randn(d, 384, generator=gen, device=dev)
+              * d ** -0.5,
+              "router_bias": 1e-3 * torch.randn(384, generator=gen,
+                                                device=dev)}
+    tokens = torch.randn(KIMI_GROUPED_TOKENS, d, generator=gen, device=dev)
+    _, idx = moe_select(tokens, router, mcfg)
+    del tokens
+    counts = torch.bincount(idx[idx < held], minlength=held).tolist()
+    counts[1] = 0
+    compared = 0
+    for k, n in ((d, f), (f, d)):
+        x = packing.pack(torch.randint(-127, 128, (sum(counts), k),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int8), 8)
+        w = torch.stack([packing.pack(
+            torch.randint(-8, 8, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8), 4, axis=0)
+            for _ in range(held)])
+        scale = torch.rand(held, n, generator=gen, device=dev) * 1e-3 + 1e-5
+        for out_dtype in (torch.bfloat16, torch.float32):
+            want, start = [], 0
+            for e, c in enumerate(counts):
+                want.append(qmatmul_packed_torch(
+                    x[start:start + c], w[e], None, None, None, a_bits=8,
+                    a_signed=True, w_bits=4, d=0, out_bits=8,
+                    epilogue="dequant", scale=scale[e], out_dtype=out_dtype))
+                start += c
+            for pipeline in ("off", "double_buffer"):
+                got = qmatmul_grouped(x, w, scale, counts, a_bits=8,
+                                      w_bits=4, pipeline=pipeline,
+                                      out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                start = 0
+                for e, c in enumerate(counts):
+                    err = max_abs_err(got[start:start + c],
+                                      want[e]) if c else 0.0
+                    if got.dtype != out_dtype or err != 0.0:
+                        raise AssertionError(
+                            f"[moe] qmatmul_grouped {k}x{n} expert {e} "
+                            f"({c} rows) {pipeline} {out_dtype}: dtype "
+                            f"{got.dtype}, max abs err {err}")
+                    compared += bool(c)
+                    start += c
+        del x, w, scale, want, got
+    say("moe", check="grouped", arch="kimi-k2-instruct", experts=held,
+        tokens=KIMI_GROUPED_TOKENS, rows=sum(counts),
+        rows_min_max=[min(counts), max(counts)], empty_groups=counts.count(0),
+        shapes="7168x2048,2048x7168", w_bits=4, a_bits=8,
+        pipelines="off,double_buffer", out_dtypes="bfloat16,float32",
+        groups_compared=compared, all_exact=True)
+    report["kimi_grouped_check"] = {"counts": counts, "compared": compared}
+
+
+def kimi_instruct_block(dev, report):
+    """Kimi-K2-Instruct at its published widths, the dense layer and one
+    MoE layer holding 48 of the 384 experts (EP rank 0 of 8), served
+    W4A8 from weights drawn on the card: `Model.prefill` of 2 x
+    KIMI_INSTRUCT_PROMPT tokens, its latent into a cache, then
+    KIMI_INSTRUCT_STEPS `Model.decode` steps, every logit row and every
+    layer's latent against the plain reference
+    (`tests/plain_ref/mla_moe_lm.py`): root-mean-square gaps over the
+    reference's root-mean-square within KIMI_INSTRUCT_LOGITS_RTOL and
+    KIMI_INSTRUCT_LATENT_RTOL. Returns the kernels' launch counts over
+    the prefill and the decode steps alone."""
+    import dataclasses
+    import torch
+    from repro_torch.deploy.apply import int_skeleton
+    from repro_torch.launch.convert import convert_params
+    from repro_torch.models import lm
+    from repro_torch.models.api import build, get_config
+    from repro_torch.nn.layers import QOFF, QuantConfig
+    ref = _plain_reference("mla_moe_lm")
+    base = get_config("kimi-k2-instruct")
+    cfg = dataclasses.replace(
+        base, n_layers=KIMI_INSTRUCT_LAYERS, remat=False,
+        moe=dataclasses.replace(base.moe, experts_held=48),
+        quant=QuantConfig(mode="int", w_bits=4, a_bits=8, a_absmax=4.0))
+    rcfg = json.loads((ROOT / "portbench" / "configs" /
+                       "kimi-k2-instruct-w4a8-ep8.json").read_text())
+    rcfg["num_hidden_layers"] = KIMI_INSTRUCT_LAYERS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fp = build(dataclasses.replace(cfg, quant=QOFF)).init(SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    rb = fp["layers"]["moe"]["router_bias"]
+    rb.copy_(1e-3 * torch.randn(rb.shape, generator=gen, device=dev))
+    model = build(cfg)
+    params = convert_params(int_skeleton(model.defs()), fp, 4)
+    total = KIMI_INSTRUCT_PROMPT + KIMI_INSTRUCT_STEPS
+    toks = torch.randint(0, cfg.vocab, (2, total), generator=gen,
+                         device=dev)
+    p = KIMI_INSTRUCT_PROMPT
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.inference_mode():
+        last, kvs = model.prefill(params, {"tokens": toks[:, :p]})
+        cache = lm.cache_from_prefill(cfg, kvs, total)
+        steps = []
+        for t in range(p, total):
+            out, cache = model.decode(params, cache, toks[:, t:t + 1], t)
+            steps.append(out[:, 0, :cfg.vocab].float())
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache
+    seen = {}
+
+    def layer_weights(i):
+        if i < cfg.first_dense_layers:
+            return lm.layer_params(fp["dense_layers"], i)
+        return lm.layer_params(fp["layers"], i - cfg.first_dense_layers)
+
+    (want,) = ref.logits(rcfg, {k: fp[k] for k in ("embed", "final_norm",
+                                                   "head")},
+                         layer_weights, [toks], 8, last_only=False,
+                         on_latent=lambda i, slot, c, pe:
+                         seen.__setitem__(i, (c[:, :p], pe[:, :p])))
+
+    def rms(got, w):
+        return float((got.float() - w.float()).norm() / w.float().norm())
+
+    errs = {"prefill": rms(last[:, 0, :cfg.vocab], want[:, p - 1]),
+            "decode": [rms(o, want[:, p + j]) for j, o in enumerate(steps)],
+            "latent": max(max(rms(kvs[0][i], seen[i][0]),
+                              rms(kvs[1][i], seen[i][1]))
+                          for i in range(cfg.n_layers))}
+    limits = {"logits": KIMI_INSTRUCT_LOGITS_RTOL,
+              "latent": KIMI_INSTRUCT_LATENT_RTOL}
+    within = (max([errs["prefill"]] + errs["decode"]) <= limits["logits"]
+              and errs["latent"] <= limits["latent"])
+    say("moe", kimi_instruct=f"{KIMI_INSTRUCT_LAYERS} of 61 layers, 48 of "
+        "384 experts, W4A8", prompt=f"2x{p}", steps=KIMI_INSTRUCT_STEPS,
+        prefill_rms_rel_err=errs["prefill"],
+        decode_rms_rel_err=errs["decode"],
+        latent_rms_rel_err=errs["latent"], limits=limits,
+        peak_mem_bytes=peak, within=within)
+    report["kimi_instruct_block"] = dict(errs, peak_mem_bytes=peak)
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not within:
+        raise AssertionError(f"[moe] kimi-k2-instruct against the plain "
+                             f"reference: {errs}")
+    require_launches("kimi-k2-instruct", launches, ("qmatmul",),
+                     stages_needed=(1,))
+    report.setdefault("launches", {})["kimi-k2-instruct"] = launches
+    return launches
+
+
 def moe_cpu_check(dev, arch, report):
     """One MoE arch at its full width, MOE_LAYERS layer(s) and
     MOE_CPU_EXPERTS routed experts (top-k kept), float32 params and
@@ -5202,6 +5396,8 @@ def main() -> int:
         by_path[arch] = moe_path(dev, arch, report)
     for arch in MOE_ARCHS:
         moe_cpu_check(dev, arch, report)
+    kimi_grouped_check(dev, report)
+    by_path["kimi-k2-instruct"] = kimi_instruct_block(dev, report)
     mark("moe")
     gc.collect()
     torch.cuda.empty_cache()

@@ -12,17 +12,28 @@ import dataclasses
 from typing import Optional, Tuple
 
 from repro_torch.deploy.policy import PrecisionPlan
-from repro_torch.nn.layers import QOFF, QuantConfig
+from repro_torch.nn.layers import QOFF, QuantConfig, Yarn
 
 
 @dataclasses.dataclass(frozen=True)
 class MoeSpec:
-    n_experts: int
+    n_experts: int             # routed experts the router scores
     top_k: int
     d_ff: int                  # per-expert hidden
     capacity_factor: float = 1.25
     group_size: int = 1024
     shared_expert: bool = True
+    # router: "softmax" (top-k of the softmax) | "sigmoid_noaux"
+    # (DeepSeek-V3's noaux_tc: top-k of sigmoid + a selection-only bias,
+    # the chosen sigmoids as weights)
+    scoring: str = "softmax"
+    norm_topk: bool = False    # chosen weights renormalised to sum 1
+    routed_scale: float = 1.0  # routed_scaling_factor
+    # expert parallelism's share: experts [offset, offset + held) live
+    # here and run dropless, every choice of one computed; 0: the
+    # reference's capacity-dropping dispatch over all n_experts
+    experts_held: int = 0
+    experts_offset: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +61,20 @@ class ModelConfig:
     rope_theta_local: Optional[float] = None
     # MoE
     moe: Optional[MoeSpec] = None
+    # leading dense layers of a MoE arch (first_k_dense_replace), each
+    # with a dense FFN of width dense_d_ff, before the MoE layers
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    # multi-head latent attention (DeepSeek-V3 / Kimi-K2) when
+    # kv_lora_rank > 0: q and kv through low-rank latents, per-head
+    # scores of qk_nope_dim + qk_rope_dim against values of v_head_dim
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN rope scaling (None: plain rope)
+    rope_scaling: Optional[Yarn] = None
     # vision cross-attn: one cross layer after every `cross_every` self
     # layers; n_layers counts both kinds (llama-3.2-vision: 80 self + 20
     # cross)
@@ -79,6 +104,10 @@ class ModelConfig:
     remat: bool = True
     # modality frontend stub (audio/vlm): src embeddings length
     src_len: int = 0
+
+    @property
+    def mla(self) -> bool:
+        return self.kv_lora_rank > 0
 
     @property
     def head_dim_(self):

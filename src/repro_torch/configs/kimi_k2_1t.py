@@ -1,7 +1,12 @@
-"""kimi-k2-1t-a32b [moe] — trillion-param MoE, 384 experts top-8
-[arXiv:2501.kimi2]. 61L, d=7168, 64H (kv=8), expert ff=2048,
-vocab=163840. One full-width layer's routed experts are 33.8 GB of
-bfloat16, so one card serves it with its depth cut (``--layers 1``)."""
+"""kimi-k2-1t-a32b [moe] — the JAX reference's stand-in for Kimi-K2: its
+depth, width, experts and vocabulary (61L, d=7168, 384 experts of 2048,
+top-8, vocab=163840) on grouped-query attention (64 heads, kv=8,
+head_dim 112) with softmax routing and capacity-dropping dispatch, float
+routed experts, copied field for field from the reference. It is not
+Kimi-K2's published block (latent attention, a leading dense layer,
+sigmoid noaux routing): that is `kimi_k2_instruct.py`. One full-width
+layer's routed experts are 33.8 GB of bfloat16, so one card serves it
+with its depth cut (``--layers 1``)."""
 from repro_torch.configs.base import ModelConfig, MoeSpec
 from repro_torch.models.api import register
 

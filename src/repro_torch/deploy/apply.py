@@ -30,8 +30,8 @@ def int_skeleton(defs):
     """The int-mode tree `apply_plan` fills, at no memory: a meta tensor
     per leaf of an int-mode ParamDef tree. `apply_plan` reads only each
     dense's ``w_packed`` shape from it and takes every other leaf from
-    the fp tree, so a float leaf the two trees share (an embedding, a
-    MoE's routed experts) exists once."""
+    the fp tree, so a float leaf the two trees share (an embedding, the
+    float routed experts of a MoE that does not pack them) exists once."""
     if isinstance(defs, dict):
         return {k: int_skeleton(v) for k, v in defs.items()}
     return torch.empty(defs.shape, dtype=defs.dtype, device="meta")
@@ -43,8 +43,10 @@ def apply_plan(q_tree, fp_tree, plan: Optional[PrecisionPlan],
     """Fill an int-mode parameter tree (zeros-initialized `w_packed` /
     `w_scale` leaves) from the fp tree, quantizing each dense at its
     plan-resolved bit-width; ``q_tree`` may be its `int_skeleton`.
-    Stacked layer weights pack along their own K axis. Every other leaf
-    is the fp tree's own tensor."""
+    Stacked layer weights pack along their own K axis, and so do the
+    routed experts of the dropless MoE dispatch (``MoeSpec.experts_held``
+    > 0: dense subtrees stacked (L, E, K, N), each expert on its own
+    grids). Every other leaf is the fp tree's own tensor."""
     if _is_dense_q(q_tree):
         path = "/".join(_path)
         qcfg = QuantConfig(mode="int", w_bits=default_w_bits)

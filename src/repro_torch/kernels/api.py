@@ -60,7 +60,8 @@ from repro_torch.core.quantize import SegmentedLinearParams
 from repro_torch.kernels import tune
 from repro_torch.kernels.common import check_pipeline
 from repro_torch.kernels.qconv.kernel import qconv2d_fused
-from repro_torch.kernels.qmatmul.kernel import (qmatmul_packed,
+from repro_torch.kernels.qmatmul.kernel import (qmatmul_grouped,
+                                                qmatmul_packed,
                                                 qmatmul_segmented)
 from repro_torch.obs import counters as obs_counters
 from repro_torch.obs import env as obsenv
@@ -284,6 +285,30 @@ def int_gemm(x_q: torch.Tensor, w, *, a_bits: int,
                 scale=scale, pipeline=pipeline, k_logical=k_logical,
                 out_dtype=None if epilogue == "raw" else out_dtype))
     return out.reshape(*lead, out.shape[-1])
+
+
+def int_gemm_grouped(x_q: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                     counts, *, a_bits: int, w_bits: int, out_dtype=None,
+                     pipeline: Optional[str] = None,
+                     k_logical: Optional[int] = None) -> torch.Tensor:
+    """`int_gemm` over row groups, each with its own weights (a MoE
+    layer's held experts): group e, ``counts[e]`` rows of ``x_q`` (R,
+    K_pad) in order, against ``w[e]`` (E, K_pad/pf_w, N) and its
+    per-channel ``scale[e]`` (E, N), into one (R, N) output
+    (`qmatmul_grouped`). Each group's rows equal `int_gemm` on them; with
+    observability on each group counts as one ``int_gemm`` call."""
+    xp = packing.pack(x_q, a_bits, axis=-1)
+    pipeline = resolve_pipeline(pipeline)
+    if obs.enabled():
+        backend = device_backend(xp.device)
+        for c in counts:
+            if c:
+                obs_counters.record("int_gemm", (c, k_logical or x_q.shape[-1],
+                                                 w.shape[-1]), a_bits, w_bits,
+                                    backend=backend, pipeline=pipeline)
+    return qmatmul_grouped(xp, w, scale, counts, a_bits=a_bits,
+                           w_bits=w_bits, pipeline=pipeline,
+                           k_logical=k_logical, out_dtype=out_dtype)
 
 
 def qconv(params, x_hat: torch.Tensor, *, epilogue: str = "int", scale=1.0,

@@ -161,10 +161,13 @@ def _launch_packed(x, w_packed, kappa, lam, m_mul,
                    plan: Optional["GemmLaunch"], *, a_bits: int,
                    a_signed: bool, w_bits: int, d: int, out_bits: int,
                    epilogue: str, scale, pipeline: str,
-                   k_logical: Optional[int], out_dtype=None) -> torch.Tensor:
+                   k_logical: Optional[int], out_dtype=None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`qmatmul_packed_cuda` at a given launch ``plan`` (None: the planned
-    one). Tests and measurements pass the launches the plan did not
-    choose; the result does not depend on the plan."""
+    one), into ``out`` (M, N) when given (a contiguous view, such as a
+    run of another output's rows). Tests and measurements pass the
+    launches the plan did not choose; the result does not depend on the
+    plan."""
     stages = PIPELINE_STAGES[check_pipeline(pipeline)]
     dev = x.device
     _check(x, "x", torch.int8, dev, 2)
@@ -175,7 +178,12 @@ def _launch_packed(x, w_packed, kappa, lam, m_mul,
         kappa, lam, m_mul, n=n, d=d, out_bits=out_bits, epilogue=epilogue,
         scale=scale, device=dev)
     dtype = epilogue_dtype(epilogue, out_dtype)
-    out = torch.empty((m, n), dtype=dtype, device=dev)
+    if out is None:
+        out = torch.empty((m, n), dtype=dtype, device=dev)
+    else:
+        _check(out, "out", dtype, dev, 2)
+        if tuple(out.shape) != (m, n):
+            raise ValueError(f"out {tuple(out.shape)}, expected {(m, n)}")
     if m == 0 or n == 0:
         return out
     sms = sm_count(dev)
@@ -221,6 +229,44 @@ def qmatmul_packed(x, w_packed, kappa, lam, m_mul, *, a_bits: int,
     return accounting.packed(
         "qmatmul", macs, (x, w_packed, kappa, lam, m_mul, scale),
         lambda: qmatmul_packed_torch(x, w_packed, kappa, lam, m_mul, **kw))
+
+
+def qmatmul_grouped(x, w_packed, scale, counts, *, a_bits: int,
+                    w_bits: int, pipeline: str = "off",
+                    k_logical: Optional[int] = None,
+                    out_dtype=None) -> torch.Tensor:
+    """Packed GEMMs of row groups with the 'dequant' epilogue: group e,
+    ``counts[e]`` rows of x (R, K_pad/pf_a) in order (signed activations,
+    packed along K), against ``w_packed[e]`` (E, K_pad/pf_w, N) with
+    ``scale[e]`` (E, N) float32 per channel, into its rows of one (R, N)
+    output; a group of no rows runs nothing. Each group is
+    `qmatmul_packed` on its rows: CUDA tensors launch the kernel at its
+    planned launch, writing the group's rows in place; CPU tensors run
+    the plain version."""
+    check_pipeline(pipeline)
+    n_groups, _, n = w_packed.shape
+    if len(counts) != n_groups or sum(counts) != x.shape[0] or \
+            tuple(scale.shape) != (n_groups, n):
+        raise ValueError(f"{len(counts)} groups of {sum(counts)} rows for x "
+                         f"{tuple(x.shape)}, w {tuple(w_packed.shape)}, "
+                         f"scale {tuple(scale.shape)}")
+    dtype = epilogue_dtype("dequant", out_dtype)
+    out = torch.empty((x.shape[0], n), dtype=dtype, device=x.device)
+    kw = dict(a_bits=a_bits, a_signed=True, w_bits=w_bits, d=0,
+              out_bits=8, epilogue="dequant", pipeline=pipeline,
+              k_logical=k_logical, out_dtype=dtype)
+    start = 0
+    for e, c in enumerate(counts):
+        if c:
+            rows = slice(start, start + c)
+            if x.is_cuda:
+                _launch_packed(x[rows], w_packed[e], None, None, None, None,
+                               scale=scale[e], out=out[rows], **kw)
+            else:
+                out[rows] = qmatmul_packed(x[rows], w_packed[e], None, None,
+                                           None, scale=scale[e], **kw)
+        start += c
+    return out
 
 
 # ------------------------------------------------------ launch planning ---

@@ -1,7 +1,8 @@
 """fp LM parameter tree -> packed integer deployment artifact: quantize
-and chunk-planar-pack every dense weight at one uniform width, and emit
-the int-mode parameter tree the serving path consumes (a thin wrapper
-over `repro_torch.deploy.apply.apply_plan` with no plan).
+and chunk-planar-pack every dense weight at one uniform width (the
+held routed experts of a dropless MoE config each along its own K),
+and emit the int-mode parameter tree the serving path consumes (a thin
+wrapper over `repro_torch.deploy.apply.apply_plan` with no plan).
 
 Not to be confused with `repro_torch.convert`, which carries the
 reference's artifacts into the port.

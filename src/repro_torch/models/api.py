@@ -126,8 +126,10 @@ class Model:
 
     def prefill(self, params, batch):
         """Full forward over the prompt; returns last-position logits and
-        the stacked (k, v) of every layer (None for the recurrent, the
-        enc-dec and the vision families)."""
+        the stacked (k, v) of every layer, the latent (c_kv, k_pe) of a
+        latent-attention arch (None for the recurrent, the enc-dec and
+        the vision families); `models/lm.py::cache_from_prefill` puts an
+        ``lm`` prefill's into a decode cache."""
         with _scope():
             logits, _, kvs = self._fns[1](params, batch["tokens"],
                                           self.cfg,

@@ -1,6 +1,6 @@
 """Decoder LM of the dense family (olmo, phi3, qwen2.5, gemma3), the
-Mixture-of-Experts LMs (kimi-k2, llama4) and the vision cross-attention
-LM (llama-3.2-vision).
+Mixture-of-Experts LMs (kimi-k2, llama4, kimi-k2-instruct) and the vision
+cross-attention LM (llama-3.2-vision).
 
 The layer parameters stay stacked, with (L, ...) leaves, so a converted
 reference tree maps onto the port's one to one; a Python loop over the
@@ -11,7 +11,13 @@ per-layer window and rope theta of a pattern schedule (gemma3's 5 local
 projected source embeddings: self layer j of group g is stacked row
 ``g * cross_every + j``. A MoE arch's layers hold a ``moe`` block in
 place of the ``mlp`` one; the forward returns the sum of their Switch
-aux losses.
+aux losses. An arch with ``first_dense_layers`` (kimi-k2-instruct) runs
+those first, from a second stacked tree ``dense_layers`` whose layers
+hold an ``mlp`` of width ``dense_d_ff``, then the MoE layers of
+``layers``. A latent-attention arch (``kv_lora_rank`` > 0, `nn/mla.py`)
+holds an MLA block in every layer's ``attn``; its prefill returns, and
+its decode cache holds, the latent (c_kv, k_pe) of every layer, dense
+layers first, in place of per-head K/V.
 
 Under tensor parallelism (`repro_torch.parallel.tp`, an ambient
 `TPGroup`) every block splits its own work (`nn/attention.py`,
@@ -21,9 +27,13 @@ leader for sampling); the norms and the residual stay replicated on the
 leader. `lm_cuts` is the whole tree's split, which serving places once.
 
 Spans (`repro_torch.obs`) of the prefill forward, one after another:
-``lm/embed``; per meshless dense self layer ``lm/attn.qkv``,
-``lm/attn.core``, ``lm/attn.out`` and ``lm/mlp``; ``lm/head``. Layers
-under tensor parallelism, cross layers and MoE layers open none.
+``lm/embed``; per meshless dense self layer, and per latent-attention
+layer, ``lm/attn.qkv``, ``lm/attn.core``, ``lm/attn.out``, then
+``lm/mlp`` for a dense FFN, or for a dropless MoE block ``lm/moe.route``
+(ln2, router, selection, grouping, the count read), ``lm/moe.experts``
+(the held experts' GEMMs) and ``lm/moe.shared`` (combine, shared expert,
+residual add); ``lm/head``. Layers under tensor parallelism, cross
+layers and the capacity MoE layers open none.
 """
 from __future__ import annotations
 
@@ -41,8 +51,11 @@ from repro_torch.nn.layers import (QOFF, const, dense_apply, dense_col,
                                    embedding_def, embedding_logits,
                                    mask_vocab, norm_apply, norm_def,
                                    padded_vocab, rope_tables, vocab_runs)
+from repro_torch.nn.mla import (MlaConfig, init_latent_cache, mla_core,
+                                mla_decode, mla_def, mla_qkv)
 from repro_torch.nn.mlp import (MlpConfig, MoeConfig, mlp_apply, mlp_cuts,
-                                mlp_def, moe_apply, moe_cuts, moe_def)
+                                mlp_def, moe_apply, moe_cuts, moe_def,
+                                moe_held_apply)
 from repro_torch.nn.module import stack_defs
 from repro_torch.obs import trace as obs
 from repro_torch.parallel import tp
@@ -56,8 +69,16 @@ def _attn_cfg(cfg: ModelConfig, path: str = "layers/attn") -> AttnConfig:
                       qcfg=cfg.quant, plan=cfg.quant_plan, path=path)
 
 
+def _mla_cfg(cfg: ModelConfig, path: str = "layers/attn") -> MlaConfig:
+    return MlaConfig(cfg.d_model, cfg.n_heads, cfg.q_lora_rank,
+                     cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim, cfg.rope_theta, cfg.rope_scaling,
+                     cfg.quant, cfg.quant_plan, path)
+
+
 def _mlp_cfg(cfg: ModelConfig, path: str = "layers/mlp") -> MlpConfig:
-    return MlpConfig(cfg.d_model, cfg.d_ff, cfg.act, cfg.quant,
+    d_ff = cfg.dense_d_ff if path.startswith("dense_layers/") else cfg.d_ff
+    return MlpConfig(cfg.d_model, d_ff, cfg.act, cfg.quant,
                      cfg.quant_plan, path)
 
 
@@ -65,17 +86,22 @@ def _moe_cfg(cfg: ModelConfig, path: str = "layers/moe") -> MoeConfig:
     m = cfg.moe
     return MoeConfig(cfg.d_model, m.d_ff, m.n_experts, m.top_k,
                      m.capacity_factor, m.group_size, m.shared_expert,
-                     cfg.act, cfg.quant, cfg.quant_plan, path)
+                     cfg.act, cfg.quant, cfg.quant_plan, path, m.scoring,
+                     m.norm_topk, m.routed_scale, m.experts_held,
+                     m.experts_offset)
 
 
-def _layer_def(cfg: ModelConfig, dtype):
+def _layer_def(cfg: ModelConfig, dtype, stack: str = "layers"):
+    """One layer of the ``stack`` tree (``layers``, or ``dense_layers``
+    whose FFN is always a dense MLP)."""
     p = {"ln1": norm_def(cfg.d_model, cfg.norm, dtype),
-         "attn": attn_def(_attn_cfg(cfg), dtype),
+         "attn": (mla_def(_mla_cfg(cfg, f"{stack}/attn"), dtype) if cfg.mla
+                  else attn_def(_attn_cfg(cfg, f"{stack}/attn"), dtype)),
          "ln2": norm_def(cfg.d_model, cfg.norm, dtype)}
-    if cfg.moe is not None:
+    if cfg.moe is not None and stack == "layers":
         p["moe"] = moe_def(_moe_cfg(cfg), dtype)
     else:
-        p["mlp"] = mlp_def(_mlp_cfg(cfg), dtype)
+        p["mlp"] = mlp_def(_mlp_cfg(cfg, f"{stack}/mlp"), dtype)
     return p
 
 
@@ -88,18 +114,29 @@ def _cross_layer_def(cfg: ModelConfig, dtype):
 
 def _layer_split(cfg: ModelConfig):
     """(self layers, cross layers): n_layers counts both kinds, one cross
-    layer after every ``cross_every`` self layers (100 -> (80, 20))."""
+    layer after every ``cross_every`` self layers (100 -> (80, 20)), and
+    the leading dense layers, which neither counts."""
     if cfg.cross_every:
         n_cross = cfg.n_layers // (cfg.cross_every + 1)
         return cfg.n_layers - n_cross, n_cross
-    return cfg.n_layers, 0
+    return cfg.n_layers - cfg.first_dense_layers, 0
 
 
 def lm_def(cfg: ModelConfig, dtype=torch.float32):
+    if cfg.rope_scaling is not None and not cfg.mla:
+        raise NotImplementedError(f"{cfg.name}: rope scaling is served on "
+                                  "latent attention only")
+    if cfg.first_dense_layers and (cfg.moe is None or not cfg.mla):
+        raise NotImplementedError(f"{cfg.name}: leading dense layers are "
+                                  "served before MoE layers of latent "
+                                  "attention only")
     n_self, n_cross = _layer_split(cfg)
     p = {"embed": embedding_def(cfg.vocab, cfg.d_model, dtype),
          "layers": stack_defs(_layer_def(cfg, dtype), n_self),
          "final_norm": norm_def(cfg.d_model, cfg.norm, dtype)}
+    if cfg.first_dense_layers:
+        p["dense_layers"] = stack_defs(
+            _layer_def(cfg, dtype, "dense_layers"), cfg.first_dense_layers)
     if n_cross:
         p["cross_layers"] = stack_defs(_cross_layer_def(cfg, dtype), n_cross)
     if not cfg.tie_embeddings:
@@ -181,34 +218,49 @@ def _cross_mlp(cfg, xp, x, h):
                          _mlp_cfg(cfg, "cross_layers/mlp"))
 
 
-def _ffn(cfg: ModelConfig, lp, x):
+def _ffn(cfg: ModelConfig, lp, x, stack: str = "layers"):
     """A self layer's FFN block on the residual ``x``: (x + its output,
-    the block's aux loss, a float32 0-dim tensor or 0.0 for a dense
-    MLP)."""
+    the block's aux loss, a float32 0-dim tensor or 0.0 for a dense MLP
+    or a dropless MoE block, which opens its spans: module docstring).
+    ``stack`` names the layer's tree (``dense_layers``: the MLP at
+    ``dense_d_ff``)."""
+    if "moe" in lp and cfg.moe.experts_held:
+        with obs.span("lm/moe.route"):
+            h = norm_apply(lp.get("ln2", {}), x, cfg.norm)
+        y = moe_held_apply(lp["moe"], h, _moe_cfg(cfg))
+        with obs.span("lm/moe.shared"):
+            return x + y, 0.0
     h = norm_apply(lp.get("ln2", {}), x, cfg.norm)
-    if cfg.moe is not None:
+    if "moe" in lp:
         y, aux = moe_apply(lp["moe"], h, _moe_cfg(cfg))
         return x + y, aux
-    return x + mlp_apply(lp["mlp"], h, _mlp_cfg(cfg)), 0.0
+    return x + mlp_apply(lp["mlp"], h, _mlp_cfg(cfg, f"{stack}/mlp")), 0.0
 
 
 def _ropes(cfg: ModelConfig, seq_len: int, dtype, device):
     """(global, local) rope tables (cos, sin) over ``seq_len`` positions;
     the local ones are the global ones when the arch has no local
-    theta."""
-    glob = rope_tables(seq_len, cfg.head_dim_, cfg.rope_theta, dtype, device)
-    loc = (rope_tables(seq_len, cfg.head_dim_, cfg.rope_theta_local, dtype,
+    theta. A latent-attention arch rotates its qk_rope_dim part, with
+    YaRN where the config scales rope."""
+    dim = cfg.qk_rope_dim if cfg.mla else cfg.head_dim_
+    glob = rope_tables(seq_len, dim, cfg.rope_theta, dtype, device,
+                       cfg.rope_scaling)
+    loc = (rope_tables(seq_len, dim, cfg.rope_theta_local, dtype,
                        device) if cfg.rope_theta_local else glob)
     return glob, loc
 
 
-def _block(cfg: ModelConfig, lp, x, cos, sin, window):
+def _block(cfg: ModelConfig, lp, x, cos, sin, window, stack="layers"):
     """One pre-norm self layer on the residual ``x`` with layer params
-    ``lp``: (x, its aux loss, (k, v)). The forward and the calibration
-    replay (`deploy/calibrate.py`) both run it. A meshless dense layer
-    runs its four parts in their spans (module docstring)."""
+    ``lp`` of the ``stack`` tree: (x, its aux loss, (k, v), or the latent
+    (c_kv, k_pe) of a latent-attention layer). The forward and the
+    calibration replay (`deploy/calibrate.py`) both run it. A meshless
+    dense layer and every latent-attention layer run their parts in
+    their spans (module docstring)."""
+    if cfg.mla:
+        return _mla_block(cfg, lp, x, cos, sin, stack)
     acfg = _attn_cfg(cfg)
-    if cfg.moe is not None or tp.tp_group() is not None:
+    if "moe" in lp or tp.tp_group() is not None:
         h, kv = attn_apply(lp["attn"],
                            norm_apply(lp.get("ln1", {}), x, cfg.norm), acfg,
                            cos=cos, sin=sin, mode="local", window=window)
@@ -223,8 +275,27 @@ def _block(cfg: ModelConfig, lp, x, cos, sin, window):
     with obs.span("lm/attn.out"):
         x = x + dense_apply(lp["attn"]["wo"], out, qcfg=acfg.q("wo"))
     with obs.span("lm/mlp"):
-        x, aux = _ffn(cfg, lp, x)
+        x, aux = _ffn(cfg, lp, x, stack)
     return x, aux, (k, v)
+
+
+def _mla_block(cfg: ModelConfig, lp, x, cos, sin, stack: str):
+    mcfg = _mla_cfg(cfg, f"{stack}/attn")
+    with obs.span("lm/attn.qkv"):
+        q, k, v, c_kv, k_pe = mla_qkv(
+            lp["attn"], norm_apply(lp.get("ln1", {}), x, cfg.norm), mcfg,
+            cos=cos, sin=sin)
+    with obs.span("lm/attn.core"):
+        out = mla_core(q, k, v, mcfg)
+        del q, k, v
+    with obs.span("lm/attn.out"):
+        x = x + dense_apply(lp["attn"]["wo"], out, qcfg=mcfg.q("wo"))
+    if "moe" in lp:
+        x, aux = _ffn(cfg, lp, x, stack)
+    else:
+        with obs.span("lm/mlp"):
+            x, aux = _ffn(cfg, lp, x, stack)
+    return x, aux, (c_kv, k_pe)
 
 
 def _cross_block(cfg: ModelConfig, xp, x, src, acfg_x):
@@ -236,12 +307,13 @@ def _cross_block(cfg: ModelConfig, xp, x, src, acfg_x):
 
 
 def _order(cfg: ModelConfig):
-    """The layer order: ("self", i) | ("cross", g) over the stacked
-    indices; a vision arch's group g is self rows g*ce .. g*ce + ce - 1,
-    then cross layer g."""
+    """The layer order: ("dense", i) | ("self", i) | ("cross", g) over
+    the stacked indices; the leading dense layers first; a vision arch's
+    group g is self rows g*ce .. g*ce + ce - 1, then cross layer g."""
     n_self, n_cross = _layer_split(cfg)
     if not n_cross:
-        return [("self", i) for i in range(n_self)]
+        return ([("dense", i) for i in range(cfg.first_dense_layers)]
+                + [("self", i) for i in range(n_self)])
     ce = cfg.cross_every
     out = []
     for g in range(n_cross):
@@ -249,12 +321,16 @@ def _order(cfg: ModelConfig):
     return out
 
 
+_STACK = {"dense": "dense_layers", "self": "layers"}
+
+
 def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
             collect_kv: bool = False):
     """Prefill forward. tokens (B,S) -> logits (B,S,V). ``src_embed``
     (B, S_src, d): the frontend's embeddings a vision arch attends into.
-    Returns (logits, aux_loss, (k, v) stacked (L,B,S,Hk,Dh), or None when
-    not collected or for a vision arch)."""
+    Returns (logits, aux_loss, (k, v) stacked (L,B,S,Hk,Dh), for a
+    latent-attention arch (c_kv (L,B,S,rkv), k_pe (L,B,S,rope)), or None
+    when not collected or for a vision arch)."""
     dtype = _compute_dtype(cfg)
     s = tokens.shape[1]
     with obs.span("lm/embed"):
@@ -269,17 +345,21 @@ def forward(params, tokens, cfg: ModelConfig, *, src_embed=None,
             src = src_embed.to(dtype)
         sched = _schedule(cfg, s)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
-        layers = unstack_layers(params["layers"])
+        stacks = {"self": unstack_layers(params["layers"])}
+        if cfg.first_dense_layers:
+            stacks["dense"] = unstack_layers(params["dense_layers"])
         xlayers = unstack_layers(params["cross_layers"]) if cross else []
     ks, vs = [], []
+    j = 0                          # attention layers so far (dense, self)
     for kind, i in _order(cfg):
         if kind == "cross":
             x = remat(cfg, _cross_block, cfg, xlayers[i], x, src, acfg_x)
             continue
-        window, local_rope = sched[i]
+        window, local_rope = sched[j]
         cos, sin = loc if local_rope else glob
-        x, a, (k, v) = remat(cfg, _block, cfg, layers[i], x, cos, sin,
-                             window)
+        x, a, (k, v) = remat(cfg, _block, cfg, stacks[kind][i], x, cos, sin,
+                             window, _STACK[kind])
+        j += 1
         aux = aux + a
         if collect_kv:
             ks.append(k)
@@ -317,9 +397,17 @@ def vocab_cuts(cfg: ModelConfig, m: int):
     return out
 
 
+def _no_tp(cfg: ModelConfig):
+    if cfg.mla or (cfg.moe is not None and cfg.moe.experts_held):
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention and the dropless MoE dispatch "
+            "have no tensor-parallel layout")
+
+
 def lm_cache_cuts(cfg: ModelConfig, cache, mesh):
     """The `Cut` tree of a decode cache (`lm_init_cache`) over
     ``mesh``'s model positions."""
+    _no_tp(cfg)
     c = kv_cache_cut(_attn_cfg(cfg), cache["kv"]["k"].shape, mesh)
     out = {"kv": {"k": c, "v": c}}
     if "cross_kv" in cache:
@@ -331,6 +419,7 @@ def lm_cache_cuts(cfg: ModelConfig, cache, mesh):
 def lm_cuts(cfg: ModelConfig, m: int):
     """The `Cut` tree of an ``lm`` params tree over ``m`` model
     positions."""
+    _no_tp(cfg)
     layer = {"attn": attn_cuts(_attn_cfg(cfg), m)}
     if cfg.moe is not None:
         layer["moe"] = moe_cuts(_moe_cfg(cfg), m)
@@ -351,8 +440,17 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """{"kv": {k, v} of (n_self, B, max_len, Hk, Dh)}, and for a vision
     arch "cross_kv" (n_cross, 2, B, src_len, Hk, Dh): the source K/V each
     cross layer attends into (filled by `cross_kv_project`; zero
-    otherwise)."""
+    otherwise). A latent-attention arch: {"latent": {c_kv (L, B,
+    max_len, rkv), k_pe (L, B, max_len, rope)}} over every layer, the
+    leading dense ones first."""
     n_self, n_cross = _layer_split(cfg)
+    if cfg.mla:
+        one = init_latent_cache(_mla_cfg(cfg), batch, max_len, dtype,
+                                device)
+        n = n_self + cfg.first_dense_layers
+        return {"latent": {k: torch.zeros((n,) + a.shape, dtype=a.dtype,
+                                          device=a.device)
+                           for k, a in one.items()}}
     acfg = _attn_cfg(cfg)
     one = init_cache(acfg, batch, max_len, dtype, device)
     cache = {"kv": {k: torch.zeros((n_self,) + a.shape, dtype=a.dtype,
@@ -383,6 +481,8 @@ def decode_step(params, cache, token, index, cfg: ModelConfig, *,
     cross layers read ``cache["cross_kv"]`` as it is (``src_embed`` is
     not read: the cache carries the source). A MoE layer's aux loss is
     dropped. Returns (logits (B,1,V), cache)."""
+    if cfg.mla:
+        return _decode_mla(params, cache, token, index, cfg)
     dtype = _compute_dtype(cfg)
     max_len = tp.full_len(cache["kv"]["k"], -3)
     x = _embed(params, token, cfg, dtype)
@@ -411,3 +511,35 @@ def decode_step(params, cache, token, index, cfg: ModelConfig, *,
         x, _ = _ffn(cfg, lp, x + h)
     x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
     return _logits(params, x, cfg), cache
+
+
+def _decode_mla(params, cache, token, index, cfg: ModelConfig):
+    """`decode_step` of a latent-attention arch over its latent cache."""
+    x = _embed(params, token, cfg, _compute_dtype(cfg))
+    for j, (kind, i) in enumerate(_order(cfg)):
+        stack = _STACK[kind]
+        lp = layer_params(params[stack], i)
+        h, _ = mla_decode(lp["attn"],
+                          norm_apply(lp.get("ln1", {}), x, cfg.norm),
+                          layer_params(cache["latent"], j), index,
+                          _mla_cfg(cfg, f"{stack}/attn"))
+        x, _ = _ffn(cfg, lp, x + h, stack)
+    x = norm_apply(params.get("final_norm", {}), x, cfg.norm)
+    return _logits(params, x, cfg), cache
+
+
+def cache_from_prefill(cfg: ModelConfig, kvs, max_len: int,
+                       dtype=torch.bfloat16):
+    """The latent decode cache of a latent-attention arch, ``max_len``
+    positions, holding what `Model.prefill` returned for a (B, S) prompt
+    (its ``kvs``: c_kv, k_pe) at positions [0, S); decoding goes on at
+    position S."""
+    if not cfg.mla:
+        raise NotImplementedError(f"{cfg.name}: a prefill fills the latent "
+                                  "cache of latent attention only")
+    c_kv, k_pe = kvs
+    cache = lm_init_cache(cfg, c_kv.shape[1], max_len, dtype, c_kv.device)
+    s = c_kv.shape[2]
+    cache["latent"]["c_kv"][:, :, :s] = c_kv
+    cache["latent"]["k_pe"][:, :, :s] = k_pe
+    return cache

@@ -117,15 +117,17 @@ def attn_strategy(hk: int, groups: int, s_len: int, t_len: int,
     return "none"
 
 
-def _sdpa(q, k, v, mask):
-    """q: (B,S,Hk,G,Dh), k/v: (B,T,Hk,Dh), mask broadcastable to
-    (B,Hk,G,S,T). Scores in float32 (the reference's
-    preferred_element_type; a bf16 product is exact in float32), float32
-    softmax, values in v's dtype."""
+def _sdpa(q, k, v, mask, scale=None):
+    """q: (B,S,Hk,G,Dh), k: (B,T,Hk,Dh), v: (B,T,Hk,Dv) (Dv may differ
+    from Dh, as in latent attention), mask broadcastable to (B,Hk,G,S,T).
+    Scores in float32 (the reference's preferred_element_type; a bf16
+    product is exact in float32) times ``scale`` (default Dh^-0.5),
+    float32 softmax, values in v's dtype."""
     dh = q.shape[-1]
     scores = torch.einsum("bshgd,bthd->bhgst", q.to(torch.float32),
                           k.to(torch.float32))
-    scores = torch.where(mask, scores * (dh ** -0.5), NEG_INF)
+    scores = torch.where(mask, scores * (dh ** -0.5 if scale is None
+                                         else scale), NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhgst,bthd->bshgd", probs.to(v.dtype), v)
 
@@ -179,12 +181,13 @@ def attn_qkv(p, x, cfg: AttnConfig, *, cos, sin, cross_kv=None):
     return q.reshape(b, s, hk, g, dh), k, v
 
 
-def attn_core(q, k, v, *, mode, window):
+def attn_core(q, k, v, *, mode, window, scale=None):
     """`attn_apply`'s meshless attention over `attn_qkv`'s q, k, v: the
-    mask, scores, softmax and values, (B,S,H*Dh) in v's dtype."""
+    mask, scores (times ``scale``, as `_sdpa`), softmax and values,
+    (B,S,H*Dv) in v's dtype."""
     b, s = q.shape[:2]
     mask = _mask_full(s, k.shape[1], mode, window, q.device)
-    return _sdpa(q, k, v, mask[None, None, None]).reshape(b, s, -1)
+    return _sdpa(q, k, v, mask[None, None, None], scale).reshape(b, s, -1)
 
 
 def cross_kv_project(p, src, cfg: AttnConfig):

@@ -15,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 from typing import Callable, Optional
 
 import torch
@@ -153,9 +154,21 @@ def dense_finish(p, acc, *, qcfg: QuantConfig, out_dtype):
     one round-to-nearest-even cast), or the float32 sum cast; then the
     bias."""
     if qcfg.mode == "int":
-        acc = (acc.to(torch.float32) * _dequant_scale(p, qcfg, acc.device)
+        acc = (acc.to(torch.float32) * dequant_scale(p, qcfg, acc.device)
                ).to(out_dtype)
     return _bias(p, acc.to(out_dtype))
+
+
+def quantize_activations(x, qcfg: QuantConfig) -> torch.Tensor:
+    """x (..., K) -> int8 codes (..., K_pad) on the signed a_bits grid of
+    static scale absmax / a_max (A8 caps at ±127), K zero-padded to
+    CHUNK: the int dense layer's input (`_int_matmul`)."""
+    absmax = qcfg.a_absmax or 4.0
+    a_max = packing.int_range(qcfg.a_bits, True)[1]  # A8 caps at 127
+    a_scale = const(absmax / a_max, torch.float32, x.device)
+    x_q = torch.clamp(torch.round(x.to(torch.float32) / a_scale), -a_max,
+                      a_max).to(torch.int8)
+    return packing.pad_to_chunk(x_q, axis=-1)
 
 
 # ------------------------------------------- dense over the model axis ---
@@ -243,7 +256,7 @@ def _rounded(v: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(v, dtype=dtype))
 
 
-def _dequant_scale(p, qcfg: QuantConfig, device):
+def dequant_scale(p, qcfg: QuantConfig, device):
     """w_scale x a_scale in float32, a_scale first rounded to w_scale's
     dtype (`_int_matmul`)."""
     a_max = packing.int_range(qcfg.a_bits, True)[1]
@@ -271,14 +284,9 @@ def _int_matmul(p, x, qcfg: QuantConfig, epilogue: str = "dequant"):
     from repro_torch.core.quantize import SegmentedLinearParams
     from repro_torch.kernels.api import int_gemm
 
-    absmax = qcfg.a_absmax or 4.0
-    a_max = packing.int_range(qcfg.a_bits, True)[1]  # A8 caps at 127
-    a_scale = const(absmax / a_max, torch.float32, x.device)
     k_logical = x.shape[-1]
-    x_q = torch.clamp(torch.round(x.to(torch.float32) / a_scale), -a_max,
-                      a_max).to(torch.int8)
-    x_q = packing.pad_to_chunk(x_q, axis=-1)
-    scale = (_dequant_scale(p, qcfg, x.device) if epilogue == "dequant"
+    x_q = quantize_activations(x, qcfg)
+    scale = (dequant_scale(p, qcfg, x.device) if epilogue == "dequant"
              else 1.0)
     if qcfg.segments is not None:
         w = SegmentedLinearParams(
@@ -455,21 +463,75 @@ def norm_apply(p, x, kind: str = "rmsnorm", eps: float = 1e-6):
 
 # ----------------------------------------------------------------- rope ---
 
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN rope scaling (arXiv:2309.00071) with the keys of a
+    ``rope_scaling`` of type ``yarn``, as DeepSeek-V3's public
+    ``modeling_deepseek.py`` computes it: pairs rotating fewer than
+    ``beta_slow`` times over ``original_max_position`` positions are
+    interpolated by ``factor``, pairs rotating more than ``beta_fast``
+    times keep their frequency, a linear ramp between; cos / sin scale
+    by mscale(factor, mscale) / mscale(factor, mscale_all_dim)."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    def attention_factor(self) -> float:
+        return (yarn_mscale(self.factor, self.mscale)
+                / yarn_mscale(self.factor, self.mscale_all_dim))
+
+
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_correction_range(yarn: Yarn, dim: int, theta: float):
+    """(low, high) rope pairs of the ramp (``yarn_find_correction_range``)."""
+    def pair(rotations):
+        return (dim * math.log(yarn.original_max_position
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(pair(yarn.beta_fast)), 0),
+            min(math.ceil(pair(yarn.beta_slow)), dim - 1))
+
+
 @functools.lru_cache(maxsize=64)
-def _freqs(theta: float, half: int, device: torch.device) -> torch.Tensor:
+def _freqs(theta: float, half: int, device: torch.device,
+           yarn: Optional[Yarn] = None) -> torch.Tensor:
     """theta ** (-i / half) in float32, made once per (theta, half,
-    device)."""
-    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+    device, yarn); under ``yarn`` the pairs past the ramp divided by its
+    factor."""
+    base = torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
                      -torch.arange(0, half, dtype=torch.float32,
                                    device=device) / half)
+    if yarn is None:
+        return base
+    lo, hi = yarn_correction_range(yarn, 2 * half, theta)
+    if lo == hi:
+        hi += 0.001
+    ramp = torch.clamp((torch.arange(half, dtype=torch.float32,
+                                     device=device) - lo) / (hi - lo), 0, 1)
+    keep = 1.0 - ramp
+    return base / yarn.factor * (1 - keep) + base * keep
+
+
+def _scaled(t, yarn: Optional[Yarn]):
+    """cos / sin times YaRN's attention factor (none when it is 1)."""
+    f = 1.0 if yarn is None else yarn.attention_factor()
+    return t if f == 1.0 else t * f
 
 
 def rope_tables(seq_len: int, head_dim: int, theta: float = 10000.0,
-                dtype=torch.float32, device="cpu"):
-    freqs = _freqs(float(theta), head_dim // 2, torch.device(device))
+                dtype=torch.float32, device="cpu",
+                yarn: Optional[Yarn] = None):
+    freqs = _freqs(float(theta), head_dim // 2, torch.device(device), yarn)
     t = torch.arange(seq_len, dtype=torch.float32, device=device)
     ang = torch.outer(t, freqs)            # (S, half)
-    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+    return (_scaled(torch.cos(ang), yarn).to(dtype),
+            _scaled(torch.sin(ang), yarn).to(dtype))
 
 
 def _rotate(x, c, s):
@@ -490,20 +552,21 @@ def rope_apply_at(x, cos, sin, positions):
                    sin[positions][:, None, None, :])
 
 
-def rope_single(x, position, theta):
+def rope_single(x, position, theta, yarn: Optional[Yarn] = None):
     """Table-free decode RoPE: x (B,1,H,Dh); position a scalar (wave
     decode: every row at the same step) or a (B,) vector (each slot at its
     own position). The per-element math is the same in both forms, so an
-    all-equal vector gives the scalar's result bit for bit."""
+    all-equal vector gives the scalar's result bit for bit, and the
+    tables' at that position."""
     half = x.shape[-1] // 2
-    freqs = _freqs(float(theta), half, x.device)
+    freqs = _freqs(float(theta), half, x.device, yarn)
     if not torch.is_tensor(position) or position.dim() == 0:
         # float32(position) * freqs, with no tensor made from the host
         ang = freqs * float(position)                          # (half,)
-        c = torch.cos(ang).to(x.dtype)[None, None, None, :]
-        s = torch.sin(ang).to(x.dtype)[None, None, None, :]
+        c = _scaled(torch.cos(ang), yarn).to(x.dtype)[None, None, None, :]
+        s = _scaled(torch.sin(ang), yarn).to(x.dtype)[None, None, None, :]
     else:
         ang = position.to(torch.float32)[:, None] * freqs      # (B, half)
-        c = torch.cos(ang).to(x.dtype)[:, None, None, :]
-        s = torch.sin(ang).to(x.dtype)[:, None, None, :]
+        c = _scaled(torch.cos(ang), yarn).to(x.dtype)[:, None, None, :]
+        s = _scaled(torch.sin(ang), yarn).to(x.dtype)[:, None, None, :]
     return _rotate(x, c, s)

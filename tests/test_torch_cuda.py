@@ -861,6 +861,41 @@ def test_qmatmul_moe_shapes_match_plain(dev, w_bits, pipeline):
 
 
 @pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
+@pytest.mark.parametrize("w_bits", [8, 4])
+def test_qmatmul_grouped_matches_each_group_plain(dev, w_bits, pipeline):
+    """kimi-k2-instruct's held experts: row groups of 341, 0, 130, 512
+    and 1 rows against their own weights (K 7168 -> N 2048, K 2048 -> N
+    7168 with a ragged K 2000 zero-padded, as the dense layer pads it),
+    each group's rows equal to the plain version's on them, bf16 and
+    float32 out."""
+    gen = torch.Generator(device=dev).manual_seed(40 + w_bits)
+    counts = [341, 0, 130, 512, 1]
+    for k, n, k_logical in ((7168, 2048, 7168), (2048, 7168, 2000)):
+        xi = _dev_ints(gen, 8, (sum(counts), k))
+        xi[:, k_logical:] = 0
+        x = packing.pack(xi, 8)
+        ws = [_dev_ints(gen, w_bits, (k, n)) for _ in counts]
+        for wi in ws:
+            wi[k_logical:] = 0
+        w = torch.stack([packing.pack(wi, w_bits, axis=0) for wi in ws])
+        scale = torch.rand(len(counts), n, generator=gen,
+                           device=dev) * 1e-3 + 1e-5
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = gemm_k.qmatmul_grouped(
+                x, w, scale, counts, a_bits=8, w_bits=w_bits,
+                pipeline=pipeline, k_logical=k_logical, out_dtype=out_dtype)
+            start = 0
+            for e, c in enumerate(counts):
+                want = gemm_k.qmatmul_packed_torch(
+                    x[start:start + c], w[e], None, None, None, a_bits=8,
+                    a_signed=True, w_bits=w_bits, d=0, out_bits=8,
+                    epilogue="dequant", scale=scale[e], k_logical=k_logical,
+                    out_dtype=out_dtype)
+                assert _same(got[start:start + c], want), (k, e, out_dtype)
+                start += c
+
+
+@pytest.mark.parametrize("pipeline", ["off", "double_buffer"])
 @pytest.mark.parametrize("k,n", [(7168, 2048), (5120, 8192)])
 def test_qmatmul_segmented_moe_shared_plan_matches_plain(dev, k, n,
                                                          pipeline):

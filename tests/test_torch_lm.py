@@ -304,20 +304,34 @@ def test_other_families_raise_naming_the_roadmap():
     assert defs["layers"]["moe"]["wi"].shape == (2, 4, 64, 64)
     with pytest.raises(NotImplementedError, match="not in the reference"):
         p_api.build(dataclasses.replace(cfg, family="diffusion"))
-    assert p_api.list_archs() == r_api.list_archs() == [
+    assert r_api.list_archs() == [
         "gemma3-1b", "kimi-k2-1t-a32b", "llama-3.2-vision-90b",
         "llama4-maverick-400b-a17b", "mamba2-370m", "olmo-1b",
         "phi3-mini-3.8b", "qwen2.5-3b", "recurrentgemma-9b",
         "seamless-m4t-large-v2"]
+    # the port adds Kimi-K2-Instruct's published block
+    assert p_api.list_archs() == sorted(r_api.list_archs()
+                                        + ["kimi-k2-instruct"])
     # the published numbers and the smoke configs, copied unchanged (a
-    # MoeSpec field by field: the two packages' classes differ)
-    for name in p_api.list_archs():
+    # MoeSpec field by field: the two packages' classes differ); the
+    # fields only the port has (latent attention, leading dense layers,
+    # YaRN, the dropless dispatch) keep their defaults there
+    for name in r_api.list_archs():
         for r, p in ((r_api.get_config(name), p_api.get_config(name)),
                      (r_api.get_smoke_config(name),
                       p_api.get_smoke_config(name))):
             for f in dataclasses.fields(p):
-                if f.name not in ("quant", "quant_plan"):
-                    a, b = getattr(p, f.name), getattr(r, f.name)
-                    if f.name == "moe" and a is not None:
-                        a, b = dataclasses.asdict(a), dataclasses.asdict(b)
-                    assert a == b, (name, f.name)
+                if f.name in ("quant", "quant_plan"):
+                    continue
+                a = getattr(p, f.name)
+                if not hasattr(r, f.name):
+                    assert a == f.default, (name, f.name)
+                    continue
+                b = getattr(r, f.name)
+                if f.name == "moe" and a is not None:
+                    a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+                    for k in set(a) - set(b):
+                        assert a.pop(k) == next(
+                            g.default for g in dataclasses.fields(
+                                p.moe) if g.name == k), (name, k)
+                assert a == b, (name, f.name)
