@@ -40,6 +40,12 @@ eq. 2-4 pipeline at its local shape and the result equals one device's
 exactly, with no reduction across shards. Pipeline and launch resolve on
 the local shape; the op counters count the global one.
 
+**Attention** (`attention`): the fused attention kernel
+(``csrc/attn.cu``), which raises on a call it cannot take;
+`attention_takes` says whether a call is the kernel's by its device,
+dtype, grad and head widths. It bypasses the op registry: no tune-cache
+probe, no dispatch event.
+
 **Observability.** With ``REPRO_OBS=1`` (`repro_torch.obs`), every call
 records one dispatch event (the choice and where each field came from,
 queryable via `repro_torch.obs.dispatch_log()`), bumps the per-(op,
@@ -58,6 +64,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.quantize import SegmentedLinearParams
 from repro_torch.kernels import tune
+from repro_torch.kernels.attn.kernel import attention_fused_cuda, attn_plan
 from repro_torch.kernels.common import check_pipeline
 from repro_torch.kernels.qconv.kernel import qconv2d_fused
 from repro_torch.kernels.qmatmul.kernel import (qmatmul_grouped,
@@ -353,6 +360,28 @@ def qconv_run(params, x_hat: torch.Tensor, *, epilogue: str, scale,
         cin_pad=params.cin_pad, cout=params.cout, a_bits=g.a_bits,
         a_signed=g.a_signed, w_bits=g.w_bits, d=g.d, out_bits=g.out_bits,
         epilogue=epilogue, scale=scale, pipeline=pipeline)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              mode: str, window=None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Fused attention of q (B,S,Hk,G,Dh) over k (B,T,Hk,Dh) and v
+    (B,T,Hk,Dv): (B,S,Hk*G*Dv) in v's dtype, from the Hopper kernel
+    (``csrc/attn.cu``); raises on a call outside its domain
+    (`kernels/attn/kernel.py::refusal`), the layout's included."""
+    return attention_fused_cuda(q, k, v, mode=mode, window=window,
+                                scale=scale)
+
+
+def attention_takes(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> bool:
+    """Whether `attention` is this call's path: CUDA bf16 tensors, none
+    requiring grad, at head widths the kernel has a plan for
+    (`attn_plan`). The layout and the mask are not read here: a call
+    the kernel takes by these but refuses by those raises."""
+    return (all(x.is_cuda and x.dtype == torch.bfloat16
+                and not x.requires_grad for x in (q, k, v))
+            and attn_plan(q.shape[-1], v.shape[-1]) is not None)
 
 
 # ------------------------------------------------ cluster-parallel path ---

@@ -60,15 +60,19 @@ def nvcc_path() -> str:
 class CudaKernel:
     """One CUDA source bound through ctypes, with its launch counts.
 
+    ``headers``: the ``csrc/`` headers the source includes, hashed into
+    the library's name with it.
+
     ``launches[stages]`` counts the launches of each pipeline
     instantiation; the wrapper adds one where it launches, nowhere else.
     """
 
     def __init__(self, name: str, source: str, entry: str,
-                 argtypes: Sequence):
+                 argtypes: Sequence, headers: Sequence[str] = HEADERS):
         self.name = name
         self.source = CSRC / source
         self.entry = entry
+        self.headers = tuple(headers)
         self.argtypes = list(argtypes)
         self.launches: Dict[int, int] = {1: 0, 2: 0}
         self._fn = None
@@ -78,7 +82,7 @@ class CudaKernel:
 
     def library_path(self) -> pathlib.Path:
         h = hashlib.sha256()
-        for p in (self.source, *(CSRC / n for n in HEADERS)):
+        for p in (self.source, *(CSRC / n for n in self.headers)):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return build_dir() / f"lib{self.name}-{h.hexdigest()[:12]}.so"

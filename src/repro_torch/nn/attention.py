@@ -4,9 +4,16 @@ a ring of window slots for local attention.
 
 GQA keeps an explicit group dim (no KV head is ever replicated). Every
 projection is a quantization-aware dense layer, so the packed sub-byte
-GEMM serves all four. The score and value contractions are plain torch
-einsums with a float32 softmax, as the reference leaves them to XLA
-outside any kernel.
+GEMM serves all four. The reference leaves the score and value
+contractions to XLA outside any kernel; here the meshless prefill
+attention (`attn_core`) runs the fused attention kernel
+(`kernels/api.py::attention`) on bf16 CUDA inputs that require no grad
+in its domain, the scores never in device memory, and `_sdpa` (plain
+torch einsums with a float32 softmax) on every other call: the CPU, a
+float32 model, training, and decode and the tensor-parallel paths,
+which call `_sdpa` themselves. With ``REPRO_OBS=1`` the counters
+``attn.kernel_calls`` and ``attn.plain_calls`` count `attn_core`'s calls
+on each path.
 
 Under tensor parallelism (`repro_torch.parallel.tp`) the projections
 split by `attn_layout`: wq column-parallel over whole heads ('tp', when
@@ -30,10 +37,12 @@ from typing import Optional
 import torch
 
 from repro_torch.deploy.policy import PrecisionPlan, resolve_qcfg
+from repro_torch.kernels import api as kapi
 from repro_torch.nn.layers import (QOFF, QuantConfig, const, dense_apply,
                                    dense_col, dense_cuts, dense_def,
                                    dense_row, rope_apply, rope_single,
                                    row_parallel_ok)
+from repro_torch.obs import trace as obs
 from repro_torch.parallel import tp
 from repro_torch.parallel.ctx import active_mesh
 from repro_torch.parallel.sharding import cache_shardings
@@ -184,7 +193,13 @@ def attn_qkv(p, x, cfg: AttnConfig, *, cos, sin, cross_kv=None):
 def attn_core(q, k, v, *, mode, window, scale=None):
     """`attn_apply`'s meshless attention over `attn_qkv`'s q, k, v: the
     mask, scores (times ``scale``, as `_sdpa`), softmax and values,
-    (B,S,H*Dv) in v's dtype."""
+    (B,S,H*Dv) in v's dtype. The fused kernel where it takes the call
+    (`kernels/api.py::attention_takes`), else `_sdpa`."""
+    if kapi.attention_takes(q, k, v):
+        obs.counter("attn.kernel_calls").add(1)
+        return kapi.attention(q, k, v, mode=mode, window=window,
+                              scale=scale)
+    obs.counter("attn.plain_calls").add(1)
     b, s = q.shape[:2]
     mask = _mask_full(s, k.shape[1], mode, window, q.device)
     return _sdpa(q, k, v, mask[None, None, None], scale).reshape(b, s, -1)
